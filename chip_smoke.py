@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA card of compute capability 9.0+ and ``nvcc``; imports
+neither JAX nor the JAX package.  Phases, each printing one JSON line:
+
+  env     torch/CUDA versions, the card, its power limit
+  build   the kernels, built from ``src/repro_torch/kernels/csrc`` in
+          parallel into ``build/repro_torch``
+  kernel  each kernel against its plain version, at snn-mnist's main-path
+          shapes (batch 256, T=8) and at SAME-pad, 5x5, all-zero, faint
+          analog and CBWS-permuted cases; kernel, plain and library times
+  model   full-width snn-mnist, batch 256: backend="hopper" with an
+          aprc+cbws schedule against backend="batched" (plain ops), both
+          on the card; launch counts per forward
+  profile one hopper forward's device time by kernel (torch.profiler)
+          against its time between CUDA events: the device's idle share
+  serve   the serve launcher answering a few requests (the main path; the
+          kernels' launch counts are read around it)
+
+then the card's name and power limit as nvidia-smi gives them, the
+kernels' summary line and, last, ``{"ok": true, "device": {...}}``.  A
+failed check raises, and the script exits nonzero.
+
+The comparison rule for the spike trains.  The kernels sum the taps in
+another order than cuDNN, so a membrane within a few ulps of v_th can
+fire in one and not in the other (a threshold flip), and that site's
+train differs from then on.  So a spike train passes when at most
+``MAX_FLIP_FRACTION`` of its sites (batch x pixel x channel) differ, every
+differing site first differs at a step where the plain pre-reset membrane
+lay within ``FLIP_BAND`` of v_th, and the final membranes of all agreeing
+sites agree to ``V_ATOL``.  dV of the conv kernel agrees to 1e-5 (abs and
+rel).  All plain versions and yardsticks run with TF32 off.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+MAX_FLIP_FRACTION = 1e-5   # sites of a spike train that may differ
+FLIP_BAND = 1e-4           # |u - v_th| at a site's first differing step
+V_ATOL = 1e-4              # final membrane at sites whose trains agree
+DV_TOL = 1e-5              # conv kernel dV, abs and rel
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores — the kernels run on the float32 FMA pipes
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+BATCH, SEED = 256, 0
+
+
+def emit(phase: str, **rec) -> None:
+    print(json.dumps({"phase": phase, **rec}), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of one call of ``fn`` on the card (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# -- work and bounds ---------------------------------------------------------
+
+def conv_work(x, w, aprc: bool, lif: bool):
+    """(bytes, FLOPs) one call must move and compute on this input: each
+    input byte read once, each output written once; the taps of every
+    (image, row-block) whose receptive rows hold a nonzero input (the
+    kernel's skip), plus 4 FLOPs per membrane update for the LIF."""
+    import torch
+    from repro_torch.kernels.spiking_conv import (conv_pads, plan_tiles,
+                                                  row_block_counts)
+    r, _, cin, cout = w.shape
+    *lead, h, wd, _ = x.shape
+    lo, _ = conv_pads(r, aprc)
+    e_h, e_w = (h + r - 1, wd + r - 1) if aprc else (h, wd)
+    br, _ = plan_tiles(e_w, r, cin, cout)
+    n_blocks = -(-e_h // br)
+    imgs = x.reshape(-1, h, wd, cin)
+    padded = torch.zeros((imgs.shape[0], n_blocks * br + r - 1, 1, 1),
+                         device=x.device)
+    padded[:, lo:lo + h, 0, 0] = (imgs != 0).sum(dim=(2, 3)).float()
+    live = row_block_counts(padded, r, br, n_blocks) != 0   # (N, n_blocks)
+    rows = torch.full((n_blocks,), br, device=x.device)
+    rows[-1] = e_h - (n_blocks - 1) * br
+    live_rows = float((live.float() * rows).sum())
+    flops = 2.0 * r * r * cin * cout * e_w * live_rows
+    n_out = imgs.shape[0] * e_h * e_w * cout
+    out_bytes = 4 * n_out
+    in_bytes = 4 * (x.numel() + w.numel() + cout)
+    if lif:
+        flops += 4.0 * n_out
+        membranes = 4 * n_out // lead[0]
+        in_bytes += membranes                   # v0
+        out_bytes += membranes                  # v_final
+    return in_bytes + out_bytes, flops
+
+
+def bound(nbytes: float, flops: float):
+    t_mem, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+# -- comparison rules --------------------------------------------------------
+
+def check_train(name, s, v, s_p, v_p, u_p, v_th):
+    """The spike-train rule of the module doc; returns its numbers."""
+    import torch
+    diff = s != s_p
+    site_diff = diff.any(dim=0)
+    n_sites, n_mis = site_diff.numel(), int(site_diff.sum())
+    worst_u = 0.0
+    if n_mis:
+        first = diff.float().argmax(dim=0)
+        u_first = u_p.gather(0, first.unsqueeze(0))[0][site_diff]
+        worst_u = float((u_first - v_th).abs().max())
+    agree = ~site_diff
+    v_err = float((v - v_p).abs()[agree].max()) if bool(agree.any()) else 0.0
+    rec = {"sites": n_sites, "mismatched_sites": n_mis,
+           "mismatch_fraction": n_mis / n_sites,
+           "max_abs_u_minus_vth_at_flip": worst_u,
+           "max_abs_err_v_agreeing": v_err,
+           "spikes": float(s.sum()), "spikes_plain": float(s_p.sum())}
+    if n_mis / n_sites > MAX_FLIP_FRACTION:
+        fail(f"{name}: {n_mis}/{n_sites} sites differ (> {MAX_FLIP_FRACTION})")
+    if worst_u > FLIP_BAND:
+        fail(f"{name}: a site differs where the plain membrane was "
+             f"{worst_u} from v_th (> {FLIP_BAND}): not a threshold flip")
+    if v_err > V_ATOL:
+        fail(f"{name}: final membrane differs by {v_err} (> {V_ATOL})")
+    return rec
+
+
+def check_dv(name, got, want):
+    import torch
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=DV_TOL, rtol=DV_TOL):
+        fail(f"{name}: dV differs by up to {err}")
+    return err
+
+
+# -- phases ------------------------------------------------------------------
+
+def phase_env():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), capability=list(cap),
+         nvidia_smi=smi, tf32_cudnn=torch.backends.cudnn.allow_tf32,
+         tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
+    if cap < (9, 0):
+        fail(f"compute capability {cap} < (9, 0): the kernels are sm_90a")
+    return smi
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    reports = _build.build(_build.KERNELS)
+    seconds = time.perf_counter() - t0
+    lines = [ln.strip() for log in reports.values()
+             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ptxas.txt").write_text(
+        "\n\n".join(f"== {k}\n{v}" for k, v in reports.items()))
+    spills = [ln for ln in lines if "spill" in ln and not
+              ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                            "0 bytes spill loads")]
+    emit("build", seconds=seconds, built=sorted(reports),
+         ptxas=lines, nonzero_spills=spills)
+
+
+def _model_trains(cfg, params, frames):
+    """The spike trains entering snn-mnist layers 1 and 2, made by the plain
+    versions from the frames (the inputs the main path gives kernel B)."""
+    import torch
+    from repro_torch.core.snn_model import _lif_scan, layer_shapes
+    from repro_torch.kernels.spiking_conv import spiking_conv_plain
+    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif_plain
+    conv, v_th = params["conv"], cfg.v_threshold
+    z0 = spiking_conv_plain(frames, conv[0]["w"], conv[0]["b"])
+    s0, _, _ = _lif_scan(z0, v_th, 10.0, "fast_sigmoid",
+                         torch.zeros_like(z0), const_t=cfg.timesteps)
+    v1 = frames.new_zeros((frames.shape[0],) + layer_shapes(cfg)[1])
+    s1, _ = spiking_conv_lif_plain(s0, v1, conv[1]["w"], conv[1]["b"],
+                                   v_th=v_th)
+    return s0.contiguous(), s1.contiguous()
+
+
+def phase_kernels(cfg, params, frames, trains):
+    """Every kernel against its plain version; returns the summary entries
+    of the main-path shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.aprc import filter_magnitudes
+    from repro_torch.core.cbws import cbws_partition_equal
+    from repro_torch.core.snn_layers import conv_out_hw
+    from repro_torch.core.snn_model import layer_shapes
+    from repro_torch.kernels.spiking_conv import (spiking_conv,
+                                                  spiking_conv_plain)
+    from repro_torch.kernels.spiking_conv_lif import (spiking_conv_lif,
+                                                      spiking_conv_lif_plain)
+    from repro_torch.device import full_fp32
+    dev, v_th = frames.device, cfg.v_threshold
+    conv = params["conv"]
+    s0, s1 = trains
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def spikes(*shape, rate):
+        return (torch.rand(shape, generator=gen) < rate).float().to(dev)
+
+    summary = {}
+
+    # kernel A: the hoisted first layer, then its other cases
+    w0, b0 = conv[0]["w"], conv[0]["b"]
+    got = spiking_conv(frames, w0, b0)
+    err = check_dv("spiking_conv layer0", got, spiking_conv_plain(frames, w0,
+                                                                  b0))
+    nbytes, flops = conv_work(frames, w0, True, lif=False)
+    w_oihw = w0.permute(3, 2, 0, 1).contiguous()
+    x_nchw = frames.permute(0, 3, 1, 2)
+
+    def library():
+        with full_fp32():
+            return F.conv2d(x_nchw, w_oihw, b0, padding=2)
+
+    rec = {"shape": list(frames.shape), "max_abs_err": err,
+           "ms": cuda_ms(lambda: spiking_conv(frames, w0, b0)),
+           "plain_ms": cuda_ms(lambda: spiking_conv_plain(frames, w0, b0)),
+           "library_ms": cuda_ms(library)}
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    rec["bytes"], rec["flops"] = nbytes, flops
+    emit("kernel", name="spiking_conv", case="snn-mnist layer 0", **rec)
+    summary["spiking_conv"] = [rec]
+
+    a_cases = {
+        "same-pad 3x3": (spikes(64, 32, 32, 16, rate=0.2),
+                         rand(3, 3, 16, 32, scale=0.1), rand(32, scale=0.1),
+                         False),
+        "5x5 taps": (spikes(64, 28, 28, 8, rate=0.2),
+                     rand(5, 5, 8, 16, scale=0.1), rand(16, scale=0.1), True),
+        "all-zero input": (torch.zeros((64, 30, 30, 16), device=dev),
+                           conv[1]["w"], conv[1]["b"] + 0.25, True),
+    }
+    faint = torch.zeros((4, 28, 28, 1), device=dev)
+    faint[0, 5, 9, 0] = 0.2
+    faint[3, 27, 0, 0] = 0.01
+    a_cases["faint analog frame"] = (faint, w0, b0, True)
+    for case, (x, w, b, aprc) in a_cases.items():
+        got = spiking_conv(x, w, b, aprc=aprc)
+        err = check_dv(f"spiking_conv {case}", got,
+                       spiking_conv_plain(x, w, b, aprc=aprc))
+        if case == "faint analog frame" and not bool(
+                (got[0] != b0).any() and (got[3] != b0).any()):
+            fail("spiking_conv skipped a faint analog frame")
+        emit("kernel", name="spiking_conv", case=case, shape=list(x.shape),
+             max_abs_err=err)
+
+    # kernel B: snn-mnist layers 1 and 2 at the main path's inputs
+    summary["spiking_conv_lif"] = []
+    for layer, x in ((1, s0), (2, s1)):
+        w, b = conv[layer]["w"], conv[layer]["b"]
+        v0 = torch.zeros((BATCH,) + layer_shapes(cfg)[layer], device=dev)
+        s, v = spiking_conv_lif(x, v0, w, b, v_th=v_th)
+        s_p, v_p, u_p = spiking_conv_lif_plain(x, v0, w, b, v_th=v_th,
+                                               save_u=True)
+        rec = check_train(f"spiking_conv_lif layer{layer}", s, v, s_p, v_p,
+                          u_p, v_th)
+        del s_p, v_p, u_p
+        nbytes, flops = conv_work(x, w, True, lif=True)
+        rec.update(
+            shape=list(x.shape), max_abs_err=rec["max_abs_err_v_agreeing"],
+            ms=cuda_ms(lambda: spiking_conv_lif(x, v0, w, b, v_th=v_th),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: spiking_conv_lif_plain(
+                x, v0, w, b, v_th=v_th), reps=10),
+            library_ms=None, bytes=nbytes, flops=flops)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        emit("kernel", name="spiking_conv_lif", case=f"snn-mnist layer "
+             f"{layer}", **rec)
+        summary["spiking_conv_lif"].append(rec)
+
+    # build_schedule's output lanes are contiguous stripes (the identity
+    # permutation), so the lanes here are equal-size CBWS groups of layer
+    # 1's filter magnitudes, which do reorder the output channels
+    w1, b1 = conv[1]["w"], conv[1]["b"]
+    perm = torch.as_tensor(cbws_partition_equal(
+        filter_magnitudes(w1, "abs"), 4).permutation(), device=dev)
+    b_cases = {
+        "same-pad 3x3": (spikes(8, 32, 32, 32, 16, rate=0.2),
+                         rand(3, 3, 16, 32, scale=0.15),
+                         rand(32, scale=0.05), False, None),
+        "5x5 taps": (spikes(8, 32, 28, 28, 8, rate=0.2),
+                     rand(5, 5, 8, 16, scale=0.1), rand(16, scale=0.05),
+                     True, None),
+        "all-zero train": (torch.zeros((8, 64, 30, 30, 16), device=dev),
+                           conv[1]["w"], torch.full((32,), 0.3, device=dev),
+                           True, None),
+        "cbws-permuted weights": (s0[:, :64].contiguous(),
+                                  w1[..., perm].contiguous(), b1[perm], True,
+                                  perm),
+    }
+    for case, (x, w, b, aprc, out_perm) in b_cases.items():
+        e_h, e_w = conv_out_hw(x.shape[2], x.shape[3], w.shape[0], aprc)
+        v0 = rand(x.shape[1], e_h, e_w, w.shape[-1], scale=0.3)
+        s, v = spiking_conv_lif(x, v0, w, b, v_th=v_th, aprc=aprc)
+        if out_perm is None:
+            s_p, v_p, u_p = spiking_conv_lif_plain(
+                x, v0, w, b, v_th=v_th, aprc=aprc, save_u=True)
+        else:
+            # plain on the canonical weights, then the lanes' channel order
+            inv = out_perm.argsort()
+            s_p, v_p, u_p = spiking_conv_lif_plain(
+                x, v0[..., inv], w1, b1, v_th=v_th,
+                aprc=aprc, save_u=True)
+            s_p, v_p, u_p = s_p[..., out_perm], v_p[..., out_perm], \
+                u_p[..., out_perm]
+        rec = check_train(f"spiking_conv_lif {case}", s, v, s_p, v_p, u_p,
+                          v_th)
+        if case == "all-zero train" and not (rec["spikes"] > 0 and
+                                             rec["mismatched_sites"] == 0):
+            fail("spiking_conv_lif: the bias-only skip path did not fire "
+                 "exactly like the plain version")
+        emit("kernel", name="spiking_conv_lif", case=case,
+             shape=list(x.shape), **rec)
+    return summary
+
+
+def phase_model(cfg, params, frames, trains):
+    import torch
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.snn_model import snn_apply
+    from repro_torch.kernels.spiking_conv import (skip_table_fraction,
+                                                  spiking_conv)
+    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+    sched = build_schedule(params, cfg, "aprc+cbws")
+    spiking_conv.launches = spiking_conv_lif.launches = 0
+    got = snn_apply(params, frames, cfg, backend="hopper", schedule=sched)
+    torch.cuda.synchronize()
+    launches = {"spiking_conv": spiking_conv.launches,
+                "spiking_conv_lif": spiking_conv_lif.launches}
+    if launches != {"spiking_conv": 1, "spiking_conv_lif": 2}:
+        fail(f"one hopper forward launched {launches}, expected 1 and 2")
+    want = snn_apply(params, frames, cfg, backend="batched")
+    want_skips = [float(skip_table_fraction(t, cfg.kernel_size))
+                  for t in trains]
+    forward_ms = cuda_ms(lambda: snn_apply(params, frames, cfg,
+                                           backend="hopper", schedule=sched),
+                         reps=10)
+    logit_err = float((got.logits - want.logits).abs().max())
+    totals = [(float(a), float(b)) for a, b in zip(got.spike_totals,
+                                                   want.spike_totals)]
+    rel = [abs(a - b) / max(b, 1.0) for a, b in totals]
+    skips = [float(f) for f in got.skip_fractions]
+    emit("model", config=cfg.name, batch=BATCH, timesteps=cfg.timesteps,
+         schedule="aprc+cbws", launches_per_forward=launches,
+         max_abs_err_logits=logit_err, spike_totals=totals,
+         spike_totals_rel_diff=rel, skip_fractions=skips,
+         skip_fractions_plain=want_skips,
+         forward_ms=forward_ms,
+         forward_ms_batched=cuda_ms(lambda: snn_apply(
+             params, frames, cfg, backend="batched"), reps=10))
+    if tuple(got.logits.shape) != (BATCH, cfg.dense_units[-1]) or not bool(
+            torch.isfinite(got.logits).all()):
+        fail(f"logits {tuple(got.logits.shape)} not finite/of the "
+             f"expected shape")
+    if logit_err > 1e-3:
+        fail(f"hopper logits differ from batched by {logit_err} (> 1e-3)")
+    if max(rel) > 1e-5:
+        fail(f"hopper spike totals differ from batched by {max(rel)} "
+             f"(> 1e-5)")
+    if len(skips) != 2 or max(abs(a - b) for a, b in
+                              zip(skips, want_skips)) > 1e-3:
+        fail(f"skip fractions {skips} vs the plain trains' {want_skips}")
+    phase_profile(lambda: snn_apply(params, frames, cfg, backend="hopper",
+                                    schedule=sched), forward_ms)
+
+
+def phase_profile(forward, forward_ms: float, reps: int = 3):
+    """Where one hopper forward's time goes: device time by kernel (the
+    profiler's CUDA activity), against the forward's time between CUDA
+    events without the profiler (``forward_ms``): the rest is the device
+    idle, waiting for the host to launch the next kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    forward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            forward()
+        torch.cuda.synchronize()
+    by_kernel, launches = {}, 0
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dev_us / 1e3 / reps
+            launches += e.count
+    device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    emit("profile", forwards=reps, forward_ms=forward_ms,
+         device_ms_per_forward=device_ms,
+         device_idle_share=max(0.0, 1.0 - device_ms / forward_ms),
+         device_launches_per_forward=launches / reps,
+         top_device_ms=[[k[:90], v] for k, v in top])
+
+
+def phase_serve(cfg, steps: int = 8):
+    """The main path: the serve launcher answering requests.  Returns the
+    kernels' launch counts over the run."""
+    from repro_torch.kernels.spiking_conv import spiking_conv
+    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+    from repro_torch.launch.serve import serve
+    spiking_conv.launches = spiking_conv_lif.launches = 0
+    s = serve(cfg, backend="hopper", schedule="aprc+cbws", batch=BATCH,
+              steps=steps, seed=SEED, device="cuda")
+    launches = {"spiking_conv": spiking_conv.launches,
+                "spiking_conv_lif": spiking_conv_lif.launches}
+    emit("serve", config=cfg.name, batch=BATCH, requests=steps + 1,
+         timed_requests=steps, frames=s["frames"], seconds=s["seconds"],
+         fps=s["fps"], spikes_per_frame=s["spikes_per_frame"],
+         device=s["device"], launches=launches)
+    if launches["spiking_conv"] == 0 or launches["spiking_conv_lif"] == 0:
+        fail(f"the serve run did not go through every kernel: {launches}")
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on the card", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
+              f"run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch.config import get_snn
+    from repro_torch.core.snn_model import init_snn
+
+    t0 = time.perf_counter()
+    smi = phase_env()
+    phase_build()
+    cfg = get_snn("snn-mnist")
+    with torch.inference_mode():
+        params = init_snn(torch.Generator().manual_seed(SEED), cfg,
+                          device="cuda")
+        frames = torch.from_numpy(np.random.default_rng(SEED).random(
+            (BATCH, *cfg.input_hw, cfg.input_channels),
+            dtype=np.float32)).cuda()
+        trains = _model_trains(cfg, params, frames)
+        summary = phase_kernels(cfg, params, frames, trains)
+        phase_model(cfg, params, frames, trains)
+        del trains
+        launches = phase_serve(cfg)
+    kernels = []
+    sources = {"spiking_conv": ("src/repro_torch/kernels/csrc/spiking_conv.cu",
+                                "src/repro/kernels/spiking_conv.py:149"),
+               "spiking_conv_lif": (
+                   "src/repro_torch/kernels/csrc/spiking_conv_lif.cu",
+                   "src/repro/kernels/spiking_conv_lif.py:208")}
+    for name, recs in summary.items():
+        # per snn-mnist forward: the sum over the kernel's main-path shapes
+        bytes_, flops = sum(r["bytes"] for r in recs), sum(r["flops"]
+                                                           for r in recs)
+        bound_ms, bound_by = bound(bytes_, flops)
+        lib = [r["library_ms"] for r in recs]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": sum(r["ms"] for r in recs),
+            "plain_ms": sum(r["plain_ms"] for r in recs),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if None in lib else sum(lib),
+            "shapes": [r["shape"] for r in recs]})
+    emit("done", seconds=time.perf_counter() - t0)
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
