@@ -11,14 +11,25 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           parallel into ``build/repro_torch``
   kernel  each kernel against its plain version, at snn-mnist's main-path
           shapes (batch 256, T=8) and at SAME-pad, 5x5, all-zero, faint
-          analog and CBWS-permuted cases; kernel, plain and library times
+          analog and CBWS-permuted cases; kernel, plain and library times.
+          The training kernels run on what the train step gives them: the
+          training forward (C) on the layers' input trains, the LIF
+          backward (D) on C's u with random cotangents, for every
+          surrogate, and the input gradient (E) on D's lam folded to
+          (T*B, ...), plus SAME-pad, 5x5, ragged and mostly-zero cases
   model   full-width snn-mnist, batch 256: backend="hopper" with an
           aprc+cbws schedule against backend="batched" (plain ops), both
           on the card; launch counts per forward
   profile one hopper forward's device time by kernel (torch.profiler)
           against its time between CUDA events: the device's idle share
-  serve   the serve launcher answering a few requests (the main path; the
-          kernels' launch counts are read around it)
+  serve   the serve launcher answering a few requests (the main path of
+          inference; kernels A and B's launch counts are read around it)
+  train   (a) one loss and gradient at full width, batch 256: hopper
+          against batched, with the forward's threshold flips counted;
+          (b) the training launcher, 10 SGD steps on each backend (the
+          main path of training; kernels C, D and E's launch counts are
+          read around the hopper run); (c) one train step's time and its
+          device time by kernel
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line and, last, ``{"ok": true, "device": {...}}``.  A
@@ -32,7 +43,13 @@ train differs from then on.  So a spike train passes when at most
 differing site first differs at a step where the plain pre-reset membrane
 lay within ``FLIP_BAND`` of v_th, and the final membranes of all agreeing
 sites agree to ``V_ATOL``.  dV of the conv kernel agrees to 1e-5 (abs and
-rel).  All plain versions and yardsticks run with TF32 off.
+rel).  The saved membrane u agrees to ``U_ATOL`` where the trains agree;
+the LIF backward to ``BWD_TOL`` (rel and abs: it repeats the plain
+version's float operations); the input gradient to ``DX_TOL`` of its
+largest value.  A train step's loss agrees with batched to ``LOSS_ATOL``;
+with no threshold flip in the forward, every gradient leaf agrees to a
+relative norm of ``GRAD_REL``.  All plain versions and yardsticks run with
+TF32 off.
 """
 from __future__ import annotations
 
@@ -49,6 +66,14 @@ MAX_FLIP_FRACTION = 1e-5   # sites of a spike train that may differ
 FLIP_BAND = 1e-4           # |u - v_th| at a site's first differing step
 V_ATOL = 1e-4              # final membrane at sites whose trains agree
 DV_TOL = 1e-5              # conv kernel dV, abs and rel
+U_ATOL = 1e-5              # saved pre-reset membrane, where trains agree
+BWD_TOL = 1e-6             # LIF backward lam and dv0, rel and abs
+DX_TOL = 1e-5              # input gradient, relative to its largest value
+LOSS_ATOL = 1e-5           # train-step loss, hopper against batched
+GRAD_REL = 1e-4            # ||g_hopper - g_batched|| / ||g_batched||
+FLIP_GRAD_REL = 1e-2       # the same, when the forward had threshold flips
+TRAJ_TOL = 1e-3            # 10-step loss trajectories, rel and abs
+MIN_LOSS_DROP = 0.05       # the hopper run's first loss minus its last
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores — the kernels run on the float32 FMA pipes
 PEAK_BYTES = 3.35e12
@@ -83,31 +108,41 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 # -- work and bounds ---------------------------------------------------------
 
-def conv_work(x, w, aprc: bool, lif: bool):
+def tap_flops(imgs, r: int, cout: int, pad_lo: int, e_h: int, e_w: int,
+              br: int) -> float:
+    """FLOPs of the taps of every (image, row-block) whose receptive rows
+    hold a nonzero input (the conv kernels' skip): imgs (N, H, W, Cin),
+    output rows e_h in blocks of br, pad_lo rows of padding above."""
+    import torch
+    from repro_torch.kernels.spiking_conv import row_block_counts
+    n_img, h, _, cin = imgs.shape
+    n_blocks = -(-e_h // br)
+    padded = torch.zeros((n_img, n_blocks * br + r - 1, 1, 1),
+                         device=imgs.device)
+    padded[:, pad_lo:pad_lo + h, 0, 0] = (imgs != 0).sum(dim=(2, 3)).float()
+    live = row_block_counts(padded, r, br, n_blocks) != 0   # (N, n_blocks)
+    rows = torch.full((n_blocks,), br, device=imgs.device)
+    rows[-1] = e_h - (n_blocks - 1) * br
+    live_rows = float((live.float() * rows).sum())
+    return 2.0 * r * r * cin * cout * e_w * live_rows
+
+
+def conv_work(x, w, aprc: bool, lif: bool, save_u: bool = False):
     """(bytes, FLOPs) one call must move and compute on this input: each
     input byte read once, each output written once; the taps of every
     (image, row-block) whose receptive rows hold a nonzero input (the
-    kernel's skip), plus 4 FLOPs per membrane update for the LIF."""
-    import torch
-    from repro_torch.kernels.spiking_conv import (conv_pads, plan_tiles,
-                                                  row_block_counts)
+    kernel's skip), plus 4 FLOPs per membrane update for the LIF; with
+    ``save_u`` also the pre-reset membrane written."""
+    from repro_torch.kernels.spiking_conv import conv_pads, plan_tiles
     r, _, cin, cout = w.shape
     *lead, h, wd, _ = x.shape
     lo, _ = conv_pads(r, aprc)
     e_h, e_w = (h + r - 1, wd + r - 1) if aprc else (h, wd)
     br, _ = plan_tiles(e_w, r, cin, cout)
-    n_blocks = -(-e_h // br)
     imgs = x.reshape(-1, h, wd, cin)
-    padded = torch.zeros((imgs.shape[0], n_blocks * br + r - 1, 1, 1),
-                         device=x.device)
-    padded[:, lo:lo + h, 0, 0] = (imgs != 0).sum(dim=(2, 3)).float()
-    live = row_block_counts(padded, r, br, n_blocks) != 0   # (N, n_blocks)
-    rows = torch.full((n_blocks,), br, device=x.device)
-    rows[-1] = e_h - (n_blocks - 1) * br
-    live_rows = float((live.float() * rows).sum())
-    flops = 2.0 * r * r * cin * cout * e_w * live_rows
+    flops = tap_flops(imgs, r, cout, lo, e_h, e_w, br)
     n_out = imgs.shape[0] * e_h * e_w * cout
-    out_bytes = 4 * n_out
+    out_bytes = 4 * n_out * (2 if save_u else 1)
     in_bytes = 4 * (x.numel() + w.numel() + cout)
     if lif:
         flops += 4.0 * n_out
@@ -115,6 +150,31 @@ def conv_work(x, w, aprc: bool, lif: bool):
         in_bytes += membranes                   # v0
         out_bytes += membranes                  # v_final
     return in_bytes + out_bytes, flops
+
+
+def grad_input_work(dz, w, aprc: bool):
+    """(bytes, FLOPs) of the input gradient: dz read once, dx written once,
+    the transposed taps of every row-block with a nonzero cotangent."""
+    from repro_torch.kernels.spiking_conv import conv_pads, plan_tiles
+    r, _, cin, cout = w.shape
+    n, e_h, e_w, _ = dz.shape
+    lo, hi = conv_pads(r, aprc)
+    h, wd = e_h + r - 1 - lo - hi, e_w + r - 1 - lo - hi
+    br, _ = plan_tiles(wd, r, cout, cin)
+    flops = tap_flops(dz, r, cin, r - 1 - lo, h, wd, br)
+    return 4 * (dz.numel() + w.numel() + n * h * wd * cin), flops
+
+
+# per element and step of the LIF backward: u - v_th, the surrogate (at
+# most 6 operations), then c + (g_s - v_th * c) * sg (4)
+LIF_BWD_FLOPS = 10
+
+
+def lif_bwd_work(u):
+    """(bytes, FLOPs) of the LIF backward: u, g_s read and lam written per
+    step, g_v read and dv0 written once."""
+    t, m = u.shape[0], u[0].numel()
+    return 4 * (3 * t * m + 2 * m), float(LIF_BWD_FLOPS * t * m)
 
 
 def bound(nbytes: float, flops: float):
@@ -151,6 +211,15 @@ def check_train(name, s, v, s_p, v_p, u_p, v_th):
     if v_err > V_ATOL:
         fail(f"{name}: final membrane differs by {v_err} (> {V_ATOL})")
     return rec
+
+
+def check_dx(name, got, want):
+    """The input gradient agrees to DX_TOL of its largest value."""
+    err = float((got - want).abs().max())
+    if got.shape != want.shape or err > DX_TOL * float(want.abs().max()):
+        fail(f"{name}: dx {tuple(got.shape)} differs from the plain "
+             f"{tuple(want.shape)} by up to {err}")
+    return err
 
 
 def check_dv(name, got, want):
@@ -359,6 +428,135 @@ def phase_kernels(cfg, params, frames, trains):
     return summary
 
 
+def phase_train_kernels(cfg, params, trains):
+    """Kernels C, D and E against their plain versions on what the train
+    step gives them; returns their summary entries."""
+    import torch
+    from repro_torch.core.snn_model import layer_shapes
+    from repro_torch.core.surrogate import SURROGATE_KINDS
+    from repro_torch.device import full_fp32
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spiking_conv import conv_grad_input
+    from repro_torch.kernels.spiking_conv_lif import (lif_bwd,
+                                                      spiking_conv_lif_fwd)
+    dev, v_th, conv = trains[0].device, cfg.v_threshold, params["conv"]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    summary = {"spiking_conv_lif_fwd": [], "lif_bwd": [],
+               "conv_grad_input": []}
+    lams = {}
+    for layer, x in ((1, trains[0]), (2, trains[1])):
+        w, b = conv[layer]["w"], conv[layer]["b"]
+        v0 = torch.zeros((BATCH,) + layer_shapes(cfg)[layer], device=dev)
+        # kernel C: kernel B's outputs plus u
+        s, v, u = spiking_conv_lif_fwd(x, v0, w, b, v_th=v_th)
+        s_p, v_p, u_p = ref.spiking_conv_lif_ref(x, v0, w, b, v_th=v_th,
+                                                 save_u=True)
+        rec = check_train(f"spiking_conv_lif_fwd layer{layer}", s, v, s_p,
+                          v_p, u_p, v_th)
+        agree = (s == s_p).all(dim=0)
+        u_err = float((u - u_p).abs()[:, agree].max())
+        if u_err > U_ATOL:
+            fail(f"spiking_conv_lif_fwd layer{layer}: u differs by {u_err} "
+                 f"(> {U_ATOL}) where the trains agree")
+        del s, v, s_p, v_p, u_p
+        nbytes, flops = conv_work(x, w, True, lif=True, save_u=True)
+        rec.update(
+            shape=list(x.shape), max_abs_err=max(
+                u_err, rec["max_abs_err_v_agreeing"]),
+            max_abs_err_u_agreeing=u_err,
+            ms=cuda_ms(lambda: spiking_conv_lif_fwd(x, v0, w, b, v_th=v_th),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: ref.spiking_conv_lif_ref(
+                x, v0, w, b, v_th=v_th, save_u=True), reps=10),
+            library_ms=None, bytes=nbytes, flops=flops)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        emit("kernel", name="spiking_conv_lif_fwd",
+             case=f"snn-mnist layer {layer}", **rec)
+        summary["spiking_conv_lif_fwd"].append(rec)
+
+        # kernel D on C's u, every surrogate; fast_sigmoid (the default)
+        # is the main path's and its lam feeds kernel E
+        g_s, g_v = randn(*u.shape), randn(*u.shape[1:])
+        nbytes, flops = lif_bwd_work(u)
+        for kind in SURROGATE_KINDS:
+            kw = dict(v_th=v_th, alpha=10.0, kind=kind)
+            lam, dv0 = lif_bwd(u, g_s, g_v, **kw)
+            lam_p, dv0_p = ref.lif_bwd_ref(u, g_s, g_v, **kw)
+            errs = [float((a - b_).abs().max()) for a, b_ in
+                    ((lam, lam_p), (dv0, dv0_p))]
+            if not (torch.allclose(lam, lam_p, atol=BWD_TOL, rtol=BWD_TOL)
+                    and torch.allclose(dv0, dv0_p, atol=BWD_TOL,
+                                       rtol=BWD_TOL)):
+                fail(f"lif_bwd layer{layer} {kind}: lam/dv0 differ by "
+                     f"{errs}")
+            del lam_p, dv0_p
+            rec = {"shape": list(u.shape), "surrogate": kind,
+                   "max_abs_err": max(errs),
+                   "bit_identical": errs == [0.0, 0.0],
+                   "ms": cuda_ms(lambda: lif_bwd(u, g_s, g_v, **kw)),
+                   "plain_ms": cuda_ms(lambda: ref.lif_bwd_ref(u, g_s, g_v,
+                                                               **kw)),
+                   "library_ms": None, "bytes": nbytes, "flops": flops}
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+            emit("kernel", name="lif_bwd", case=f"snn-mnist layer {layer}",
+                 **rec)
+            if kind == "fast_sigmoid":
+                summary["lif_bwd"].append(rec)
+                lams[layer] = lam.reshape((-1,) + lam.shape[2:])
+            del lam, dv0
+        del u, g_s, g_v
+
+    # kernel E on lam folded to (T*B, ...): layer 2's backward, then 1's
+    for layer in (2, 1):
+        dz, w = lams.pop(layer), conv[layer]["w"]
+        got = conv_grad_input(dz, w)
+        want = ref.conv_grad_input_ref(dz, w)
+        err = check_dx(f"conv_grad_input layer{layer}", got, want)
+        del got, want
+        nbytes, flops = grad_input_work(dz, w, True)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        g_nchw = dz.permute(0, 3, 1, 2)
+        n, e_h, e_w, _ = dz.shape
+        r = w.shape[0]
+        x_size = (n, w.shape[2], e_h - r + 1, e_w - r + 1)
+
+        def library():
+            with full_fp32():
+                return torch.nn.grad.conv2d_input(x_size, w_oihw, g_nchw,
+                                                  padding=r - 1)
+
+        rec = {"shape": list(dz.shape), "max_abs_err": err,
+               "ms": cuda_ms(lambda: conv_grad_input(dz, w)),
+               "plain_ms": cuda_ms(lambda: ref.conv_grad_input_ref(dz, w)),
+               "library_ms": cuda_ms(library), "bytes": nbytes,
+               "flops": flops}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+        emit("kernel", name="conv_grad_input",
+             case=f"snn-mnist layer {layer} backward", **rec)
+        summary["conv_grad_input"].append(rec)
+        del dz
+
+    sparse = randn(64, 34, 34, 8)
+    sparse[:, 3:30] = 0.0                # rows 3..29: whole blocks skip
+    e_cases = {
+        "same-pad 3x3": (randn(64, 32, 32, 32), randn(3, 3, 16, 32), False),
+        "5x5 taps": (randn(64, 32, 32, 16), randn(5, 5, 8, 16), True),
+        "ragged rows": (randn(64, 29, 29, 8), randn(3, 3, 16, 8), True),
+        "mostly-zero cotangent": (sparse, conv[2]["w"], True),
+    }
+    for case, (dz, w, aprc) in e_cases.items():
+        err = check_dx(f"conv_grad_input {case}",
+                       conv_grad_input(dz, w, aprc=aprc),
+                       ref.conv_grad_input_ref(dz, w, aprc=aprc))
+        emit("kernel", name="conv_grad_input", case=case,
+             shape=list(dz.shape), max_abs_err=err)
+    return summary
+
+
 def phase_model(cfg, params, frames, trains):
     import torch
     from repro_torch.core.scheduler import build_schedule
@@ -406,22 +604,23 @@ def phase_model(cfg, params, frames, trains):
                               zip(skips, want_skips)) > 1e-3:
         fail(f"skip fractions {skips} vs the plain trains' {want_skips}")
     phase_profile(lambda: snn_apply(params, frames, cfg, backend="hopper",
-                                    schedule=sched), forward_ms)
+                                    schedule=sched), forward_ms,
+                  "hopper forward")
 
 
-def phase_profile(forward, forward_ms: float, reps: int = 3):
-    """Where one hopper forward's time goes: device time by kernel (the
-    profiler's CUDA activity), against the forward's time between CUDA
-    events without the profiler (``forward_ms``): the rest is the device
-    idle, waiting for the host to launch the next kernel."""
+def phase_profile(call, call_ms: float, what: str, reps: int = 3):
+    """Where one call's time goes (a hopper forward, a train step): device
+    time by kernel (the profiler's CUDA activity), against the call's time
+    between CUDA events without the profiler (``call_ms``): the rest is
+    the device idle, waiting for the host to launch the next kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    forward()
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            forward()
+            call()
         torch.cuda.synchronize()
     by_kernel, launches = {}, 0
     for e in prof.key_averages():
@@ -432,31 +631,181 @@ def phase_profile(forward, forward_ms: float, reps: int = 3):
             launches += e.count
     device_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    emit("profile", forwards=reps, forward_ms=forward_ms,
-         device_ms_per_forward=device_ms,
-         device_idle_share=max(0.0, 1.0 - device_ms / forward_ms),
-         device_launches_per_forward=launches / reps,
+    emit("profile", what=what, calls=reps, call_ms=call_ms,
+         device_ms_per_call=device_ms,
+         device_idle_share=max(0.0, 1.0 - device_ms / call_ms),
+         device_launches_per_call=launches / reps,
          top_device_ms=[[k[:90], v] for k, v in top])
 
 
 def phase_serve(cfg, steps: int = 8):
-    """The main path: the serve launcher answering requests.  Returns the
-    kernels' launch counts over the run."""
-    from repro_torch.kernels.spiking_conv import spiking_conv
-    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+    """The main path of inference: the serve launcher answering requests.
+    Returns the kernels' launch counts over the run."""
     from repro_torch.launch.serve import serve
-    spiking_conv.launches = spiking_conv_lif.launches = 0
+    reset_counts()
     s = serve(cfg, backend="hopper", schedule="aprc+cbws", batch=BATCH,
               steps=steps, seed=SEED, device="cuda")
-    launches = {"spiking_conv": spiking_conv.launches,
-                "spiking_conv_lif": spiking_conv_lif.launches}
+    launches = read_counts()
     emit("serve", config=cfg.name, batch=BATCH, requests=steps + 1,
          timed_requests=steps, frames=s["frames"], seconds=s["seconds"],
          fps=s["fps"], spikes_per_frame=s["spikes_per_frame"],
          device=s["device"], launches=launches)
     if launches["spiking_conv"] == 0 or launches["spiking_conv_lif"] == 0:
         fail(f"the serve run did not go through every kernel: {launches}")
-    return launches
+    return {k: launches[k] for k in ("spiking_conv", "spiking_conv_lif")}
+
+
+def _counters():
+    from repro_torch.kernels import spiking_conv as a
+    from repro_torch.kernels import spiking_conv_lif as b
+    return {"spiking_conv": a.spiking_conv,
+            "spiking_conv_lif": b.spiking_conv_lif,
+            "spiking_conv_lif_fwd": b.spiking_conv_lif_fwd,
+            "lif_bwd": b.lif_bwd, "conv_grad_input": a.conv_grad_input}
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _forward_trains(cfg, params, frames, hopper: bool):
+    """The spike trains of snn-mnist's three conv layers, computed the way
+    backend hopper (kernels) or batched (plain ops) computes them."""
+    import torch
+    from repro_torch.core.snn_model import (_conv_folded, _conv_plain,
+                                            _lif_scan, layer_shapes)
+    from repro_torch.kernels.spiking_conv import spiking_conv
+    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+    conv, v_th = params["conv"], cfg.v_threshold
+    with torch.no_grad():
+        z0 = (spiking_conv(frames, conv[0]["w"], conv[0]["b"]) if hopper
+              else _conv_plain(frames, conv[0], cfg.aprc))
+        s, _, _ = _lif_scan(z0, v_th, 10.0, "fast_sigmoid",
+                            torch.zeros_like(z0), const_t=cfg.timesteps)
+        trains = [s]
+        for i in range(1, len(conv)):
+            v0 = frames.new_zeros((frames.shape[0],) + layer_shapes(cfg)[i])
+            if hopper:
+                s, _ = spiking_conv_lif(s.contiguous(), v0, conv[i]["w"],
+                                        conv[i]["b"], v_th=v_th)
+            else:
+                s, _, _ = _lif_scan(_conv_folded(s, conv[i], cfg, False),
+                                    v_th, 10.0, "fast_sigmoid", v0)
+            trains.append(s)
+    return trains
+
+
+def _loss_and_grads(cfg, params, x, y, backend):
+    import torch
+    from repro_torch.core.snn_train import make_loss_fn
+    keys = [(kind, i, k) for kind in ("conv", "dense")
+            for i in range(len(params[kind])) for k in ("w", "b")]
+    leaves = [params[kind][i][k].detach().clone().requires_grad_(True)
+              for kind, i, k in keys]
+    it = iter(leaves)
+    tree = {kind: [{k: next(it) for k in ("w", "b")} for _ in params[kind]]
+            for kind in ("conv", "dense")}
+    loss = make_loss_fn(cfg, backend=backend)(tree, x, y)
+    grads = torch.autograd.grad(loss, leaves)
+    names = [f"{kind}{i}.{k}" for kind, i, k in keys]
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
+    """(a) one loss and gradient, hopper against batched; (b) the training
+    launcher on both backends (the main path of training); (c) one train
+    step's time and profile.  Returns the launch counts of the hopper
+    run of (b)."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.core.snn_model import init_snn
+    from repro_torch.core.snn_train import make_train_step
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.launch.train import train
+    params = init_snn(torch.Generator().manual_seed(SEED), cfg,
+                      device="cuda")
+    x, y = (torch.from_numpy(a).cuda() for a in mnist_like(BATCH, seed=0))
+
+    # (a) one loss and gradient at full width
+    loss_h, g_h = _loss_and_grads(cfg, params, x, y, "hopper")
+    loss_b, g_b = _loss_and_grads(cfg, params, x, y, "batched")
+    flips = []
+    for t_h, t_b in zip(_forward_trains(cfg, params, x, True),
+                        _forward_trains(cfg, params, x, False)):
+        sites = (t_h != t_b).any(dim=0)
+        flips.append([int(sites.sum()), sites.numel()])
+    rel = {k: float((g_h[k] - g_b[k]).norm() / g_b[k].norm())
+           for k in g_b}
+    n_flips = sum(f for f, _ in flips)
+    grad_bound = GRAD_REL if n_flips == 0 else FLIP_GRAD_REL
+    emit("train", part="a: one loss and gradient, hopper against batched",
+         config=cfg.name, batch=BATCH, timesteps=cfg.timesteps,
+         loss_hopper=loss_h, loss_batched=loss_b,
+         loss_abs_diff=abs(loss_h - loss_b),
+         threshold_flips_per_layer=flips, grad_rel_diff=rel,
+         grad_rel_bound=grad_bound,
+         grad_norms={k: float(g.norm()) for k, g in g_b.items()})
+    if abs(loss_h - loss_b) > LOSS_ATOL:
+        fail(f"train loss hopper {loss_h} vs batched {loss_b}")
+    if any(f > MAX_FLIP_FRACTION * n for f, n in flips):
+        fail(f"threshold flips per layer {flips} exceed {MAX_FLIP_FRACTION}")
+    if not all(float(g.abs().max()) > 0 for g in g_h.values()):
+        fail("a hopper gradient leaf is zero")
+    if max(rel.values()) > grad_bound:
+        fail(f"hopper gradients differ from batched: {rel} "
+             f"(> {grad_bound}, {n_flips} flips)")
+    del g_h, g_b
+
+    # (b) the launcher, 10 SGD steps on each backend
+    runs, counts = {}, {}
+    for backend in ("hopper", "batched"):
+        reset_counts()
+        runs[backend] = train(cfg, backend=backend, lr=lr, steps=steps,
+                              batch=BATCH, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        counts[backend] = read_counts()
+    h, b = runs["hopper"]["losses"], runs["batched"]["losses"]
+    emit("train", part="b: the training launcher", steps=steps, lr=lr,
+         losses_hopper=h, losses_batched=b,
+         median_step_ms={k: r["median_step_ms"] for k, r in runs.items()},
+         frames_per_s={k: r["frames_per_s"] for k, r in runs.items()},
+         accuracy={k: r["accuracy"] for k, r in runs.items()},
+         launches=counts, device=runs["hopper"]["device"])
+    if not np.allclose(h, b, rtol=TRAJ_TOL, atol=TRAJ_TOL):
+        fail(f"loss trajectories differ: hopper {h} batched {b}")
+    if not h[0] - h[-1] >= MIN_LOSS_DROP:
+        fail(f"the hopper loss fell by {h[0] - h[-1]} (< {MIN_LOSS_DROP})")
+    # per step A 1, C 2, D 2, E 2 (E never for the frames), and the
+    # held-out evaluation's forward A 1, B 2
+    want = {"spiking_conv": steps + 1, "spiking_conv_lif": 2,
+            "spiking_conv_lif_fwd": 2 * steps, "lif_bwd": 2 * steps,
+            "conv_grad_input": 2 * steps}
+    if counts["hopper"] != want:
+        fail(f"the hopper train run launched {counts['hopper']}, expected "
+             f"{want}")
+    if any(v != 0 for v in counts["batched"].values()):
+        fail(f"the batched train run launched kernels: {counts['batched']}")
+
+    # (c) one train step between CUDA events, and where its time goes
+    mom = tree_map(torch.zeros_like, params)
+    step_ms = {}
+    for backend in ("hopper", "batched"):
+        step = make_train_step(cfg, backend=backend, lr=lr)
+        step_ms[backend] = cuda_ms(lambda: step(params, mom, x, y), reps=5,
+                                   warmup=2)
+    emit("train", part="c: one train step", batch=BATCH, step_ms=step_ms,
+         trained_frames_per_s={k: BATCH / v * 1e3
+                               for k, v in step_ms.items()})
+    step = make_train_step(cfg, backend="hopper", lr=lr)
+    phase_profile(lambda: step(params, mom, x, y), step_ms["hopper"],
+                  "hopper train step")
+    return counts["hopper"]
 
 
 def main() -> int:
@@ -490,17 +839,28 @@ def main() -> int:
             dtype=np.float32)).cuda()
         trains = _model_trains(cfg, params, frames)
         summary = phase_kernels(cfg, params, frames, trains)
+        summary.update(phase_train_kernels(cfg, params, trains))
         phase_model(cfg, params, frames, trains)
         del trains
+        # kernels A and B count the serve run, C, D and E the train run
         launches = phase_serve(cfg)
+    launches.update({k: v for k, v in phase_train(cfg).items()
+                     if k not in launches})
     kernels = []
-    sources = {"spiking_conv": ("src/repro_torch/kernels/csrc/spiking_conv.cu",
-                                "src/repro/kernels/spiking_conv.py:149"),
-               "spiking_conv_lif": (
-                   "src/repro_torch/kernels/csrc/spiking_conv_lif.cu",
-                   "src/repro/kernels/spiking_conv_lif.py:208")}
+    csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
+    sources = {
+        "spiking_conv": (csrc + "spiking_conv.cu",
+                         tpu + "spiking_conv.py:149"),
+        "spiking_conv_lif": (csrc + "spiking_conv_lif.cu",
+                             tpu + "spiking_conv_lif.py:208"),
+        "spiking_conv_lif_fwd": (csrc + "spiking_conv_lif.cu",
+                                 tpu + "spiking_conv_lif.py:234"),
+        "lif_bwd": (csrc + "lif_bwd.cu", tpu + "spiking_conv_lif.py:297"),
+        "conv_grad_input": (csrc + "conv_grad_input.cu",
+                            tpu + "spiking_conv.py:266")}
     for name, recs in summary.items():
-        # per snn-mnist forward: the sum over the kernel's main-path shapes
+        # per snn-mnist forward or train step: the sum over the kernel's
+        # main-path shapes
         bytes_, flops = sum(r["bytes"] for r in recs), sum(r["flops"]
                                                            for r in recs)
         bound_ms, bound_by = bound(bytes_, flops)

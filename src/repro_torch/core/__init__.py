@@ -5,6 +5,7 @@
   encoding    spike encoders
   snn_layers  spiking conv/dense with the APRC structural option
   snn_model   the paper's classification & segmentation networks
+  snn_train   backend-selectable surrogate-gradient training step
   aprc        filter-magnitude workload prediction
   cbws        Algorithm 1 balanced partitioner
   balance     Spartus balance-ratio metric (Fig. 7)
@@ -23,6 +24,8 @@ from repro_torch.core.snn_model import (SNN, SNN_BACKENDS, ChunkCarry,
                                         SNNOutputs, finalize_logits,
                                         init_chunk_carry, init_snn,
                                         layer_shapes, snn_apply)
+from repro_torch.core.snn_train import (accuracy, make_loss_fn,
+                                        make_train_step)
 from repro_torch.core.surrogate import SURROGATE_KINDS, heaviside, spike_fn
 
 __all__ = [
@@ -34,5 +37,6 @@ __all__ = [
     "LayerSchedule", "build_schedule", "permute_conv_params",
     "SNN", "SNN_BACKENDS", "SNNOutputs", "init_snn", "layer_shapes",
     "snn_apply", "ChunkCarry", "finalize_logits", "init_chunk_carry",
+    "accuracy", "make_loss_fn", "make_train_step",
     "SURROGATE_KINDS", "heaviside", "spike_fn",
 ]

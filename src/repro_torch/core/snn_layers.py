@@ -88,7 +88,9 @@ def spiking_conv_step(
     if backend == "hopper":
         from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
         s, v = spiking_conv_lif(spikes_in[None], state.v, params["w"],
-                                params["b"], v_th=float(v_th), aprc=aprc)
+                                params["b"], v_th=float(v_th), aprc=aprc,
+                                surrogate_alpha=surrogate_alpha,
+                                surrogate_kind=surrogate_kind)
         return LIFState(v=v), s[0]
     if backend not in ("ref", "batched"):
         from repro_torch.core.snn_model import SNN_BACKENDS

@@ -20,6 +20,9 @@ first-layer conv through ``kernels.spiking_conv`` and every deeper conv
 layer through the fused ``kernels.spiking_conv_lif`` (time loop inside the
 kernel, membrane in registers).  Given CPU tensors the kernel wrappers
 compute through their plain versions, so ``"hopper"`` runs here too.
+Under autograd both wrappers go through their ``autograd.Function``s
+(surrogate BPTT with the selected surrogate, on the backward kernels), so
+all three backends train to the same gradient.
 
 Both orders compute the same math and also count per-layer per-channel
 spikes, the actual-workload signal CBWS/balance evaluation consumes (paper
@@ -408,9 +411,10 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
             if use_kernels:
                 x = x.contiguous()
                 note_skip(x, w.shape[0])
-                s, v_fin = spiking_conv_lif(x, carry.conv_v[i].contiguous(),
-                                            w, b, v_th=float(v_th),
-                                            aprc=cfg.aprc)
+                s, v_fin = spiking_conv_lif(
+                    x, carry.conv_v[i].contiguous(), w, b, v_th=float(v_th),
+                    aprc=cfg.aprc, surrogate_alpha=surrogate_alpha,
+                    surrogate_kind=surrogate_kind)
                 cnt = s.sum(dim=(1, 2, 3))
             else:
                 z = _conv_folded(x, p, cfg, use_kernels)

@@ -24,7 +24,8 @@ import torch
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "check_cuda_args",
            "check_launch"]
 
-KERNELS = ("spiking_conv", "spiking_conv_lif")
+# one library per source; spiking_conv_lif.cu holds kernels B and C
+KERNELS = ("spiking_conv", "spiking_conv_lif", "lif_bwd", "conv_grad_input")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -79,10 +80,10 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     return reports
 
 
-def load(name: str, argtypes: Sequence) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if need be, with
-    its launch function ``<name>_launch`` declared to take ``argtypes``
-    and return a CUDA error code."""
+def load(name: str, argtypes: Sequence, entry: str = "") -> ctypes.CDLL:
+    """The loaded library of source ``name``, built first if need be, with
+    its launch function ``entry`` (default ``<name>_launch``) declared to
+    take ``argtypes`` and return a CUDA error code."""
     lib = _LIBS.get(name)
     if lib is None:
         path = _library_path(name)
@@ -91,17 +92,19 @@ def load(name: str, argtypes: Sequence) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         lib.snn_error_string.argtypes = [ctypes.c_int]
         lib.snn_error_string.restype = ctypes.c_char_p
-        launch = getattr(lib, f"{name}_launch")
+        _LIBS[name] = lib
+    launch = getattr(lib, entry or f"{name}_launch")
+    if launch.argtypes is None:
         launch.argtypes = list(argtypes)
         launch.restype = ctypes.c_int
-        _LIBS[name] = lib
     return lib
 
 
 def check_cuda_args(fn: str, **tensors: torch.Tensor) -> torch.device:
     """The checks every wrapper makes before it hands pointers to a kernel:
     one CUDA device, float32, contiguous, and no autograd graph to feed
-    (the backward kernels come with the training slice)."""
+    (a launch builds none: the autograd Functions of ``spiking_conv`` and
+    ``spiking_conv_lif`` call the launchers on detached tensors)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{fn}: all tensors must lie on one CUDA device, "
@@ -113,8 +116,10 @@ def check_cuda_args(fn: str, **tensors: torch.Tensor) -> torch.device:
             raise ValueError(f"{fn}: {k} must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{fn}: {k} requires grad, but the kernel has no backward "
-                f"yet; run under torch.no_grad() or use backend='batched'")
+                f"{fn}: {k} requires grad, but a raw kernel launch has no "
+                f"backward; differentiate through spiking_conv or "
+                f"spiking_conv_lif, whose autograd Functions run the "
+                f"backward kernels")
     return devices.pop()
 
 

@@ -1,7 +1,7 @@
-// Device code shared by the two spiking-conv kernels (spiking_conv.cu and
-// spiking_conv_lif.cu): the thread-block decomposition, the shared-memory
-// staging of one row-block's halo and of the block's weight tile, and the
-// fixed-order tap accumulation.
+// Device code shared by the three conv kernels (spiking_conv.cu,
+// spiking_conv_lif.cu and conv_grad_input.cu): the thread-block
+// decomposition, the shared-memory staging of one row-block's halo and of
+// the block's weight tile, and the fixed-order tap accumulation.
 //
 // Decomposition.  One thread block per (image n, output row-block i, Cout
 // tile g): grid (N, ceil(E_h / BR), ceil(Cout / CT)).  Thread t owns output
@@ -20,6 +20,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace snn {
 
@@ -134,7 +136,3 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 }  // namespace snn
-
-extern "C" const char* snn_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

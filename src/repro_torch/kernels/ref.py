@@ -9,10 +9,23 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.snn_layers import conv2d
+from repro_torch.core.surrogate import surrogate_grad
+from repro_torch.device import full_fp32
 
-__all__ = ["spiking_conv_ref", "lif_fused_ref", "spiking_conv_lif_ref"]
+__all__ = ["conv_pads", "spiking_conv_ref", "lif_fused_ref",
+           "spiking_conv_lif_ref", "lif_bwd_ref", "conv_grad_input_ref",
+           "conv_grad_weights"]
+
+
+def conv_pads(r: int, aprc: bool) -> Tuple[int, int]:
+    """(pad_lo, pad_hi) of the forward conv; APRC = full, else SAME."""
+    if aprc:
+        return r - 1, r - 1
+    lo = (r - 1) // 2
+    return lo, r - 1 - lo
 
 
 def spiking_conv_ref(spikes: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -58,3 +71,61 @@ def spiking_conv_lif_ref(spikes: torch.Tensor, v0: torch.Tensor,
     if save_u:
         return torch.stack(s_seq), v, torch.stack(u_seq)
     return torch.stack(s_seq), v
+
+
+def lif_bwd_ref(u: torch.Tensor, g_s: torch.Tensor, g_v: torch.Tensor, *,
+                v_th: float, alpha: float, kind: str
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reverse-time surrogate BPTT of the fused layer (the reference's
+    ``lif_bwd_xla``).  u: (T, ...) pre-reset membrane;  g_s: (T, ...)
+    spike-train cotangent;  g_v: (...) final-membrane cotangent.  From
+    ``c = g_v``, for t = T-1 ... 0: ``lam_t = c + (g_s[t] - v_th*c) *
+    sg(u_t - v_th)`` and ``c = lam_t``.  Returns (lam (T, ...), dv0 = c)."""
+    surr = surrogate_grad(u.float() - v_th, alpha, kind)
+    c = g_v.float()
+    lam = torch.empty_like(surr)
+    for t in range(u.shape[0] - 1, -1, -1):
+        c = c + (g_s[t].float() - v_th * c) * surr[t]
+        lam[t] = c
+    return lam, c
+
+
+def conv_grad_input_ref(dz: torch.Tensor, w: torch.Tensor, *,
+                        aprc: bool = True) -> torch.Tensor:
+    """d(input) of the forward conv from its output cotangent: a plain conv
+    of ``dz`` with the flipped, channel-swapped taps
+    ``wt[dy, dx, co, ci] = w[R-1-dy, R-1-dx, ci, co]`` under pads
+    ``(R-1-lo, R-1-hi)`` (none for APRC).
+
+    dz: (N, E_h, E_w, Cout);  w: (R, R, Cin, Cout).  Returns (N, H, W, Cin).
+    """
+    r = w.shape[0]
+    lo, hi = conv_pads(r, aprc)
+    plo, phi = r - 1 - lo, r - 1 - hi
+    x = F.pad(dz.float().permute(0, 3, 1, 2), (plo, phi, plo, phi))
+    wt = w.float().flip(0, 1).permute(2, 3, 0, 1)      # (Cin, Cout, R, R)
+    with full_fp32():
+        out = F.conv2d(x, wt)
+    return out.permute(0, 2, 3, 1)
+
+
+def conv_grad_weights(x: torch.Tensor, dz: torch.Tensor, *, aprc: bool,
+                      r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dL/dw, dL/db) of the forward conv from its output cotangent: the
+    reference's ``conv_grad_weights_xla``, one (Cin, N*E_h*E_w) @
+    (N*E_h*E_w, Cout) product per tap.  It stays torch ops on both devices
+    (the reference computes it outside any Pallas kernel too).
+
+    x: (N, H, W, Cin) forward input;  dz: (N, E_h, E_w, Cout).
+    """
+    lo, hi = conv_pads(r, aprc)
+    n, e_h, e_w, cout = dz.shape
+    cin = x.shape[-1]
+    xp = F.pad(x.float(), (0, 0, lo, hi, lo, hi))
+    gz = dz.float().reshape(n * e_h * e_w, cout)
+    with full_fp32():
+        dw = torch.stack([
+            torch.stack([xp[:, dy:dy + e_h, dx:dx + e_w].reshape(-1, cin).T
+                         @ gz for dx in range(r)])
+            for dy in range(r)])
+    return dw, dz.float().sum(dim=(0, 1, 2))

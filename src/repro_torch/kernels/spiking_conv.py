@@ -1,11 +1,17 @@
-"""Spike-driven convolution: the wrapper of kernel ``csrc/spiking_conv.cu``,
-its plain version, and the padding and skip-table helpers.
+"""Spike-driven convolution: the wrappers of kernels ``csrc/spiking_conv.cu``
+(the forward) and ``csrc/conv_grad_input.cu`` (its input gradient), their
+plain versions, the autograd Function that joins them, and the padding and
+skip-table helpers.
 
 ``spiking_conv`` computes dV = conv(spikes, w) + bias in NHWC x RRIO with
 APRC full padding or SAME padding (the reference's
-``repro.kernels.spiking_conv.spiking_conv_pallas``).  Given CPU tensors it
-computes through the plain version; given CUDA tensors it launches the
-kernel or raises.
+``repro.kernels.spiking_conv.spiking_conv_pallas``).  When a gradient is
+needed it goes through ``SpikingConvFn`` (the reference's
+``kernels/ops.py:_spiking_conv_vjp``): dx by ``conv_grad_input`` (the
+reference's ``conv_grad_input_pallas``) when the input needs one, and
+(dw, db) by ``conv_grad_weights``, torch ops.  Given CPU tensors every
+wrapper computes through its plain version; given CUDA tensors it launches
+its kernel or raises.
 
 The skip table counts *nonzero* inputs, not a value sum: the first layer
 feeds the analog direct-coded frame through the same conv, and a faint
@@ -20,12 +26,16 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import spiking_conv_ref
+from repro_torch.kernels.ref import (conv_grad_input_ref, conv_grad_weights,
+                                     conv_pads, spiking_conv_ref)
 
-__all__ = ["spiking_conv", "spiking_conv_plain", "conv_pads",
-           "row_block_counts", "skip_table_fraction", "plan_tiles"]
+__all__ = ["spiking_conv", "spiking_conv_plain", "SpikingConvFn",
+           "conv_grad_input", "conv_grad_input_plain", "conv_grad_weights",
+           "conv_pads", "row_block_counts", "skip_table_fraction",
+           "plan_tiles"]
 
 _MAX_THREADS = 512        # the kernels' __launch_bounds__
 _MAX_SMEM = 227 * 1024    # bytes a block may use on sm_90
@@ -33,17 +43,20 @@ BLOCK_ROWS = 8            # output rows per thread block (and per skip cell)
 # spiking_conv_launch(x, w, b, out, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
 #                     block_rows, cout_tile, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# conv_grad_input_launch(g, w, dx, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
+#                        block_rows, cout_tile, stream), in the backward's
+# terms (see csrc/conv_grad_input.cu)
+_GRAD_INPUT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
+    + [ctypes.c_void_p]
 
-# The plain version is the oracle itself (conv plus bias).
+# The plain versions are the oracles themselves.
 spiking_conv_plain = spiking_conv_ref
+conv_grad_input_plain = conv_grad_input_ref
 
 
-def conv_pads(r: int, aprc: bool) -> Tuple[int, int]:
-    """(pad_lo, pad_hi) of the forward conv; APRC = full, else SAME."""
-    if aprc:
-        return r - 1, r - 1
-    lo = (r - 1) // 2
-    return lo, r - 1 - lo
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a call on ``tensors`` has to build an autograd graph."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def plan_tiles(e_w: int, r: int, cin: int, cout: int) -> Tuple[int, int]:
@@ -121,11 +134,8 @@ def _conv_dims(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return h, wd, cin, cout, r, pad_lo, e_h, e_w
 
 
-def spiking_conv(spikes: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                 *, aprc: bool = True) -> torch.Tensor:
-    """dV = conv(spikes, w) + bias.  spikes: (B, H, W, Cin), B may fold
-    T x batch; w: (R, R, Cin, Cout); bias: (Cout,).  Returns
-    (B, E_h, E_w, Cout) with E = H+R-1 (APRC) or H (SAME)."""
+def _spiking_conv_primal(spikes: torch.Tensor, w: torch.Tensor,
+                         bias: torch.Tensor, aprc: bool) -> torch.Tensor:
     if spikes.device.type == "cpu":
         return spiking_conv_plain(spikes, w, bias, aprc=aprc)
     fn = "spiking_conv"
@@ -152,4 +162,81 @@ def spiking_conv(spikes: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def spiking_conv(spikes: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 *, aprc: bool = True) -> torch.Tensor:
+    """dV = conv(spikes, w) + bias.  spikes: (B, H, W, Cin), B may fold
+    T x batch; w: (R, R, Cin, Cout); bias: (Cout,).  Returns
+    (B, E_h, E_w, Cout) with E = H+R-1 (APRC) or H (SAME).
+    Differentiable through ``SpikingConvFn``."""
+    if needs_grad(spikes, w, bias):
+        return SpikingConvFn.apply(spikes, w, bias, aprc)
+    return _spiking_conv_primal(spikes, w, bias, aprc)
+
+
 spiking_conv.launches = 0
+
+
+def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
+                    aprc: bool = True) -> torch.Tensor:
+    """d(input) of ``spiking_conv`` from the cotangent of its output.
+    dz: (N, E_h, E_w, Cout);  w: (R, R, Cin, Cout) forward weights.
+    Returns (N, H, W, Cin)."""
+    if dz.device.type == "cpu":
+        return conv_grad_input_plain(dz, w, aprc=aprc)
+    fn = "conv_grad_input"
+    dev = _build.check_cuda_args(fn, dz=dz, w=w)
+    if dz.dim() != 4:
+        raise ValueError(f"{fn}: dz must be (N, E_h, E_w, Cout), got "
+                         f"{tuple(dz.shape)}")
+    n, e_h, e_w, cout = dz.shape
+    r, r2, cin, cout_w = w.shape
+    if r != r2 or cout_w != cout:
+        raise ValueError(f"{fn}: cotangent {tuple(dz.shape)} and weights "
+                         f"{tuple(w.shape)} (R, R, Cin, Cout) do not fit "
+                         f"together")
+    lo, hi = conv_pads(r, aprc)
+    h, wd = e_h + r - 1 - lo - hi, e_w + r - 1 - lo - hi
+    # the backward conv's own roles: its input is dz (Cout channels), its
+    # output dx (Cin channels)
+    block_rows, cout_tile = plan_tiles(wd, r, cout, cin)
+    out = torch.empty((n, h, wd, cin), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("conv_grad_input", _GRAD_INPUT_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv_grad_input_launch(
+            dz.data_ptr(), w.data_ptr(), out.data_ptr(), n, e_h, e_w, cout,
+            cin, r, r - 1 - lo, h, wd, block_rows, cout_tile, stream)
+    _build.check_launch(lib, fn, rc)
+    conv_grad_input.launches += 1
+    return out
+
+
+conv_grad_input.launches = 0
+
+
+class SpikingConvFn(torch.autograd.Function):
+    """``spiking_conv`` under autograd: the forward kernel (A), then in the
+    backward dx by ``conv_grad_input`` (E) when the input needs it and
+    (dw, db) by ``conv_grad_weights``."""
+
+    @staticmethod
+    def forward(ctx, spikes, w, bias, aprc):
+        ctx.aprc = aprc
+        ctx.save_for_backward(spikes, w)
+        return _spiking_conv_primal(spikes.detach(), w.detach(),
+                                    bias.detach(), aprc)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        spikes, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv_grad_input(g, w, aprc=ctx.aprc)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = conv_grad_weights(spikes, g, aprc=ctx.aprc,
+                                       r=w.shape[0])
+        return dx, dw, db, None

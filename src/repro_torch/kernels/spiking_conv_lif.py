@@ -1,17 +1,26 @@
-"""Fused spiking-conv + LIF over all T timesteps: the wrapper of kernel
-``csrc/spiking_conv_lif.cu`` and its plain version.
+"""Fused spiking-conv + LIF over all T timesteps and its surrogate backward:
+the wrappers of kernels ``csrc/spiking_conv_lif.cu`` (the inference forward
+and the training forward that also saves the pre-reset membrane) and
+``csrc/lif_bwd.cu`` (the reverse-time BPTT), their plain versions, and the
+autograd Function that joins them with the conv backward.
 
 For each t: dV_t = conv(spikes[t], w) + bias (bias only where the
-block's receptive inputs hold no spike), then ``v += dV_t; s = v >= v_th;
-v -= v_th * s``.  The kernel keeps the membrane in registers from ``v0``
-to ``v_final`` (the reference's
+block's receptive inputs hold no spike), then ``u = v + dV_t;
+s = u >= v_th; v = u - v_th * s``.  The kernel keeps the membrane in
+registers from ``v0`` to ``v_final`` (the reference's
 ``repro.kernels.spiking_conv_lif.spiking_conv_lif_pallas``).  It takes
 ``v0`` and returns ``v_final``, so a caller can run T in chunks and thread
 the membrane between them.
 
-Given CPU tensors the wrapper computes through the plain version, a Python
-loop over T of conv plus LIF; given CUDA tensors it launches the kernel or
-raises.
+Training (``SpikingConvLIFFn``, the reference's ``spiking_conv_lif_train``
+custom_vjp): the forward also saves ``u`` (``spiking_conv_lif_fwd``, the
+reference's ``spiking_conv_lif_fwd_pallas``); the backward runs
+``lif_bwd`` (``lif_bwd_pallas``), then the conv backward over the folded
+(T*B) batch: ``conv_grad_input`` (``conv_grad_input_pallas``) when the
+input train needs a gradient, and ``conv_grad_weights``.
+
+Given CPU tensors every wrapper computes through its plain version; given
+CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -19,31 +28,42 @@ import ctypes
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from repro_torch.core.surrogate import SURROGATE_KINDS
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import spiking_conv_lif_ref
-from repro_torch.kernels.spiking_conv import _conv_dims, plan_tiles
+from repro_torch.kernels.ref import lif_bwd_ref, spiking_conv_lif_ref
+from repro_torch.kernels.spiking_conv import (_conv_dims, conv_grad_input,
+                                              conv_grad_weights, needs_grad,
+                                              plan_tiles)
 
-__all__ = ["spiking_conv_lif", "spiking_conv_lif_plain"]
+__all__ = ["spiking_conv_lif", "spiking_conv_lif_plain",
+           "spiking_conv_lif_fwd", "lif_bwd", "lif_bwd_plain",
+           "SpikingConvLIFFn"]
 
 # spiking_conv_lif_launch(x, v0, w, b, s, v, T, N, H, W, Cin, Cout, R, pad_lo,
-#                         E_h, E_w, block_rows, cout_tile, v_th, stream)
+#                         E_h, E_w, block_rows, cout_tile, v_th, stream);
+# spiking_conv_lif_fwd_launch takes u after v
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 \
     + [ctypes.c_float, ctypes.c_void_p]
+_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
+    + [ctypes.c_float, ctypes.c_void_p]
+# lif_bwd_launch(u, g_s, g_v, lam, dv0, T, M, kind, v_th, alpha, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_float,
+                                         ctypes.c_float, ctypes.c_void_p]
 
-# The plain version is the oracle itself (per-t conv plus LIF).
+# The plain versions are the oracles themselves (per-t conv plus LIF; the
+# reverse-time scan).
 spiking_conv_lif_plain = spiking_conv_lif_ref
+lif_bwd_plain = lif_bwd_ref
 
 
-def spiking_conv_lif(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
-                     bias: torch.Tensor, *, v_th: float = 1.0,
-                     aprc: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """spikes: (T, B, H, W, Cin);  v0: (B, E_h, E_w, Cout).  Returns the
-    output spike train (T, B, E_h, E_w, Cout) and the final membrane."""
-    if spikes.device.type == "cpu":
-        return spiking_conv_lif_plain(spikes, v0, w, bias, v_th=v_th,
-                                      aprc=aprc)
-    fn = "spiking_conv_lif"
+def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor, v_th: float, aprc: bool,
+                  save_u: bool) -> Tuple[torch.Tensor, ...]:
+    """Kernel B (``save_u=False``) or C (``save_u=True``) on CUDA tensors."""
+    fn = "spiking_conv_lif_fwd" if save_u else "spiking_conv_lif"
     dev = _build.check_cuda_args(fn, spikes=spikes, v0=v0, w=w, bias=bias)
     if spikes.dim() != 5:
         raise ValueError(f"{fn}: spikes must be (T, B, H, W, Cin), got "
@@ -57,20 +77,138 @@ def spiking_conv_lif(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
     block_rows, cout_tile = plan_tiles(e_w, r, cin, cout)
     s = torch.empty((t, n, e_h, e_w, cout), dtype=torch.float32, device=dev)
     v = torch.empty_like(v0)
+    outs = (s, v, torch.empty_like(s)) if save_u else (s, v)
     if t == 0:
-        return s, v.copy_(v0)
+        v.copy_(v0)
+        return outs
     if v.numel() == 0:
-        return s, v
-    lib = _build.load("spiking_conv_lif", _ARGTYPES)
+        return outs
+    lib = _build.load("spiking_conv_lif", _FWD_ARGTYPES if save_u
+                      else _ARGTYPES, f"{fn}_launch")
+    ptrs = [o.data_ptr() for o in outs]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.spiking_conv_lif_launch(
+        rc = getattr(lib, f"{fn}_launch")(
             spikes.data_ptr(), v0.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            s.data_ptr(), v.data_ptr(), t, n, h, wd, cin, cout, r, pad_lo,
-            e_h, e_w, block_rows, cout_tile, float(v_th), stream)
+            *ptrs, t, n, h, wd, cin, cout, r, pad_lo, e_h, e_w, block_rows,
+            cout_tile, float(v_th), stream)
     _build.check_launch(lib, fn, rc)
-    spiking_conv_lif.launches += 1
-    return s, v
+    if save_u:
+        spiking_conv_lif_fwd.launches += 1
+    else:
+        spiking_conv_lif.launches += 1
+    return outs
+
+
+def spiking_conv_lif_fwd(spikes: torch.Tensor, v0: torch.Tensor,
+                         w: torch.Tensor, bias: torch.Tensor, *,
+                         v_th: float = 1.0, aprc: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training forward: as ``spiking_conv_lif``, plus the pre-reset
+    membrane train ``u`` (T, B, E_h, E_w, Cout).  Returns (s, v_final, u)."""
+    if spikes.device.type == "cpu":
+        return spiking_conv_lif_plain(spikes, v0, w, bias, v_th=v_th,
+                                      aprc=aprc, save_u=True)
+    return _launch_fused(spikes, v0, w, bias, v_th, aprc, save_u=True)
+
+
+spiking_conv_lif_fwd.launches = 0
+
+
+def lif_bwd(u: torch.Tensor, g_s: torch.Tensor, g_v: torch.Tensor, *,
+            v_th: float, alpha: float, kind: str
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reverse-time surrogate BPTT (see ``kernels.ref.lif_bwd_ref``).
+    u, g_s: (T, ...);  g_v: (...).  Returns (lam (T, ...), dv0)."""
+    if u.device.type == "cpu":
+        return lif_bwd_plain(u, g_s, g_v, v_th=v_th, alpha=alpha, kind=kind)
+    fn = "lif_bwd"
+    dev = _build.check_cuda_args(fn, u=u, g_s=g_s, g_v=g_v)
+    if kind not in SURROGATE_KINDS:
+        raise ValueError(f"{fn}: unknown surrogate {kind!r}; expected one "
+                         f"of {SURROGATE_KINDS}")
+    if u.dim() < 1 or g_s.shape != u.shape or g_v.shape != u.shape[1:]:
+        raise ValueError(f"{fn}: u {tuple(u.shape)} and g_s "
+                         f"{tuple(g_s.shape)} must be (T, ...) and g_v "
+                         f"{tuple(g_v.shape)} their (...)")
+    lam, dv0 = torch.empty_like(u), torch.empty_like(g_v)
+    if u.shape[0] == 0:
+        return lam, dv0.copy_(g_v)
+    if dv0.numel() == 0:
+        return lam, dv0
+    lib = _build.load(fn, _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lif_bwd_launch(
+            u.data_ptr(), g_s.data_ptr(), g_v.data_ptr(), lam.data_ptr(),
+            dv0.data_ptr(), u.shape[0], g_v.numel(),
+            # the kernel's Kind enum numbers the surrogates in this order
+            SURROGATE_KINDS.index(kind), float(v_th), float(alpha), stream)
+    _build.check_launch(lib, fn, rc)
+    lif_bwd.launches += 1
+    return lam, dv0
+
+
+lif_bwd.launches = 0
+
+
+class SpikingConvLIFFn(torch.autograd.Function):
+    """``spiking_conv_lif`` under autograd: Heaviside spikes forward,
+    surrogate BPTT backward (the reference's ``spiking_conv_lif_train``).
+
+    forward: kernel C, saving (spikes, w, u).  backward: kernel D from the
+    cotangents of (s, v_final), then, on ``lam`` folded to (T*B, ...),
+    kernel E for the input train when it needs a gradient and
+    ``conv_grad_weights`` for (dw, db).  Returns (dx, dv0, dw, db)."""
+
+    @staticmethod
+    def forward(ctx, spikes, v0, w, bias, v_th, aprc, alpha, kind):
+        s, v, u = spiking_conv_lif_fwd(spikes.detach(), v0.detach(),
+                                       w.detach(), bias.detach(), v_th=v_th,
+                                       aprc=aprc)
+        ctx.save_for_backward(spikes, w, u)
+        ctx.opts = (v_th, aprc, alpha, kind)
+        return s, v
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_s, g_v):
+        spikes, w, u = ctx.saved_tensors
+        v_th, aprc, alpha, kind = ctx.opts
+        # autograd hands over materialized zeros for an unused output
+        lam, dv0 = lif_bwd(u, g_s.contiguous(), g_v.contiguous(), v_th=v_th,
+                           alpha=alpha, kind=kind)
+        t, b = spikes.shape[:2]
+        lam2 = lam.reshape((t * b,) + lam.shape[2:])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv_grad_input(lam2, w, aprc=aprc).reshape(spikes.shape)
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dw, db = conv_grad_weights(
+                spikes.reshape((t * b,) + spikes.shape[2:]), lam2, aprc=aprc,
+                r=w.shape[0])
+        dv0 = dv0 if ctx.needs_input_grad[1] else None
+        return dx, dv0, dw, db, None, None, None, None
+
+
+def spiking_conv_lif(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor, *, v_th: float = 1.0,
+                     aprc: bool = True, surrogate_alpha: float = 10.0,
+                     surrogate_kind: str = "fast_sigmoid"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """spikes: (T, B, H, W, Cin);  v0: (B, E_h, E_w, Cout).  Returns the
+    output spike train (T, B, E_h, E_w, Cout) and the final membrane.
+
+    With no gradient to build it runs kernel B (the reference's primal);
+    otherwise it goes through ``SpikingConvLIFFn``, whose backward applies
+    the ``surrogate_kind`` surrogate scaled by ``surrogate_alpha``."""
+    if needs_grad(spikes, v0, w, bias):
+        return SpikingConvLIFFn.apply(spikes, v0, w, bias, float(v_th), aprc,
+                                      float(surrogate_alpha), surrogate_kind)
+    if spikes.device.type == "cpu":
+        return spiking_conv_lif_plain(spikes, v0, w, bias, v_th=v_th,
+                                      aprc=aprc)
+    return _launch_fused(spikes, v0, w, bias, v_th, aprc, save_u=False)
 
 
 spiking_conv_lif.launches = 0

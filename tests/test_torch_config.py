@@ -103,8 +103,11 @@ def test_package_imports_neither_jax_nor_the_reference():
     code = (
         "import sys, dataclasses, torch\n"
         "import repro_torch, repro_torch.interop, repro_torch.launch.serve\n"
+        "import repro_torch.launch.train, repro_torch.data.synthetic\n"
+        "import repro_torch.kernels.spiking_conv_lif\n"
         "from repro_torch.config import get_snn\n"
         "from repro_torch.core import init_snn, snn_apply, build_schedule\n"
+        "from repro_torch.core.snn_train import make_train_step\n"
         "cfg = dataclasses.replace(get_snn('snn-mnist'), input_hw=(8, 8),\n"
         "                          conv_channels=(8, 8), timesteps=3)\n"
         "p = init_snn(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
@@ -113,6 +116,10 @@ def test_package_imports_neither_jax_nor_the_reference():
         "    out = snn_apply(p, x, cfg, backend=b,\n"
         "                    schedule=build_schedule(p, cfg))\n"
         "    assert out.logits.shape == (2, 10)\n"
+        "mom = {k: [{n: torch.zeros_like(t) for n, t in l.items()}\n"
+        "           for l in v] for k, v in p.items()}\n"
+        "make_train_step(cfg, backend='hopper')(p, mom, x,\n"
+        "                                       torch.tensor([1, 2]))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

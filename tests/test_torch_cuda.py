@@ -9,14 +9,22 @@ JAX package, so it runs on a machine with the card and PyTorch alone:
 Spike trains follow ``chip_smoke.py``'s rule: a site may differ only by a
 threshold flip (the plain pre-reset membrane within 1e-4 of v_th at the
 first differing step), and final membranes of agreeing sites agree to 1e-4.
+The saved pre-reset membrane is held to the final membrane's 1e-4 where
+the trains agree (a membrane that grows to tens differs from cuDNN's by a
+few ulps), the LIF backward to 1e-6 (rel and abs; it repeats the plain
+version's float operations), the input gradient to 1e-5 of its largest
+value.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.snn_model import _lif_scan
+from repro_torch.core.surrogate import SURROGATE_KINDS
 from repro_torch.kernels import ref
-from repro_torch.kernels.spiking_conv import spiking_conv
-from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+from repro_torch.kernels.spiking_conv import conv_grad_input, spiking_conv
+from repro_torch.kernels.spiking_conv_lif import (lif_bwd, spiking_conv_lif,
+                                                  spiking_conv_lif_fwd)
 
 CONV_CASES = [
     # B, H, W, Cin, Cout, R, aprc
@@ -132,6 +140,121 @@ def test_faint_analog_frame_is_not_skipped(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_training_forward_saves_the_pre_reset_membrane(card, case):
+    """Kernel C: kernel B's trains plus u = v_{t-1} + dV_t."""
+    t, b, h, w_, cin, cout, r, aprc = case
+    rng = np.random.default_rng(sum(case) + 11)
+    e_h, e_w = (h + r - 1, w_ + r - 1) if aprc else (h, w_)
+    x = (rng.random((t, b, h, w_, cin)) < 0.3).astype(np.float32)
+    w = (rng.standard_normal((r, r, cin, cout)) * 0.3).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.05 + 0.1).astype(np.float32)
+    v0 = (rng.standard_normal((b, e_h, e_w, cout)) * 0.3).astype(np.float32)
+    x, w, bias, v0 = _on(card, x, w, bias, v0)
+    n = spiking_conv_lif_fwd.launches
+    s, v, u = spiking_conv_lif_fwd(x, v0, w, bias, v_th=1.0, aprc=aprc)
+    torch.cuda.synchronize()
+    assert spiking_conv_lif_fwd.launches == n + 1
+    sb, vb = spiking_conv_lif(x, v0, w, bias, v_th=1.0, aprc=aprc)
+    assert torch.equal(s, sb) and torch.equal(v, vb)
+    assert torch.equal(s, (u >= 1.0).float())
+    sp, vp, up = ref.spiking_conv_lif_ref(x, v0, w, bias, v_th=1.0,
+                                          aprc=aprc, save_u=True)
+    assert _flips_near_threshold(s, sp, up, 1.0)
+    agree = (s == sp).all(dim=0)
+    torch.testing.assert_close(u[:, agree], up[:, agree], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SURROGATE_KINDS)
+@pytest.mark.parametrize("shape", [(3, 2, 10, 10, 8), (8, 1, 7, 9, 5),
+                                   (1, 3, 4, 4, 3)])
+def test_lif_bwd_kernel_matches_plain(card, shape, kind):
+    rng = np.random.default_rng(sum(shape) + len(kind))
+    u = (rng.standard_normal(shape) * 0.6 + 0.9).astype(np.float32)
+    g_s = rng.standard_normal(shape).astype(np.float32)
+    g_v = rng.standard_normal(shape[1:]).astype(np.float32)
+    u, g_s, g_v = _on(card, u, g_s, g_v)
+    n = lif_bwd.launches
+    lam, dv0 = lif_bwd(u, g_s, g_v, v_th=1.0, alpha=4.0, kind=kind)
+    torch.cuda.synchronize()
+    assert lif_bwd.launches == n + 1
+    lam_p, dv0_p = ref.lif_bwd_ref(u, g_s, g_v, v_th=1.0, alpha=4.0,
+                                   kind=kind)
+    torch.testing.assert_close(lam, lam_p, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(dv0, dv0_p, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("density", [1.0, 0.05])
+def test_conv_grad_input_kernel_matches_plain(card, case, density):
+    """Kernel E on a dense cotangent and on one whose row-blocks are mostly
+    zero (the blocks it skips)."""
+    b, h, w_, cin, cout, r, aprc = case
+    rng = np.random.default_rng(sum(case) + 3)
+    e_h, e_w = (h + r - 1, w_ + r - 1) if aprc else (h, w_)
+    dz = rng.standard_normal((b, e_h, e_w, cout)).astype(np.float32)
+    dz *= (rng.random((b, e_h, 1, 1)) < density)
+    w = (rng.standard_normal((r, r, cin, cout)) * 0.2).astype(np.float32)
+    dz, w = _on(card, dz, w)
+    n = conv_grad_input.launches
+    got = conv_grad_input(dz, w, aprc=aprc)
+    torch.cuda.synchronize()
+    assert conv_grad_input.launches == n + 1
+    want = ref.conv_grad_input_ref(dz, w, aprc=aprc)
+    assert got.shape == want.shape == (b, h, w_, cin)
+    scale = max(float(want.abs().max()), 1e-30)
+    torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+
+
+def _batched_layer(x, v0, w, b, aprc, alpha, kind):
+    """The batched backend's layer: conv over the folded (T*B) batch, then
+    the LIF scan with the surrogate spike function, all autograd ops."""
+    t, n = x.shape[:2]
+    z = ref.spiking_conv_ref(x.reshape((t * n,) + x.shape[2:]), w, b,
+                             aprc=aprc)
+    s, _, v = _lif_scan(z.reshape((t, n) + z.shape[1:]), 1.0, alpha, kind,
+                        v0)
+    return s, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SURROGATE_KINDS)
+def test_fused_layer_backward_matches_the_batched_path(card, kind):
+    """SpikingConvLIFFn (kernels C, D, E, and conv_grad_weights) against
+    autograd through the batched backend's layer, on the same inputs."""
+    rng = np.random.default_rng(len(kind))
+    t, b, h, w_, cin, cout = 4, 2, 9, 11, 4, 8
+    x = (rng.random((t, b, h, w_, cin)) < 0.3).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.3).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.05 + 0.1).astype(np.float32)
+    v0 = (rng.standard_normal((b, h + 2, w_ + 2, cout)) * 0.3
+          ).astype(np.float32)
+    proj = rng.standard_normal((t, b, h + 2, w_ + 2, cout)).astype(np.float32)
+    args0 = _on(card, x, v0, w, bias)
+    proj, = _on(card, proj)
+    counts = (spiking_conv_lif_fwd.launches, lif_bwd.launches,
+              conv_grad_input.launches)
+    grads, trains = [], []
+    for layer in (lambda *a: spiking_conv_lif(*a, aprc=True,
+                                              surrogate_alpha=4.0,
+                                              surrogate_kind=kind),
+                  lambda *a: _batched_layer(*a, True, 4.0, kind)):
+        args = [a.clone().requires_grad_(True) for a in args0]
+        s, v = layer(*args)
+        ((s * proj).sum() + (v ** 2).sum()).backward()
+        grads.append([a.grad for a in args])
+        trains.append(s.detach())
+    torch.cuda.synchronize()
+    assert (spiking_conv_lif_fwd.launches, lif_bwd.launches,
+            conv_grad_input.launches) == tuple(c + 1 for c in counts)
+    assert torch.equal(trains[0], trains[1])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_wrappers_check_their_arguments(card):
     x = torch.zeros((1, 8, 8, 2), device=card)
     w = torch.zeros((3, 3, 2, 4), device=card)
@@ -145,5 +268,14 @@ def test_wrappers_check_their_arguments(card):
     with pytest.raises(ValueError, match="v0"):
         spiking_conv_lif(x[None], torch.zeros((1, 9, 9, 4), device=card),
                          w, b)
+    with pytest.raises(ValueError, match="surrogate"):
+        lif_bwd(x[None], x[None], x, v_th=1.0, alpha=4.0, kind="sigmoid")
+    # the public wrappers differentiate; the raw launchers refuse to
+    wg = w.clone().requires_grad_(True)
+    spiking_conv(x, wg, b).sum().backward()
+    assert wg.grad is not None and wg.grad.shape == w.shape
+    v0 = torch.zeros((1, 10, 10, 4), device=card)
     with pytest.raises(NotImplementedError, match="backward"):
-        spiking_conv(x, w.requires_grad_(True), b)
+        spiking_conv_lif_fwd(x[None], v0, wg, b)
+    with pytest.raises(NotImplementedError, match="backward"):
+        conv_grad_input(v0.requires_grad_(True), w)
