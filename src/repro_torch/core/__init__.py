@@ -21,9 +21,11 @@ from repro_torch.core.neuron import LIFState, lif_init, lif_over_time, lif_step
 from repro_torch.core.scheduler import (LayerSchedule, build_schedule,
                                         permute_conv_params)
 from repro_torch.core.snn_model import (SNN, SNN_BACKENDS, ChunkCarry,
-                                        SNNOutputs, finalize_logits,
+                                        ChunkOutputs, SNNOutputs,
+                                        chunk_lengths, finalize_logits,
                                         init_chunk_carry, init_snn,
-                                        layer_shapes, snn_apply)
+                                        layer_shapes, snn_apply,
+                                        snn_apply_chunk, snn_apply_chunked)
 from repro_torch.core.snn_train import (accuracy, make_loss_fn,
                                         make_train_step)
 from repro_torch.core.surrogate import SURROGATE_KINDS, heaviside, spike_fn
@@ -36,7 +38,9 @@ __all__ = [
     "LIFState", "lif_init", "lif_over_time", "lif_step",
     "LayerSchedule", "build_schedule", "permute_conv_params",
     "SNN", "SNN_BACKENDS", "SNNOutputs", "init_snn", "layer_shapes",
-    "snn_apply", "ChunkCarry", "finalize_logits", "init_chunk_carry",
+    "snn_apply", "ChunkCarry", "ChunkOutputs", "chunk_lengths",
+    "finalize_logits", "init_chunk_carry", "snn_apply_chunk",
+    "snn_apply_chunked",
     "accuracy", "make_loss_fn", "make_train_step",
     "SURROGATE_KINDS", "heaviside", "spike_fn",
 ]

@@ -91,6 +91,7 @@ def permute_conv_params(params: Dict, scheds: List[LayerSchedule]) -> Dict:
         din = d0["w"].shape[0]
         c = len(prev_out_perm)
         hw = din // c
-        w = d0["w"].reshape(hw, c, -1)[:, prev_out_perm, :].reshape(din, -1)
-        new_params["dense"] = [{"w": w, "b": d0["b"]}] + params["dense"][1:]
+        d0p = {k: (t.reshape(hw, c, -1)[:, prev_out_perm, :].reshape(din, -1)
+                   if k != "b" else t) for k, t in d0.items()}
+        new_params["dense"] = [d0p] + params["dense"][1:]
     return new_params

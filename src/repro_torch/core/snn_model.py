@@ -27,7 +27,7 @@ all three backends train to the same gradient.
 Both orders compute the same math and also count per-layer per-channel
 spikes, the actual-workload signal CBWS/balance evaluation consumes (paper
 Fig. 2/7).  Whole-T execution is one chunk started from the zero carry,
-and every readout is a sequential loop over t, so a chunked driver only
+and every readout is a sequential loop over t, so a chunked run only
 has to thread the carry.
 
 This is the counterpart of ``repro.core.snn_model``: same layouts (NHWC,
@@ -44,11 +44,12 @@ from repro_torch.config import SNNConfig
 from repro_torch.core import snn_layers as L
 from repro_torch.core.neuron import LIFState
 from repro_torch.core.surrogate import spike_fn
-from repro_torch.device import full_fp32, resolve_device
+from repro_torch.device import resolve_device
 
 __all__ = ["init_snn", "snn_apply", "SNNOutputs", "layer_shapes",
-           "SNN_BACKENDS", "ChunkCarry", "init_chunk_carry",
-           "finalize_logits", "SNN"]
+           "SNN_BACKENDS", "ChunkCarry", "ChunkOutputs", "init_chunk_carry",
+           "chunk_lengths", "snn_apply_chunk", "snn_apply_chunked",
+           "finalize_logits", "freeze_params", "SNN"]
 
 SNN_BACKENDS = ("ref", "batched", "hopper")
 
@@ -80,6 +81,17 @@ class SNNOutputs(NamedTuple):
     skip_fractions: Tuple[torch.Tensor, ...] = ()
 
 
+class ChunkOutputs(NamedTuple):
+    """Per-chunk observability outputs (the SNNOutputs fields that make
+    sense for a T-segment; logits exist once the run finalizes —
+    ``finalize_logits`` divides the carried accumulator by the served T)."""
+
+    spike_counts: Tuple[torch.Tensor, ...]     # per conv layer: (Cout,)
+    spike_totals: Tuple[torch.Tensor, ...]     # per conv layer: scalar
+    timestep_counts: Tuple[torch.Tensor, ...]  # per conv layer: (t_chunk, Cout)
+    skip_fractions: Tuple[torch.Tensor, ...] = ()
+
+
 def layer_shapes(cfg: SNNConfig) -> List[Tuple[int, int, int]]:
     """(H, W, C) after every conv layer (APRC growth accounted)."""
     h, w = cfg.input_hw
@@ -90,16 +102,29 @@ def layer_shapes(cfg: SNNConfig) -> List[Tuple[int, int, int]]:
     return shapes
 
 
+def chunk_lengths(t_total: int, chunk_timesteps: int) -> List[int]:
+    """Partition ``t_total`` into segments of ``chunk_timesteps`` (the last
+    segment carries the remainder)."""
+    c = int(chunk_timesteps)
+    if c < 1:
+        raise ValueError(f"chunk_timesteps must be >= 1, got {chunk_timesteps}")
+    if t_total < 1:
+        raise ValueError(f"t_total must be >= 1, got {t_total}")
+    return [c] * (t_total // c) + ([t_total % c] if t_total % c else [])
+
+
 def init_chunk_carry(cfg: SNNConfig, batch: int, dtype=torch.float32,
                      device=None) -> ChunkCarry:
     """The zero carry a fresh request starts from (whole-T execution is
-    exactly one chunk started from this)."""
+    exactly one chunk started from this), on ``device`` (default: the
+    card)."""
+    dev = resolve_device(device)
     shapes = layer_shapes(cfg)
     head_dim = cfg.dense_units[-1] if cfg.dense_units else None
     n_spiking = len(shapes) if head_dim is not None else len(shapes) - 1
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     conv_v = tuple(zeros(batch, *shapes[i]) for i in range(n_spiking))
     dense_v = tuple(zeros(batch, d) for d in cfg.dense_units[:-1])
@@ -144,6 +169,16 @@ def init_snn(generator: torch.Generator, cfg: SNNConfig, *,
                                                 device=dev))
             din = dout
     return params
+
+
+def freeze_params(params: Dict) -> Dict:
+    """``params`` for many forwards that neither change them nor take a
+    gradient (the serving cache): each dense layer also holds its
+    exact-grid weights (``snn_layers.with_exact_grid``), computed here
+    once instead of in every forward."""
+    with torch.no_grad():
+        return {**params, "dense": [L.with_exact_grid(dp)
+                                    for dp in params["dense"]]}
 
 
 def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
@@ -211,6 +246,7 @@ def _apply_ref_chunk(params: Dict, z_chunk: torch.Tensor, cfg: SNNConfig,
         # readout accumulator
         conv_s = conv_s + [LIFState(v=carry.readout_v)]
     dense_s = [LIFState(v=v) for v in carry.dense_v]
+    dense_p = [L.with_exact_grid(dp) for dp in params["dense"]]
     v_out = carry.readout_v
     cnts = [torch.zeros((c,), dtype=torch.float32, device=dev)
             for (_, _, c) in shapes]
@@ -238,12 +274,12 @@ def _apply_ref_chunk(params: Dict, z_chunk: torch.Tensor, cfg: SNNConfig,
             t_counts[i].append(s_t)
         if head_dim is not None:
             x = x.reshape(B, -1)
-            for j, dp in enumerate(params["dense"][:-1]):
+            for j, dp in enumerate(dense_p[:-1]):
                 dense_s[j], x = L.spiking_dense_step(
                     dp, dense_s[j], x, v_th=cfg.v_threshold,
                     surrogate_alpha=surrogate_alpha,
                     surrogate_kind=surrogate_kind)
-            v_out = v_out + L.dense(x, params["dense"][-1])
+            v_out = v_out + L.dense(x, dense_p[-1])
         else:
             v_out = x  # running readout membrane (already accumulated)
 
@@ -272,29 +308,9 @@ def _lif_scan(z_seq, v_th: float, alpha: float, kind: str,
 
 
 def _conv_plain(x: torch.Tensor, p: Dict, aprc: bool) -> torch.Tensor:
-    """Synaptic-current conv, plain path.  Single-channel input (the
-    direct-coded grayscale frame) goes through the R*R-tap implicit GEMM the
-    reference dispatches there — the formulation the kernels use."""
-    w = p["w"]
-    r, _, cin, cout = w.shape
-    if cin > 1:
-        return L.conv2d(x, w, aprc=aprc) + p["b"]
-    b_, h, w_in = x.shape[0], x.shape[1], x.shape[2]
-    if aprc:
-        pad_lo = pad_hi = r - 1                       # full conv
-    else:
-        pad_lo = (r - 1) // 2                         # SAME
-        pad_hi = r - 1 - pad_lo
-    e_h = h + pad_lo + pad_hi - r + 1
-    e_w = w_in + pad_lo + pad_hi - r + 1
-    xp = torch.nn.functional.pad(x, (0, 0, pad_lo, pad_hi, pad_lo, pad_hi))
-    taps = [xp[:, dy:dy + e_h, dx:dx + e_w, :]
-            for dy in range(r) for dx in range(r)]
-    patches = torch.cat(taps, dim=-1)                 # (B, E, E', R*R*Cin)
-    with full_fp32():
-        z = patches.reshape(b_ * e_h * e_w, r * r * cin) \
-            @ w.reshape(r * r * cin, cout)
-    return z.reshape(b_, e_h, e_w, cout) + p["b"]
+    """Synaptic-current conv, plain path (``snn_layers.conv2d``: a row's
+    bits do not depend on its batch)."""
+    return L.conv2d(x, p["w"], aprc=aprc) + p["b"]
 
 
 def _conv_folded(x_seq: torch.Tensor, p: Dict, cfg: SNNConfig,
@@ -427,11 +443,17 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         counts_t.append(cnt.float())
 
     if head_dim is not None:
-        x = x.reshape(T, B, -1)
-        for j, dp in enumerate(params["dense"][:-1]):
+        # each dense layer's product for the whole chunk in one GEMM (its
+        # rows are exact, so folding T into the rows changes no bit), then
+        # the recurrences as sequential loops over t
+        def folded(x_seq, dp):
+            return L.dense(x_seq.reshape(T * B, -1), dp).reshape(T, B, -1)
+
+        dense_p = [L.with_exact_grid(dp) for dp in params["dense"]]
+        for j, dp in enumerate(dense_p[:-1]):
             v, xs = carry.dense_v[j], []
-            for x_t in x:
-                v = v + L.dense(x_t, dp)
+            for z_t in folded(x, dp):
+                v = v + z_t
                 s = spike_fn(v - v_th, surrogate_alpha, surrogate_kind)
                 v = v - v_th * s
                 xs.append(s)
@@ -440,13 +462,103 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         # readout accumulates, never fires: a sequential loop over t, not a
         # sum over the T axis, so a chunked run adds in the same order
         acc = carry.readout_v
-        for x_t in x:
-            acc = acc + L.dense(x_t, params["dense"][-1])
+        for z_t in folded(x, dense_p[-1]):
+            acc = acc + z_t
         new_readout = acc
 
     return counts_t, skips, ChunkCarry(conv_v=tuple(new_conv_v),
                                        dense_v=tuple(new_dense_v),
                                        readout_v=new_readout)
+
+
+def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
+                    cfg: SNNConfig, *, t_chunk: int,
+                    surrogate_alpha: float = 10.0,
+                    surrogate_kind: str = "fast_sigmoid",
+                    backend: str = "batched",
+                    schedule: Optional[Sequence] = None,
+                    ) -> Tuple[ChunkOutputs, ChunkCarry]:
+    """One timestep chunk of the network, any backend.
+
+    ``frames`` is the (B, H, W, Cin) direct-coded input (constant over T)
+    or a (t_chunk, B, ...) pre-encoded spike-train slice, on the device of
+    ``carry``.  Returns the chunk's observability outputs and the updated
+    carry; chained over a partition of T, the final carry is bit-identical
+    to the whole-T run's internal state (``finalize_logits(carry.readout_v,
+    cfg, T)`` reproduces its logits exactly).  This is what the serving
+    engine runs per (bucket, backend, t_chunk) for chunk-boundary
+    rescheduling."""
+    if backend in ("batched", "hopper"):
+        counts_t, skips, carry = _time_batched_chunk(
+            params, frames, cfg, surrogate_alpha=surrogate_alpha,
+            surrogate_kind=surrogate_kind, use_kernels=(backend == "hopper"),
+            schedule=schedule, carry=carry, t_chunk=t_chunk)
+    elif backend == "ref":
+        if frames.dim() == 4:
+            z = frames.unsqueeze(0).expand((t_chunk,) + frames.shape)
+        else:
+            z = frames
+        _, counts_t, carry = _apply_ref_chunk(
+            params, z, cfg, carry, surrogate_alpha=surrogate_alpha,
+            surrogate_kind=surrogate_kind)
+        skips = []
+    else:
+        raise ValueError(
+            f"unknown backend {backend!r}; expected one of {SNN_BACKENDS}")
+    return ChunkOutputs(
+        spike_counts=tuple(c.sum(dim=0) for c in counts_t),
+        spike_totals=tuple(c.sum() for c in counts_t),
+        timestep_counts=tuple(counts_t),
+        skip_fractions=tuple(skips),
+    ), carry
+
+
+def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
+                      *, chunk_timesteps: int,
+                      surrogate_alpha: float = 10.0,
+                      surrogate_kind: str = "fast_sigmoid",
+                      backend: str = "batched",
+                      schedule: Optional[Sequence] = None) -> SNNOutputs:
+    """Chunked run: T in segments of ``chunk_timesteps`` with the
+    membrane/readout state carried between segments.
+
+    Bit-identical to the whole-T ``snn_apply`` for every partition of T:
+    every T-recurrence is sequential per element, the readouts are
+    sequential loops, and the hoisted first-layer conv is deterministic,
+    so chunk boundaries change nothing but where the carry is held.
+    ``timestep_counts`` are the chunks' counts concatenated along T; spike
+    counts/totals are their (integer-exact) sums; ``skip_fractions`` is the
+    chunk-length-weighted mean."""
+    hoist = frames.dim() == 4
+    t_total = cfg.timesteps if hoist else frames.shape[0]
+    B = frames.shape[0] if hoist else frames.shape[1]
+    carry = init_chunk_carry(cfg, B, frames.dtype, frames.device)
+    parts: List[ChunkOutputs] = []
+    t_done = 0
+    for c in chunk_lengths(t_total, chunk_timesteps):
+        xin = frames if hoist else frames[t_done:t_done + c]
+        out, carry = snn_apply_chunk(
+            params, xin, carry, cfg, t_chunk=c,
+            surrogate_alpha=surrogate_alpha, surrogate_kind=surrogate_kind,
+            backend=backend, schedule=schedule)
+        parts.append(out)
+        t_done += c
+    timestep_counts = tuple(
+        torch.cat([p.timestep_counts[i] for p in parts], dim=0)
+        for i in range(len(parts[0].timestep_counts)))
+    skip_fractions: Tuple[torch.Tensor, ...] = ()
+    if parts[0].skip_fractions:
+        weights = [p.timestep_counts[0].shape[0] / t_total for p in parts]
+        skip_fractions = tuple(
+            sum(w * p.skip_fractions[j] for w, p in zip(weights, parts))
+            for j in range(len(parts[0].skip_fractions)))
+    return SNNOutputs(
+        logits=finalize_logits(carry.readout_v, cfg, cfg.timesteps),
+        spike_counts=tuple(c.sum(dim=0) for c in timestep_counts),
+        spike_totals=tuple(c.sum() for c in timestep_counts),
+        timestep_counts=timestep_counts,
+        skip_fractions=skip_fractions,
+    )
 
 
 class SNN(nn.Module):

@@ -6,6 +6,9 @@
                     pre-reset membrane (csrc/spiking_conv_lif.cu), the
                     surrogate backward (csrc/lif_bwd.cu) and
                     SpikingConvLIFFn
+  lif               the elementwise LIF step (csrc/lif_fused.cu)
+  ops               the public op layer over all of them (the reference's
+                    kernels.ops), with the chunked fused layer
   ref               the plain-PyTorch oracles
   _build            nvcc build at first use and the ctypes binding
 

@@ -105,9 +105,16 @@ def test_package_imports_neither_jax_nor_the_reference():
         "import repro_torch, repro_torch.interop, repro_torch.launch.serve\n"
         "import repro_torch.launch.train, repro_torch.data.synthetic\n"
         "import repro_torch.kernels.spiking_conv_lif\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.lif\n"
+        "import repro_torch.serving, repro_torch.obs, repro_torch.runtime\n"
+        "import repro_torch.runtime.fault_tolerance\n"
+        "import repro_torch.runtime.faults, repro_torch.runtime.straggler\n"
+        "import repro_torch.perfmodel\n"
         "from repro_torch.config import get_snn\n"
         "from repro_torch.core import init_snn, snn_apply, build_schedule\n"
+        "from repro_torch.core import snn_apply_chunked\n"
         "from repro_torch.core.snn_train import make_train_step\n"
+        "from repro_torch.serving import EngineConfig, ServingEngine\n"
         "cfg = dataclasses.replace(get_snn('snn-mnist'), input_hw=(8, 8),\n"
         "                          conv_channels=(8, 8), timesteps=3)\n"
         "p = init_snn(torch.Generator().manual_seed(0), cfg, device='cpu')\n"
@@ -120,6 +127,14 @@ def test_package_imports_neither_jax_nor_the_reference():
         "           for l in v] for k, v in p.items()}\n"
         "make_train_step(cfg, backend='hopper')(p, mom, x,\n"
         "                                       torch.tensor([1, 2]))\n"
+        "out = snn_apply_chunked(p, x, cfg, chunk_timesteps=2,\n"
+        "                        backend='hopper')\n"
+        "assert out.logits.shape == (2, 10)\n"
+        "eng = ServingEngine(p, cfg, EngineConfig(\n"
+        "    backend='hopper', chunk_timesteps=2, device='cpu'))\n"
+        "for f in x.numpy():\n"
+        "    eng.submit(f)\n"
+        "assert eng.run()['served'] == 2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

@@ -279,3 +279,90 @@ def test_wrappers_check_their_arguments(card):
         spiking_conv_lif_fwd(x[None], v0, wg, b)
     with pytest.raises(NotImplementedError, match="backward"):
         conv_grad_input(v0.requires_grad_(True), w)
+
+
+# -- kernel F and the chunked hopper path --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128), (17, 300), (1, 1),
+                                   (4096, 512), (3, 5, 7)])
+def test_lif_fused_kernel_matches_plain(card, shape, dtype):
+    """Kernel F gives the plain version's bits (max error 0), in float32
+    and bfloat16, with membranes exactly at the threshold included."""
+    from repro_torch.kernels.lif import lif_fused
+    g = torch.Generator().manual_seed(len(shape) * 1000 + shape[0])
+    v = torch.randn(shape, generator=g).to(dtype)
+    z = torch.randn(shape, generator=g).to(dtype)
+    for start, value in ((0, 1.0), (3, 0.7)):   # v + z == v_th
+        v.view(-1)[start::7] = value
+        z.view(-1)[start::7] = 0.0
+    for v_th in (1.0, 0.7):
+        want = ref.lif_fused_ref(v, z, v_th)
+        before = lif_fused.launches
+        got = lif_fused(v.to(card), z.to(card), v_th)
+        torch.cuda.synchronize()
+        assert lif_fused.launches == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == dtype and torch.equal(a.cpu(), b)
+
+
+def _tiny_model(card, timesteps=5):
+    import dataclasses
+    from repro_torch.config import get_snn
+    from repro_torch.core import init_snn
+    cfg = dataclasses.replace(get_snn("snn-mnist"), input_hw=(12, 12),
+                              conv_channels=(8, 16), timesteps=timesteps,
+                              num_spe_clusters=4)
+    return cfg, init_snn(torch.Generator().manual_seed(0), cfg, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ct", [1, 2, 3, 5])
+def test_chunked_hopper_forward_bit_identical(card, ct):
+    """snn_apply_chunked on the kernels == whole T, bit for bit: logits,
+    per-timestep counts and skip fractions."""
+    from repro_torch.core import (build_schedule, snn_apply,
+                                  snn_apply_chunked)
+    cfg, params = _tiny_model(card)
+    x = torch.rand((6, 12, 12, 1), generator=torch.Generator()
+                   .manual_seed(1)).to(card)
+    sched = build_schedule(params, cfg, "aprc+cbws")
+    with torch.inference_mode():
+        want = snn_apply(params, x, cfg, backend="hopper", schedule=sched)
+        got = snn_apply_chunked(params, x, cfg, chunk_timesteps=ct,
+                                backend="hopper", schedule=sched)
+    assert torch.equal(got.logits, want.logits)
+    for a, b in zip(got.timestep_counts, want.timestep_counts):
+        assert torch.equal(a, b)
+    for a, b in zip(got.skip_fractions, want.skip_fractions):
+        assert abs(float(a) - float(b)) < 1e-6
+
+
+@pytest.mark.cuda
+def test_hopper_rows_do_not_depend_on_the_batch(card):
+    from repro_torch.core import snn_apply
+    cfg, params = _tiny_model(card)
+    x = torch.rand((16, 12, 12, 1), generator=torch.Generator()
+                   .manual_seed(2)).to(card)
+    with torch.inference_mode():
+        full = snn_apply(params, x, cfg, backend="hopper").logits
+        for n in (1, 2, 3, 4, 8):
+            got = snn_apply(params, x[:n], cfg, backend="hopper").logits
+            assert torch.equal(got, full[:n]), f"batch {n}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ref", "batched"])
+def test_plain_rows_do_not_depend_on_the_batch(card, backend):
+    """The plain backends' rows on the card (float64 exact-grid GEMMs for
+    spike inputs, fixed-order taps for the analog frame)."""
+    from repro_torch.core import snn_apply
+    cfg, params = _tiny_model(card)
+    x = torch.rand((16, 12, 12, 1), generator=torch.Generator()
+                   .manual_seed(2)).to(card)
+    with torch.inference_mode():
+        full = snn_apply(params, x, cfg, backend=backend).logits
+        for n in (1, 2, 3, 4, 8):
+            got = snn_apply(params, x[:n], cfg, backend=backend).logits
+            assert torch.equal(got, full[:n]), f"batch {n}"
