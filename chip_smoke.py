@@ -8,10 +8,17 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
 
   env     torch/CUDA versions, the card, its power limit
   build   the kernels, built from ``src/repro_torch/kernels/csrc`` in
-          parallel into ``build/repro_torch``
+          parallel into ``build/repro_torch``; the registers and spills
+          of each instance of the tensor-core kernels (B/C, E) and the
+          shared memory of their main-path plans
   kernel  each kernel against its plain version, at snn-mnist's main-path
           shapes (batch 256, T=8) and at SAME-pad, 5x5, all-zero, faint
-          analog and CBWS-permuted cases; kernel, plain and library times.
+          analog and CBWS-permuted cases (B and C also on a faint analog
+          train, which drives their float32 path); kernel, plain and
+          library times, and bounds: ``bound_fp32_ms`` (bytes against
+          float32 FLOPs) and ``bound_ms``, which for B, C and E counts the
+          three split products of every tap at the tensor-core peak of
+          their pipe (bf16, TF32).
           The training kernels run on what the train step gives them: the
           training forward (C) on the layers' input trains, the LIF
           backward (D) on C's u with random cotangents, for every
@@ -82,6 +89,7 @@ All plain versions and yardsticks run with TF32 off.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -104,9 +112,15 @@ FLIP_GRAD_REL = 1e-2       # the same, when the forward had threshold flips
 TRAJ_TOL = 1e-3            # 10-step loss trajectories, rel and abs
 MIN_LOSS_DROP = 0.05       # the hopper run's first loss minus its last
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
-# outside the tensor cores — the kernels run on the float32 FMA pipes
+# outside the tensor cores (kernels A, D, F), and the dense tensor-core
+# rates of the pipes kernels B and C (bf16) and E (TF32) use
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+# the products of one tap on the tensor cores: three bf16 weight planes
+# (B, C), three TF32 products (E)
+SPLIT_PRODUCTS = 3
 BATCH, SEED = 256, 0
 
 
@@ -157,19 +171,23 @@ def tap_flops(imgs, r: int, cout: int, pad_lo: int, e_h: int, e_w: int,
 
 
 def conv_work(x, w, aprc: bool, lif: bool, save_u: bool = False):
-    """(bytes, FLOPs) one call must move and compute on this input: each
-    input byte read once, each output written once; the taps of every
-    (image, row-block) whose receptive rows hold a nonzero input (the
-    kernel's skip), plus 4 FLOPs per membrane update for the LIF; with
-    ``save_u`` also the pre-reset membrane written."""
-    from repro_torch.kernels.spiking_conv import conv_pads, plan_tiles
+    """(bytes, FLOPs, tap FLOPs) one call must move and compute on this
+    input: each input byte read once, each output written once; the taps
+    of every (image, row-block) whose receptive rows hold a nonzero input
+    (the kernel's skip, at its row-blocks: kernel A's SIMT plan, or with
+    the LIF kernels B and C's tensor-core plan), plus 4 FLOPs per membrane
+    update for the LIF; with ``save_u`` also the pre-reset membrane
+    written."""
+    from repro_torch.kernels.spiking_conv import (conv_pads, plan_mma_tiles,
+                                                  plan_tiles)
     r, _, cin, cout = w.shape
     *lead, h, wd, _ = x.shape
     lo, _ = conv_pads(r, aprc)
     e_h, e_w = (h + r - 1, wd + r - 1) if aprc else (h, wd)
-    br, _ = plan_tiles(e_w, r, cin, cout)
+    br = (plan_mma_tiles(e_w, r, cin, cout).block_rows if lif
+          else plan_tiles(e_w, r, cin, cout)[0])
     imgs = x.reshape(-1, h, wd, cin)
-    flops = tap_flops(imgs, r, cout, lo, e_h, e_w, br)
+    flops = taps = tap_flops(imgs, r, cout, lo, e_h, e_w, br)
     n_out = imgs.shape[0] * e_h * e_w * cout
     out_bytes = 4 * n_out * (2 if save_u else 1)
     in_bytes = 4 * (x.numel() + w.numel() + cout)
@@ -178,18 +196,18 @@ def conv_work(x, w, aprc: bool, lif: bool, save_u: bool = False):
         membranes = 4 * n_out // lead[0]
         in_bytes += membranes                   # v0
         out_bytes += membranes                  # v_final
-    return in_bytes + out_bytes, flops
+    return in_bytes + out_bytes, flops, taps
 
 
 def grad_input_work(dz, w, aprc: bool):
     """(bytes, FLOPs) of the input gradient: dz read once, dx written once,
     the transposed taps of every row-block with a nonzero cotangent."""
-    from repro_torch.kernels.spiking_conv import conv_pads, plan_tiles
+    from repro_torch.kernels.spiking_conv import conv_pads, plan_mma_tiles
     r, _, cin, cout = w.shape
     n, e_h, e_w, _ = dz.shape
     lo, hi = conv_pads(r, aprc)
     h, wd = e_h + r - 1 - lo - hi, e_w + r - 1 - lo - hi
-    br, _ = plan_tiles(wd, r, cout, cin)
+    br = plan_mma_tiles(wd, r, cout, cin, split="tf32x3").block_rows
     flops = tap_flops(dz, r, cin, r - 1 - lo, h, wd, br)
     return 4 * (dz.numel() + w.numel() + n * h * wd * cin), flops
 
@@ -206,10 +224,29 @@ def lif_bwd_work(u):
     return 4 * (3 * t * m + 2 * m), float(LIF_BWD_FLOPS * t * m)
 
 
-def bound(nbytes: float, flops: float):
-    t_mem, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32):
+    """The least ms the card could take: bytes at the memory rate against
+    operations at ``peak`` (float32 outside the tensor cores by default),
+    and which of the two bounds it."""
+    t_mem, t_ops = nbytes / PEAK_BYTES, flops / peak
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
+
+
+def set_bounds(rec, nbytes, flops, taps=None, peak=None):
+    """A kernel record's bounds: bound_fp32_ms (bytes against float32
+    FLOPs), and bound_ms, which for a tensor-core kernel (``peak`` given)
+    counts the split's products of every tap at that pipe's peak."""
+    rec["bytes"], rec["flops"] = nbytes, flops
+    rec["bound_fp32_ms"], by = bound(nbytes, flops)
+    if peak is None:
+        rec["bound_ms"], rec["bound_by"] = rec["bound_fp32_ms"], by
+    else:
+        rec["tap_flops"], rec["peak_flops"] = taps, peak
+        rec["mma_flops"] = SPLIT_PRODUCTS * taps
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, rec["mma_flops"],
+                                                 peak)
+    return rec
 
 
 # -- comparison rules --------------------------------------------------------
@@ -280,8 +317,34 @@ def phase_env():
     return smi
 
 
+def ptxas_entries(log: str):
+    """Registers and spills of each tensor-core kernel instance in a ptxas
+    report: [kernel, NT, SAVE_U, registers, spill stores, spill loads]."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?"
+                      r"(spiking_conv_lif_kernel|conv_grad_input_kernel)"
+                      r"ILi(\d)E(?:Lb([01])E)?", ln)
+        if m:
+            cur = {"kernel": m.group(1), "n_tiles": int(m.group(2)),
+                   "save_u": m.group(3) == "1"}
+            out.append(cur)
+            continue
+        if "Compiling entry function" in ln:
+            cur = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None and "spill_stores" not in cur:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None and "registers" not in cur:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.spiking_conv import plan_mma_tiles
     t0 = time.perf_counter()
     reports = _build.build(_build.KERNELS)
     seconds = time.perf_counter() - t0
@@ -296,6 +359,21 @@ def phase_build():
                             "0 bytes spill loads")]
     emit("build", seconds=seconds, built=sorted(reports),
          ptxas=lines, nonzero_spills=spills)
+    # the two tensor-core sources: each instance's registers and spills,
+    # and the dynamic shared memory of the main path's launches (their
+    # plans; ptxas reports static shared memory only)
+    plans = {
+        "B/C layer 1": plan_mma_tiles(32, 3, 16, 32),
+        "B/C layer 2": plan_mma_tiles(34, 3, 32, 8),
+        "E layer-2 backward": plan_mma_tiles(32, 3, 8, 32, split="tf32x3"),
+        "E layer-1 backward": plan_mma_tiles(30, 3, 32, 16, split="tf32x3")}
+    for name in ("spiking_conv_lif", "conv_grad_input"):
+        if name in reports:
+            emit("build", source=f"csrc/{name}.cu",
+                 instances=ptxas_entries(reports[name]),
+                 main_path_plans={k: p._asdict() for k, p in plans.items()
+                                  if k.startswith("E") ==
+                                  (name == "conv_grad_input")})
 
 
 def _model_trains(cfg, params, frames):
@@ -347,7 +425,7 @@ def phase_kernels(cfg, params, frames, trains):
     got = spiking_conv(frames, w0, b0)
     err = check_dv("spiking_conv layer0", got, spiking_conv_plain(frames, w0,
                                                                   b0))
-    nbytes, flops = conv_work(frames, w0, True, lif=False)
+    nbytes, flops, _ = conv_work(frames, w0, True, lif=False)
     w_oihw = w0.permute(3, 2, 0, 1).contiguous()
     x_nchw = frames.permute(0, 3, 1, 2)
 
@@ -359,8 +437,7 @@ def phase_kernels(cfg, params, frames, trains):
            "ms": cuda_ms(lambda: spiking_conv(frames, w0, b0)),
            "plain_ms": cuda_ms(lambda: spiking_conv_plain(frames, w0, b0)),
            "library_ms": cuda_ms(library)}
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
-    rec["bytes"], rec["flops"] = nbytes, flops
+    set_bounds(rec, nbytes, flops)
     emit("kernel", name="spiking_conv", case="snn-mnist layer 0", **rec)
     summary["spiking_conv"] = [rec]
 
@@ -398,15 +475,15 @@ def phase_kernels(cfg, params, frames, trains):
         rec = check_train(f"spiking_conv_lif layer{layer}", s, v, s_p, v_p,
                           u_p, v_th)
         del s_p, v_p, u_p
-        nbytes, flops = conv_work(x, w, True, lif=True)
+        nbytes, flops, taps = conv_work(x, w, True, lif=True)
         rec.update(
             shape=list(x.shape), max_abs_err=rec["max_abs_err_v_agreeing"],
             ms=cuda_ms(lambda: spiking_conv_lif(x, v0, w, b, v_th=v_th),
                        reps=10),
             plain_ms=cuda_ms(lambda: spiking_conv_lif_plain(
                 x, v0, w, b, v_th=v_th), reps=10),
-            library_ms=None, bytes=nbytes, flops=flops)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+            library_ms=None)
+        set_bounds(rec, nbytes, flops, taps, PEAK_BF16)
         emit("kernel", name="spiking_conv_lif", case=f"snn-mnist layer "
              f"{layer}", **rec)
         summary["spiking_conv_lif"].append(rec)
@@ -430,6 +507,9 @@ def phase_kernels(cfg, params, frames, trains):
         "cbws-permuted weights": (s0[:, :64].contiguous(),
                                   w1[..., perm].contiguous(), b1[perm], True,
                                   perm),
+        # values that are not 0 or 1 at the even steps: those (block, step)
+        # cells take the kernel's float32 tap sum, the odd steps the MMAs
+        "faint analog train": (faint_train(gen, dev), w1, b1, True, None),
     }
     for case, (x, w, b, aprc, out_perm) in b_cases.items():
         e_h, e_w = conv_out_hw(x.shape[2], x.shape[3], w.shape[0], aprc)
@@ -455,6 +535,16 @@ def phase_kernels(cfg, params, frames, trains):
         emit("kernel", name="spiking_conv_lif", case=case,
              shape=list(x.shape), **rec)
     return summary
+
+
+def faint_train(gen, dev):
+    """A (8, 64, 30, 30, 16) input of layer 1's width whose even steps hold
+    faint analog values in (0, 0.5) where the odd steps hold spikes (rate
+    0.2): not a spike train, as a caller of the public wrappers may pass."""
+    import torch
+    x = (torch.rand((8, 64, 30, 30, 16), generator=gen) < 0.2).float()
+    x[::2] *= torch.rand(x[::2].shape, generator=gen) * 0.5
+    return x.to(dev)
 
 
 def phase_train_kernels(cfg, params, trains):
@@ -492,7 +582,7 @@ def phase_train_kernels(cfg, params, trains):
             fail(f"spiking_conv_lif_fwd layer{layer}: u differs by {u_err} "
                  f"(> {U_ATOL}) where the trains agree")
         del s, v, s_p, v_p, u_p
-        nbytes, flops = conv_work(x, w, True, lif=True, save_u=True)
+        nbytes, flops, taps = conv_work(x, w, True, lif=True, save_u=True)
         rec.update(
             shape=list(x.shape), max_abs_err=max(
                 u_err, rec["max_abs_err_v_agreeing"]),
@@ -501,8 +591,8 @@ def phase_train_kernels(cfg, params, trains):
                        reps=10),
             plain_ms=cuda_ms(lambda: ref.spiking_conv_lif_ref(
                 x, v0, w, b, v_th=v_th, save_u=True), reps=10),
-            library_ms=None, bytes=nbytes, flops=flops)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+            library_ms=None)
+        set_bounds(rec, nbytes, flops, taps, PEAK_BF16)
         emit("kernel", name="spiking_conv_lif_fwd",
              case=f"snn-mnist layer {layer}", **rec)
         summary["spiking_conv_lif_fwd"].append(rec)
@@ -529,8 +619,8 @@ def phase_train_kernels(cfg, params, trains):
                    "ms": cuda_ms(lambda: lif_bwd(u, g_s, g_v, **kw)),
                    "plain_ms": cuda_ms(lambda: ref.lif_bwd_ref(u, g_s, g_v,
                                                                **kw)),
-                   "library_ms": None, "bytes": nbytes, "flops": flops}
-            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+                   "library_ms": None}
+            set_bounds(rec, nbytes, flops)
             emit("kernel", name="lif_bwd", case=f"snn-mnist layer {layer}",
                  **rec)
             if kind == "fast_sigmoid":
@@ -561,9 +651,8 @@ def phase_train_kernels(cfg, params, trains):
         rec = {"shape": list(dz.shape), "max_abs_err": err,
                "ms": cuda_ms(lambda: conv_grad_input(dz, w)),
                "plain_ms": cuda_ms(lambda: ref.conv_grad_input_ref(dz, w)),
-               "library_ms": cuda_ms(library), "bytes": nbytes,
-               "flops": flops}
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+               "library_ms": cuda_ms(library)}
+        set_bounds(rec, nbytes, flops, flops, PEAK_TF32)
         emit("kernel", name="conv_grad_input",
              case=f"snn-mnist layer {layer} backward", **rec)
         summary["conv_grad_input"].append(rec)
@@ -583,6 +672,22 @@ def phase_train_kernels(cfg, params, trains):
                        ref.conv_grad_input_ref(dz, w, aprc=aprc))
         emit("kernel", name="conv_grad_input", case=case,
              shape=list(dz.shape), max_abs_err=err)
+
+    # kernel C on an input that is not a spike train (see faint_train)
+    x, w, b = faint_train(gen, dev), conv[1]["w"], conv[1]["b"]
+    v0 = randn(64, 32, 32, 32) * 0.3
+    s, v, u = spiking_conv_lif_fwd(x, v0, w, b, v_th=v_th)
+    s_p, v_p, u_p = ref.spiking_conv_lif_ref(x, v0, w, b, v_th=v_th,
+                                             save_u=True)
+    rec = check_train("spiking_conv_lif_fwd faint analog train", s, v, s_p,
+                      v_p, u_p, v_th)
+    agree = (s == s_p).all(dim=0)
+    u_err = float((u - u_p).abs()[:, agree].max())
+    if u_err > U_ATOL:
+        fail(f"spiking_conv_lif_fwd faint analog train: u differs by "
+             f"{u_err} (> {U_ATOL}) where the trains agree")
+    emit("kernel", name="spiking_conv_lif_fwd", case="faint analog train",
+         shape=list(x.shape), max_abs_err_u_agreeing=u_err, **rec)
     return summary
 
 
@@ -933,15 +1038,14 @@ def phase_lif_fused():
                "max_abs_err": err,
                "ms": cuda_ms(lambda: lif_fused(v, z, 1.0)),
                "plain_ms": cuda_ms(lambda: lif_fused_plain(v, z, 1.0)),
-               "library_ms": None, "bytes": nbytes,
-               "flops": float(LIF_FUSED_FLOPS * n)}
+               "library_ms": None}
         # a call this small can take less device time than the wrapper's
         # host time, which the CUDA events above then include
         for key, fn in (("device_ms", lif_fused),
                         ("plain_device_ms", lif_fused_plain)):
             by_kernel, _ = device_time(lambda: fn(v, z, 1.0), reps=20)
             rec[key] = sum(by_kernel.values())
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, rec["flops"])
+        set_bounds(rec, nbytes, float(LIF_FUSED_FLOPS * n))
         emit("lif_fused", **rec)
         if shape == (262144, 32):
             summary = [rec]
@@ -1178,23 +1282,25 @@ def main() -> int:
     phase_engine(cfg, params, serve_fps)
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
+    # each TPU kernel's pl.pallas_call site
     sources = {
         "spiking_conv": (csrc + "spiking_conv.cu",
-                         tpu + "spiking_conv.py:149"),
+                         tpu + "spiking_conv.py:184"),
         "spiking_conv_lif": (csrc + "spiking_conv_lif.cu",
-                             tpu + "spiking_conv_lif.py:208"),
+                             tpu + "spiking_conv_lif.py:181"),
         "spiking_conv_lif_fwd": (csrc + "spiking_conv_lif.cu",
-                                 tpu + "spiking_conv_lif.py:234"),
-        "lif_bwd": (csrc + "lif_bwd.cu", tpu + "spiking_conv_lif.py:297"),
+                                 tpu + "spiking_conv_lif.py:181"),
+        "lif_bwd": (csrc + "lif_bwd.cu", tpu + "spiking_conv_lif.py:329"),
         "conv_grad_input": (csrc + "conv_grad_input.cu",
-                            tpu + "spiking_conv.py:266"),
-        "lif_fused": (csrc + "lif_fused.cu", tpu + "lif.py:39")}
+                            tpu + "spiking_conv.py:294"),
+        "lif_fused": (csrc + "lif_fused.cu", tpu + "lif.py:49")}
     for name, recs in summary.items():
         # per snn-mnist forward or train step: the sum over the kernel's
         # main-path shapes
-        bytes_, flops = sum(r["bytes"] for r in recs), sum(r["flops"]
-                                                           for r in recs)
-        bound_ms, bound_by = bound(bytes_, flops)
+        tot = set_bounds(
+            {}, sum(r["bytes"] for r in recs), sum(r["flops"] for r in recs),
+            sum(r.get("tap_flops", 0) for r in recs),
+            recs[0].get("peak_flops"))
         lib = [r["library_ms"] for r in recs]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
@@ -1202,7 +1308,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in recs),
             "plain_ms": sum(r["plain_ms"] for r in recs),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "bound_fp32_ms": tot["bound_fp32_ms"],
             "library_ms": None if None in lib else sum(lib),
             "shapes": [r["shape"] for r in recs]})
     emit("done", seconds=time.perf_counter() - t0)

@@ -1,7 +1,9 @@
-// Device code shared by the three conv kernels (spiking_conv.cu,
-// spiking_conv_lif.cu and conv_grad_input.cu): the thread-block
-// decomposition, the shared-memory staging of one row-block's halo and of
-// the block's weight tile, and the fixed-order tap accumulation.
+// Device code of kernel A (spiking_conv.cu), the SIMT conv tile: the
+// thread-block decomposition, the shared-memory staging of one row-block's
+// halo and of the block's weight tile, and the fixed-order tap
+// accumulation.  Shared with the tensor-core kernels (mma_tile.cuh): the
+// shape (ConvShape), allow_smem, and tap_sum, the float32 path that kernels
+// B and C take for a (block, step) whose input is not all 0 and 1.
 //
 // Decomposition.  One thread block per (image n, output row-block i, Cout
 // tile g): grid (N, ceil(E_h / BR), ceil(Cout / CT)).  Thread t owns output
@@ -104,6 +106,29 @@ __device__ __forceinline__ void accumulate(float (&acc)[CT], const float* xs,
       }
     }
   }
+}
+
+// The float32 tap sum of one output (y, x, channel co) of one (H, W, Cin)
+// image, read from device memory: the taps (dy, dx) and input channels ci
+// in accumulate's order, one fmaf each, zero outside the image, so it
+// gives accumulate's bits.  w is (R, R, Cin, Cout).
+__device__ __forceinline__ float tap_sum(const float* __restrict__ img,
+                                const float* __restrict__ w, ConvShape s,
+                                int y, int x, int co) {
+  float acc = 0.f;
+  for (int dy = 0; dy < s.R; ++dy) {
+    const int iy = y + dy - s.pad_lo;
+    for (int dx = 0; dx < s.R; ++dx) {
+      const int ix = x + dx - s.pad_lo;
+      const bool inside = iy >= 0 && iy < s.H && ix >= 0 && ix < s.W;
+      const float* xp = img + ((size_t)iy * s.W + ix) * s.Cin;
+      const float* wp = w + (size_t)(dy * s.R + dx) * s.Cin * s.Cout + co;
+      for (int ci = 0; ci < s.Cin; ++ci)
+        acc = fmaf(inside ? __ldg(xp + ci) : 0.f,
+                   __ldg(wp + (size_t)ci * s.Cout), acc);
+    }
+  }
+  return acc;
 }
 
 // Write the CT values of one output pixel (channels c0.., masked at Cout):

@@ -17,7 +17,8 @@ from repro_torch.device import full_fp32
 
 __all__ = ["conv_pads", "spiking_conv_ref", "lif_fused_ref",
            "spiking_conv_lif_ref", "lif_bwd_ref", "conv_grad_input_ref",
-           "conv_grad_weights"]
+           "conv_grad_weights", "split_bf16x3", "tf32_round", "split_tf32x2",
+           "tf32x3_product"]
 
 
 def conv_pads(r: int, aprc: bool) -> Tuple[int, int]:
@@ -129,3 +130,46 @@ def conv_grad_weights(x: torch.Tensor, dz: torch.Tensor, *, aprc: bool,
                          @ gz for dx in range(r)])
             for dy in range(r)])
     return dw, dz.float().sum(dim=(0, 1, 2))
+
+
+# -- the tensor-core kernels' operand splits ----------------------------------
+
+def split_bf16x3(w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The weight split of kernels B and C (``csrc/spiking_conv_lif.cu``):
+    ``hi = bf16(w)``, ``mid = bf16(w - hi)``, ``lo = bf16(w - hi - mid)``,
+    each rounded to nearest even.  Three parts of 8 significant bits hold
+    float32's 24, so ``hi + mid + lo == w`` exactly, and a spike (0 or 1)
+    times any part is exact in the tensor core."""
+    w = w.float()
+    hi = w.to(torch.bfloat16)
+    r1 = w - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero (``cvt.rna.tf32.f32``'s rounding), as kernel E's
+    ``to_tf32`` does it: add half a TF32 ulp to the bits, clear the 13
+    dropped ones; returned as float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32x2(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operand split of kernel E (``csrc/conv_grad_input.cu``), for the
+    cotangent and the weights alike: ``hi = tf32(x)``, ``lo = tf32(x -
+    hi)``."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def tf32x3_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product kernel E forms of two float32 operands from their TF32
+    parts, ``a_lo*b_hi + a_hi*b_lo + a_hi*b_hi`` (the MMAs' products of
+    TF32 values are exact), in float64."""
+    a_hi, a_lo = (t.double() for t in split_tf32x2(a))
+    b_hi, b_lo = (t.double() for t in split_tf32x2(b))
+    return a_lo * b_hi + a_hi * b_lo + a_hi * b_hi

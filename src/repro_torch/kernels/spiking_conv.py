@@ -23,7 +23,7 @@ block must not be skipped.  The kernel takes its skip per thread block
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -35,11 +35,13 @@ from repro_torch.kernels.ref import (conv_grad_input_ref, conv_grad_weights,
 __all__ = ["spiking_conv", "spiking_conv_plain", "SpikingConvFn",
            "conv_grad_input", "conv_grad_input_plain", "conv_grad_weights",
            "conv_pads", "row_block_counts", "skip_table_fraction",
-           "plan_tiles"]
+           "plan_tiles", "MmaPlan", "plan_mma_tiles"]
 
 _MAX_THREADS = 512        # the kernels' __launch_bounds__
 _MAX_SMEM = 227 * 1024    # bytes a block may use on sm_90
 BLOCK_ROWS = 8            # output rows per thread block (and per skip cell)
+MMA_WARPS = 8             # warps of a tensor-core kernel block (mma_tile.cuh)
+MMA_TILES = 2             # m16 tiles one warp holds
 # spiking_conv_launch(x, w, b, out, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
 #                     block_rows, cout_tile, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -60,8 +62,9 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
 
 
 def plan_tiles(e_w: int, r: int, cin: int, cout: int) -> Tuple[int, int]:
-    """(block_rows, cout_tile) of a launch: one thread per output pixel of
-    a ``block_rows x E_w`` row-block, each thread owning ``cout_tile``
+    """(block_rows, cout_tile) of a launch of kernel A
+    (``csrc/spiking_conv.cu``, the SIMT tile): one thread per output pixel
+    of a ``block_rows x E_w`` row-block, each thread owning ``cout_tile``
     consecutive output channels.  Rows shrink from ``BLOCK_ROWS`` only when
     the threads or the shared memory (halo rows plus the weight tile, the
     formula of ``csrc/conv_tile.cuh``) would not fit one block."""
@@ -75,6 +78,57 @@ def plan_tiles(e_w: int, r: int, cin: int, cout: int) -> Tuple[int, int]:
         br //= 2
     raise ValueError(f"no tiling fits one thread block: E_w={e_w}, R={r}, "
                      f"Cin={cin}")
+
+
+class MmaPlan(NamedTuple):
+    """The tiling of one launch of a tensor-core conv kernel (B, C or E)."""
+    block_rows: int     # output rows of a block, and of its skip cell
+    cout_tile: int      # output channels of a block: n_tiles n8 tiles
+    n_tiles: int
+    k_pad: int          # Cin padded with zeros to the MMA depth
+    m_tiles: int        # m16 tiles over the block's block_rows * E_w pixels
+    smem_bytes: int
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def plan_mma_tiles(e_w: int, r: int, cin: int, cout: int, *,
+                   split: str = "bf16x3") -> MmaPlan:
+    """The tiling of kernels B and C (``split="bf16x3"``: bf16 MMAs on three
+    weight planes) or E (``"tf32x3"``: TF32 MMAs on two planes), the
+    host's mirror of ``csrc/mma_tile.cuh``'s ``MmaDims``.
+
+    A block takes all of the layer's channels up to 32 (``n_tiles`` <= 4
+    n8 tiles; wider layers add groups on the grid) and a row-block of
+    ``block_rows x E_w`` pixels in m16 tiles, two a warp, so at most 16
+    (256 pixels).  K is Cin padded to 16 (bf16) or 8 (TF32).  Shared
+    memory holds the weight planes and the halo rows, each row ``k_pad``
+    plus 16 bytes, and for B and C a float32 staging copy of the raw rows
+    and the membrane, one float a thread and accumulator site.  Rows
+    shrink from ``BLOCK_ROWS`` one at a time until the m-tiles and the
+    shared memory fit, and where not even one row fits, the channel group
+    shrinks."""
+    if split not in ("bf16x3", "tf32x3"):
+        raise ValueError(f"unknown operand split {split!r}")
+    bf16 = split == "bf16x3"
+    kp = _round_up(cin, 16 if bf16 else 8)
+    cs = kp + (8 if bf16 else 4)
+    w_pad = e_w + r - 1
+    planes, elt = (3, 2) if bf16 else (2, 4)
+    for nt in range(min(4, -(-cout // 8)), 0, -1):
+        for br in range(BLOCK_ROWS, 0, -1):
+            halo_pix = (br + r - 1) * w_pad
+            m_tiles = -(-br * e_w // 16)
+            smem = (planes * r * r * 8 * nt * cs + halo_pix * cs) * elt
+            if bf16:
+                smem += 4 * (halo_pix * _round_up(cin, 4)
+                             + 32 * MMA_WARPS * MMA_TILES * 4 * nt)
+            if m_tiles <= MMA_WARPS * MMA_TILES and smem <= _MAX_SMEM:
+                return MmaPlan(br, 8 * nt, nt, kp, m_tiles, smem)
+    raise ValueError(f"no tiling fits one thread block: E_w={e_w}, R={r}, "
+                     f"Cin={cin}, Cout={cout}")
 
 
 def _window_counts(row_tot: torch.Tensor, r: int, block_rows: int,
@@ -198,7 +252,7 @@ def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
     h, wd = e_h + r - 1 - lo - hi, e_w + r - 1 - lo - hi
     # the backward conv's own roles: its input is dz (Cout channels), its
     # output dx (Cin channels)
-    block_rows, cout_tile = plan_tiles(wd, r, cout, cin)
+    plan = plan_mma_tiles(wd, r, cout, cin, split="tf32x3")
     out = torch.empty((n, h, wd, cin), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -207,7 +261,8 @@ def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv_grad_input_launch(
             dz.data_ptr(), w.data_ptr(), out.data_ptr(), n, e_h, e_w, cout,
-            cin, r, r - 1 - lo, h, wd, block_rows, cout_tile, stream)
+            cin, r, r - 1 - lo, h, wd, plan.block_rows, plan.cout_tile,
+            stream)
     _build.check_launch(lib, fn, rc)
     conv_grad_input.launches += 1
     return out

@@ -35,7 +35,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lif_bwd_ref, spiking_conv_lif_ref
 from repro_torch.kernels.spiking_conv import (_conv_dims, conv_grad_input,
                                               conv_grad_weights, needs_grad,
-                                              plan_tiles)
+                                              plan_mma_tiles)
 
 __all__ = ["spiking_conv_lif", "spiking_conv_lif_plain",
            "spiking_conv_lif_fwd", "lif_bwd", "lif_bwd_plain",
@@ -74,7 +74,7 @@ def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
     if tuple(v0.shape) != (n, e_h, e_w, cout):
         raise ValueError(f"{fn}: v0 must be {(n, e_h, e_w, cout)}, got "
                          f"{tuple(v0.shape)}")
-    block_rows, cout_tile = plan_tiles(e_w, r, cin, cout)
+    plan = plan_mma_tiles(e_w, r, cin, cout)
     s = torch.empty((t, n, e_h, e_w, cout), dtype=torch.float32, device=dev)
     v = torch.empty_like(v0)
     outs = (s, v, torch.empty_like(s)) if save_u else (s, v)
@@ -90,8 +90,8 @@ def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"{fn}_launch")(
             spikes.data_ptr(), v0.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            *ptrs, t, n, h, wd, cin, cout, r, pad_lo, e_h, e_w, block_rows,
-            cout_tile, float(v_th), stream)
+            *ptrs, t, n, h, wd, cin, cout, r, pad_lo, e_h, e_w,
+            plan.block_rows, plan.cout_tile, float(v_th), stream)
     _build.check_launch(lib, fn, rc)
     if save_u:
         spiking_conv_lif_fwd.launches += 1

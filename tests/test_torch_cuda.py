@@ -44,6 +44,23 @@ FUSED_CASES = [
     (2, 2, 6, 6, 4, 6, 3, False),       # SAME
     (8, 2, 32, 32, 32, 8, 3, True),     # snn-mnist layer 2 widths
 ]
+# the tensor-core kernels pad K (Cin) and N (Cout) to their MMA tiles: Cin
+# and Cout that are not multiples of 8 or 16, a Cout past 32 (a second
+# channel group on the grid), 5x5 taps with two k16 steps a tap
+MMA_FUSED_CASES = [
+    # T, B, H, W, Cin, Cout, R, aprc
+    (3, 2, 9, 11, 5, 12, 3, True),
+    (2, 2, 8, 8, 3, 40, 3, False),
+    (2, 1, 6, 7, 20, 9, 5, True),
+]
+MMA_GRAD_CASES = [
+    # the forward's B, H, W, Cin, Cout, R, aprc: kernel E sums over Cout
+    # and writes Cin
+    (2, 9, 11, 5, 12, 3, True),
+    (1, 8, 8, 20, 40, 3, False),
+    (2, 6, 6, 33, 7, 3, True),
+    (1, 7, 9, 3, 3, 5, True),
+]
 
 
 @pytest.fixture
@@ -206,6 +223,72 @@ def test_conv_grad_input_kernel_matches_plain(card, case, density):
     assert got.shape == want.shape == (b, h, w_, cin)
     scale = max(float(want.abs().max()), 1e-30)
     torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+
+
+def _fused_input(rng, shape, kind):
+    """A spike train (rate 0.3), or the same sites holding faint analog
+    values in (0, 0.5) at every step ("analog") or every other step
+    ("mixed")."""
+    spikes = (rng.random(shape) < 0.3).astype(np.float32)
+    if kind == "spikes":
+        return spikes
+    faint = spikes * (rng.random(shape) * 0.5).astype(np.float32)
+    if kind == "analog":
+        return faint
+    spikes[::2] = faint[::2]
+    return spikes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["spikes", "analog", "mixed"])
+@pytest.mark.parametrize("case", MMA_FUSED_CASES + FUSED_CASES[:1])
+def test_fused_kernels_on_spike_and_analog_inputs(card, case, kind):
+    """Kernels B and C on 0/1 trains (their tensor-core path) and on inputs
+    that are not (their float32 path, at every step or every other one),
+    against the plain version: the same trains up to threshold flips, the
+    same membranes and pre-reset membranes where the trains agree."""
+    t, b, h, w_, cin, cout, r, aprc = case
+    rng = np.random.default_rng(sum(case) + len(kind))
+    e_h, e_w = (h + r - 1, w_ + r - 1) if aprc else (h, w_)
+    x = _fused_input(rng, (t, b, h, w_, cin), kind)
+    w = (rng.standard_normal((r, r, cin, cout)) * 0.3).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.05 + 0.1).astype(np.float32)
+    v0 = (rng.standard_normal((b, e_h, e_w, cout)) * 0.3).astype(np.float32)
+    x, w, bias, v0 = _on(card, x, w, bias, v0)
+    n = (spiking_conv_lif.launches, spiking_conv_lif_fwd.launches)
+    s, v = spiking_conv_lif(x, v0, w, bias, v_th=1.0, aprc=aprc)
+    s_c, v_c, u = spiking_conv_lif_fwd(x, v0, w, bias, v_th=1.0, aprc=aprc)
+    torch.cuda.synchronize()
+    assert (spiking_conv_lif.launches, spiking_conv_lif_fwd.launches) == \
+        (n[0] + 1, n[1] + 1)
+    assert torch.equal(s, s_c) and torch.equal(v, v_c)
+    sp, vp, up = ref.spiking_conv_lif_ref(x, v0, w, bias, v_th=1.0,
+                                          aprc=aprc, save_u=True)
+    assert _flips_near_threshold(s, sp, up, 1.0)
+    agree = (s == sp).all(dim=0)
+    torch.testing.assert_close(v[agree], vp[agree], atol=1e-4, rtol=0)
+    torch.testing.assert_close(u[:, agree], up[:, agree], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MMA_GRAD_CASES)
+def test_conv_grad_input_kernel_pads_its_mma_tiles(card, case):
+    """Kernel E where its K (the forward's Cout) and N (the forward's Cin)
+    are not multiples of its MMA tiles, or N spans two channel groups."""
+    b, h, w_, cin, cout, r, aprc = case
+    rng = np.random.default_rng(sum(case) + 5)
+    e_h, e_w = (h + r - 1, w_ + r - 1) if aprc else (h, w_)
+    dz = rng.standard_normal((b, e_h, e_w, cout)).astype(np.float32)
+    w = (rng.standard_normal((r, r, cin, cout)) * 0.2).astype(np.float32)
+    dz, w = _on(card, dz, w)
+    n = conv_grad_input.launches
+    got = conv_grad_input(dz, w, aprc=aprc)
+    torch.cuda.synchronize()
+    assert conv_grad_input.launches == n + 1
+    want = ref.conv_grad_input_ref(dz, w, aprc=aprc)
+    assert got.shape == want.shape == (b, h, w_, cin)
+    torch.testing.assert_close(got, want,
+                               atol=1e-5 * float(want.abs().max()), rtol=0)
 
 
 def _batched_layer(x, v0, w, b, aprc, alpha, kind):
