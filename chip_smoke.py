@@ -14,29 +14,36 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
   kernel  each kernel against its plain version, at snn-mnist's main-path
           shapes (batch 256, T=8) and at SAME-pad, 5x5, all-zero, faint
           analog and CBWS-permuted cases (B and C also on a faint analog
-          train, which drives their float32 path); kernel, plain and
-          library times, and bounds: ``bound_fp32_ms`` (bytes against
-          float32 FLOPs) and ``bound_ms``, which for B, C and E counts the
-          three split products of every tap at the tensor-core peak of
-          their pipe (bf16, TF32).
+          train, which drives their float32 path); kernel A in both modes:
+          dV, and the hoisted first layer with and without SAVE_U (also
+          ragged, nonzero-v0, T=1 and T=3 cases), bit for bit on analog
+          frames; kernel, plain and library times (A's modes also their
+          device time by the profiler), and bounds: ``bound_fp32_ms``
+          (bytes against float32 FLOPs) and ``bound_ms``, which for B, C
+          and E counts the three split products of every tap at the
+          tensor-core peak of their pipe (bf16, TF32).
           The training kernels run on what the train step gives them: the
           training forward (C) on the layers' input trains, the LIF
-          backward (D) on C's u with random cotangents, for every
-          surrogate, and the input gradient (E) on D's lam folded to
-          (T*B, ...), plus SAME-pad, 5x5, ragged and mostly-zero cases
+          backward (D) on C's u (and on the hoisted mode's u at layer 0)
+          with random cotangents, for every surrogate, and the input
+          gradient (E) on D's lam folded to (T*B, ...), plus SAME-pad,
+          5x5, ragged and mostly-zero cases
   model   full-width snn-mnist, batch 256: backend="hopper" with an
           aprc+cbws schedule against backend="batched" (plain ops), both
-          on the card; launch counts per forward
+          on the card; each layer's threshold flips (none in layer 0,
+          whose kernel gives the plain path's bits); kernel launch counts
+          per forward
   profile one hopper forward's device time by kernel (torch.profiler)
           against its time between CUDA events: the device's idle share
   serve   the serve launcher answering a few requests (the main path of
-          inference; kernels A and B's launch counts are read around it)
+          inference; the hoisted mode's and kernel B's launch counts are
+          read around it)
   train   (a) one loss and gradient at full width, batch 256: hopper
           against batched, with the forward's threshold flips counted;
           (b) the training launcher, 10 SGD steps on each backend (the
-          main path of training; kernels C, D and E's launch counts are
-          read around the hopper run); (c) one train step's time and its
-          device time by kernel
+          main path of training; the hoisted mode's SAVE_U and kernels C,
+          D and E's launch counts are read around the hopper run); (c)
+          one train step's time and its device time by kernel
   lif_fused   kernel F through ops.lif_fused against its plain version at
           (4096, 512) in float32 and bfloat16, (17, 300) and layer 1's
           membrane (262144, 32), the T=1 path's shape:
@@ -44,8 +51,8 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           of both by the profiler
   t1_contract layer 1 at batch 256 through the kernel-ops layer: kernel A
           on the first step of its input train, then F, equals kernel B
-          with T=1 (the spike-train rule below); F's launch count is read
-          around this two-kernel path
+          with T=1 (the spike-train rule below); A's dV mode's and F's
+          launch counts are read around this two-kernel path
   chunk   snn_apply_chunked(backend="hopper", aprc+cbws) at batch 256 for
           chunks of 1, 2 and 3 steps equals whole T bit for bit (logits,
           counts, skip fractions); ops.spiking_conv_lif_chunked gradients
@@ -57,25 +64,30 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           exponential gaps of mean 1 ms on the virtual clock, whole T and in
           chunks of 3 steps, then threaded on the wall clock: every request
           resolves once, with the logits of a batch-1 forward of its frame,
-          the same in both virtual runs; kernels A and B's launch counts
-          are read around each run; the virtual runs also give each
-          micro-batch's measured dispatch time and the lanes' busy share
+          the same in both virtual runs; the hoisted mode's and kernel
+          B's launch counts are read around each run; the virtual runs
+          also give each micro-batch's measured dispatch time and the
+          lanes' busy share
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line and, last, ``{"ok": true, "device": {...}}``.  A
 failed check raises, and the script exits nonzero.
 
-The comparison rule for the spike trains.  The kernels sum the taps in
-another order than the plain path (which sums exactly and rounds once),
-so a membrane within a few ulps of v_th can
+The comparison rule for the spike trains.  Kernels B and C sum the taps
+of a spike train in another order than the plain path (which sums exactly
+and rounds once), so a membrane within a few ulps of v_th can
 fire in one and not in the other (a threshold flip), and that site's
 train differs from then on.  So a spike train passes when at most
 ``MAX_FLIP_FRACTION`` of its sites (batch x pixel x channel) differ, every
 differing site first differs at a step where the plain pre-reset membrane
 lay within ``FLIP_BAND`` of v_th, and the final membranes of all agreeing
-sites agree to ``V_ATOL``.  dV of the conv kernel agrees to 1e-5 (abs and
-rel).  The saved membrane u agrees to ``U_ATOL`` where the trains agree;
-the LIF backward to ``BWD_TOL`` (rel and abs: it repeats the plain
+sites agree to ``V_ATOL``.  Kernel A sums an analog input's taps in the
+plain path's order and rounding, so on the frames (and on an all-zero
+input) its dV, and the hoisted mode's trains, u and final membranes, equal
+the plain version's bit for bit; on a spike input, which the plain path
+sums exactly in float64, A's dV agrees to ``DV_TOL`` (abs and rel).  The
+saved membrane u agrees to ``U_ATOL`` where the trains agree; the LIF
+backward to ``BWD_TOL`` (rel and abs: it repeats the plain
 version's float operations); the input gradient to ``DX_TOL`` of its
 largest value.  The model's logits agree with batched to ``LOGITS_ATOL``
 beyond their threshold-flip bound: the readout adds ``w[j] / T`` per
@@ -101,7 +113,7 @@ ROOT = Path(__file__).resolve().parent
 MAX_FLIP_FRACTION = 1e-5   # sites of a spike train that may differ
 FLIP_BAND = 1e-4           # |u - v_th| at a site's first differing step
 V_ATOL = 1e-4              # final membrane at sites whose trains agree
-DV_TOL = 1e-5              # conv kernel dV, abs and rel
+DV_TOL = 1e-5              # kernel A's dV on a spike input, abs and rel
 U_ATOL = 1e-5              # saved pre-reset membrane, where trains agree
 BWD_TOL = 1e-6             # LIF backward lam and dv0, rel and abs
 DX_TOL = 1e-5              # input gradient, relative to its largest value
@@ -147,6 +159,20 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host ms of one call of ``fn``: ``calls`` calls back to back on an
+    input whose device time is below the host's, so the wall time is the
+    host's (a wrapper's checks, allocations and launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 # -- work and bounds ---------------------------------------------------------
@@ -197,6 +223,19 @@ def conv_work(x, w, aprc: bool, lif: bool, save_u: bool = False):
         in_bytes += membranes                   # v0
         out_bytes += membranes                  # v_final
     return in_bytes + out_bytes, flops, taps
+
+
+def hoisted_work(x, w, t: int, aprc: bool, save_u: bool):
+    """(bytes, FLOPs) of kernel A's hoisted mode: the frames, weights, bias
+    and v0 read once, the spike train (and u) of every step and v_final
+    written once; the taps of every (image, row-block) with a nonzero input
+    (as for the dV mode), plus 4 FLOPs per membrane update."""
+    nbytes, flops, _ = conv_work(x, w, aprc, lif=False)
+    n_out = (nbytes - 4 * (x.numel() + w.numel() + w.shape[-1])) // 4
+    # conv_work's dV stands for v0 read; then s (and u) of every step and
+    # v_final written
+    out_planes = t * (2 if save_u else 1) + 1
+    return nbytes + 4 * n_out * out_planes, flops + 4.0 * t * n_out
 
 
 def grad_input_work(dz, w, aprc: bool):
@@ -294,6 +333,21 @@ def check_dv(name, got, want):
     if not torch.allclose(got, want, atol=DV_TOL, rtol=DV_TOL):
         fail(f"{name}: dV differs by up to {err}")
     return err
+
+
+def check_exact(name, got, want):
+    """Kernel A on an analog (or all-zero) input: each output has the plain
+    version's bits.  Returns the largest difference (0)."""
+    import torch
+    if len(got) != len(want):
+        fail(f"{name}: {len(got)} outputs, the plain version {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            err = (float((a - b).abs().max()) if a.shape == b.shape
+                   else float("inf"))
+            fail(f"{name}: output {k} differs from the plain version by "
+                 f"up to {err}")
+    return 0.0
 
 
 # -- phases ------------------------------------------------------------------
@@ -402,8 +456,9 @@ def phase_kernels(cfg, params, frames, trains):
     from repro_torch.core.cbws import cbws_partition_equal
     from repro_torch.core.snn_layers import conv_out_hw
     from repro_torch.core.snn_model import layer_shapes
-    from repro_torch.kernels.spiking_conv import (spiking_conv,
-                                                  spiking_conv_plain)
+    from repro_torch.kernels.spiking_conv import (
+        spiking_conv, spiking_conv_lif_hoisted,
+        spiking_conv_lif_hoisted_plain, spiking_conv_plain)
     from repro_torch.kernels.spiking_conv_lif import (spiking_conv_lif,
                                                       spiking_conv_lif_plain)
     from repro_torch.device import full_fp32
@@ -420,11 +475,12 @@ def phase_kernels(cfg, params, frames, trains):
 
     summary = {}
 
-    # kernel A: the hoisted first layer, then its other cases
+    # kernel A's dV mode: the first layer's conv (the T=1 path of the ops
+    # layer, and the conv the hoisted mode computes), then its other cases
     w0, b0 = conv[0]["w"], conv[0]["b"]
     got = spiking_conv(frames, w0, b0)
-    err = check_dv("spiking_conv layer0", got, spiking_conv_plain(frames, w0,
-                                                                  b0))
+    err = check_exact("spiking_conv layer0", [got],
+                      [spiking_conv_plain(frames, w0, b0)])
     nbytes, flops, _ = conv_work(frames, w0, True, lif=False)
     w_oihw = w0.permute(3, 2, 0, 1).contiguous()
     x_nchw = frames.permute(0, 3, 1, 2)
@@ -433,36 +489,110 @@ def phase_kernels(cfg, params, frames, trains):
         with full_fp32():
             return F.conv2d(x_nchw, w_oihw, b0, padding=2)
 
+    one = frames[:1]
     rec = {"shape": list(frames.shape), "max_abs_err": err,
            "ms": cuda_ms(lambda: spiking_conv(frames, w0, b0)),
+           "device_ms": device_ms(lambda: spiking_conv(frames, w0, b0)),
+           # the wrapper's host time, at batch 1, beside one PyTorch op's
+           "host_ms_batch1": host_ms(lambda: spiking_conv(one, w0, b0)),
+           "torch_op_host_ms_batch1": host_ms(lambda: one + 1.0),
            "plain_ms": cuda_ms(lambda: spiking_conv_plain(frames, w0, b0)),
            "library_ms": cuda_ms(library)}
     set_bounds(rec, nbytes, flops)
     emit("kernel", name="spiking_conv", case="snn-mnist layer 0", **rec)
     summary["spiking_conv"] = [rec]
 
+    def analog(*shape):
+        return torch.rand(shape, generator=gen).to(dev)
+
+    # (input, w, b, aprc, exact): the plain path sums a spike input exactly
+    # in float64 and rounds once, an analog one in A's order
     a_cases = {
         "same-pad 3x3": (spikes(64, 32, 32, 16, rate=0.2),
                          rand(3, 3, 16, 32, scale=0.1), rand(32, scale=0.1),
-                         False),
+                         False, False),
         "5x5 taps": (spikes(64, 28, 28, 8, rate=0.2),
-                     rand(5, 5, 8, 16, scale=0.1), rand(16, scale=0.1), True),
+                     rand(5, 5, 8, 16, scale=0.1), rand(16, scale=0.1), True,
+                     False),
+        "same-pad 3x3 analog": (analog(64, 32, 32, 16),
+                                rand(3, 3, 16, 32, scale=0.1),
+                                rand(32, scale=0.1), False, True),
+        "5x5 taps analog": (analog(64, 28, 28, 2), rand(5, 5, 2, 16),
+                            rand(16, scale=0.1), True, True),
         "all-zero input": (torch.zeros((64, 30, 30, 16), device=dev),
-                           conv[1]["w"], conv[1]["b"] + 0.25, True),
+                           conv[1]["w"], conv[1]["b"] + 0.25, True, True),
     }
     faint = torch.zeros((4, 28, 28, 1), device=dev)
     faint[0, 5, 9, 0] = 0.2
     faint[3, 27, 0, 0] = 0.01
-    a_cases["faint analog frame"] = (faint, w0, b0, True)
-    for case, (x, w, b, aprc) in a_cases.items():
+    a_cases["faint analog frame"] = (faint, w0, b0, True, True)
+    for case, (x, w, b, aprc, exact) in a_cases.items():
         got = spiking_conv(x, w, b, aprc=aprc)
-        err = check_dv(f"spiking_conv {case}", got,
-                       spiking_conv_plain(x, w, b, aprc=aprc))
+        want = spiking_conv_plain(x, w, b, aprc=aprc)
+        err = (check_exact(f"spiking_conv {case}", [got], [want]) if exact
+               else check_dv(f"spiking_conv {case}", got, want))
         if case == "faint analog frame" and not bool(
                 (got[0] != b0).any() and (got[3] != b0).any()):
             fail("spiking_conv skipped a faint analog frame")
         emit("kernel", name="spiking_conv", case=case, shape=list(x.shape),
-             max_abs_err=err)
+             bit_exact=exact, max_abs_err=err)
+
+    # kernel A's hoisted mode: the main path (the zero carry, T=8), with
+    # and without SAVE_U, then its other cases, all bit for bit
+    T = cfg.timesteps
+    v0 = torch.zeros((BATCH,) + layer_shapes(cfg)[0], device=dev)
+    for save_u in (False, True):
+        name = "spiking_conv_lif_hoisted" + ("_save_u" if save_u else "")
+        kw = dict(t=T, v_th=v_th, save_u=save_u)
+        got = spiking_conv_lif_hoisted(frames, v0, w0, b0, **kw)
+        err = check_exact(f"{name} layer0", got,
+                          spiking_conv_lif_hoisted_plain(frames, v0, w0, b0,
+                                                         **kw))
+        nbytes, flops = hoisted_work(frames, w0, T, True, save_u)
+        rec = {"shape": list(frames.shape), "timesteps": T,
+               "spikes": float(got[0].sum()), "max_abs_err": err,
+               "ms": cuda_ms(lambda: spiking_conv_lif_hoisted(
+                   frames, v0, w0, b0, **kw)),
+               "device_ms": device_ms(lambda: spiking_conv_lif_hoisted(
+                   frames, v0, w0, b0, **kw)),
+               "host_ms_batch1": host_ms(lambda: spiking_conv_lif_hoisted(
+                   one, v0[:1], w0, b0, **kw)),
+               "plain_ms": cuda_ms(lambda: spiking_conv_lif_hoisted_plain(
+                   frames, v0, w0, b0, **kw), reps=10),
+               "library_ms": None}
+        del got
+        set_bounds(rec, nbytes, flops)
+        emit("kernel", name=name, case="snn-mnist layer 0", **rec)
+        summary[name] = [rec]
+    x64 = frames[:64]
+    h_cases = {
+        "same-pad 3x3": (x64, rand(3, 3, 1, 16, scale=0.5),
+                         rand(16, scale=0.1), False, 0.0, T),
+        "5x5 taps": (analog(64, 28, 28, 2), rand(5, 5, 2, 8, scale=0.3),
+                     rand(8, scale=0.1), True, 0.0, T),
+        "all-zero frames": (torch.zeros_like(x64), w0, b0 + 0.25, True, 0.0,
+                            T),
+        "ragged rows": (frames[:64, :27, :25].contiguous(), w0, b0, True,
+                        0.0, T),
+        "nonzero v0": (x64, w0, b0, True, 0.5, T),
+        "T=1": (x64, w0, b0, True, 0.5, 1),
+        "T=3": (x64, w0, b0, True, 0.5, 3),
+    }
+    for case, (x, w, b, aprc, v0_scale, t) in h_cases.items():
+        e_h, e_w = conv_out_hw(x.shape[1], x.shape[2], w.shape[0], aprc)
+        v0 = rand(x.shape[0], e_h, e_w, w.shape[-1], scale=v0_scale)
+        for save_u in (False, True):
+            kw = dict(t=t, v_th=v_th, aprc=aprc, save_u=save_u)
+            got = spiking_conv_lif_hoisted(x, v0, w, b, **kw)
+            check_exact(f"spiking_conv_lif_hoisted {case}", got,
+                        spiking_conv_lif_hoisted_plain(x, v0, w, b, **kw))
+            spiked = float(got[0].sum())
+            if case == "all-zero frames" and not spiked > 0:
+                fail("spiking_conv_lif_hoisted: the bias-only skip path "
+                     "did not fire")
+            emit("kernel", name="spiking_conv_lif_hoisted", case=case,
+                 shape=list(x.shape), timesteps=t, save_u=save_u,
+                 spikes=spiked, bit_exact=True)
 
     # kernel B: snn-mnist layers 1 and 2 at the main path's inputs
     summary["spiking_conv_lif"] = []
@@ -547,15 +677,17 @@ def faint_train(gen, dev):
     return x.to(dev)
 
 
-def phase_train_kernels(cfg, params, trains):
+def phase_train_kernels(cfg, params, frames, trains):
     """Kernels C, D and E against their plain versions on what the train
-    step gives them; returns their summary entries."""
+    step gives them (D also on layer 0's u from the hoisted mode's
+    SAVE_U); returns their summary entries."""
     import torch
     from repro_torch.core.snn_model import layer_shapes
     from repro_torch.core.surrogate import SURROGATE_KINDS
     from repro_torch.device import full_fp32
     from repro_torch.kernels import ref
-    from repro_torch.kernels.spiking_conv import conv_grad_input
+    from repro_torch.kernels.spiking_conv import (conv_grad_input,
+                                                  spiking_conv_lif_hoisted)
     from repro_torch.kernels.spiking_conv_lif import (lif_bwd,
                                                       spiking_conv_lif_fwd)
     dev, v_th, conv = trains[0].device, cfg.v_threshold, params["conv"]
@@ -567,6 +699,50 @@ def phase_train_kernels(cfg, params, trains):
     summary = {"spiking_conv_lif_fwd": [], "lif_bwd": [],
                "conv_grad_input": []}
     lams = {}
+
+    def check_lif_bwd(layer, u):
+        """Kernel D on u, every surrogate; fast_sigmoid (the default) is
+        the main path's, its record goes to the summary and its lam is
+        returned."""
+        g_s, g_v = randn(*u.shape), randn(*u.shape[1:])
+        nbytes, flops = lif_bwd_work(u)
+        for kind in SURROGATE_KINDS:
+            kw = dict(v_th=v_th, alpha=10.0, kind=kind)
+            lam, dv0 = lif_bwd(u, g_s, g_v, **kw)
+            lam_p, dv0_p = ref.lif_bwd_ref(u, g_s, g_v, **kw)
+            errs = [float((a - b_).abs().max()) for a, b_ in
+                    ((lam, lam_p), (dv0, dv0_p))]
+            if not (torch.allclose(lam, lam_p, atol=BWD_TOL, rtol=BWD_TOL)
+                    and torch.allclose(dv0, dv0_p, atol=BWD_TOL,
+                                       rtol=BWD_TOL)):
+                fail(f"lif_bwd layer{layer} {kind}: lam/dv0 differ by "
+                     f"{errs}")
+            del lam_p, dv0_p
+            rec = {"shape": list(u.shape), "surrogate": kind,
+                   "max_abs_err": max(errs),
+                   "bit_identical": errs == [0.0, 0.0],
+                   "ms": cuda_ms(lambda: lif_bwd(u, g_s, g_v, **kw)),
+                   "plain_ms": cuda_ms(lambda: ref.lif_bwd_ref(u, g_s, g_v,
+                                                               **kw)),
+                   "library_ms": None}
+            set_bounds(rec, nbytes, flops)
+            emit("kernel", name="lif_bwd", case=f"snn-mnist layer {layer}",
+                 **rec)
+            if kind == "fast_sigmoid":
+                summary["lif_bwd"].append(rec)
+                main = lam
+            del lam, dv0
+        return main
+
+    # layer 0: the hoisted mode's u (the frames need no gradient, so its
+    # lam feeds only the weight gradient)
+    v0 = torch.zeros((BATCH,) + layer_shapes(cfg)[0], device=dev)
+    _, _, u = spiking_conv_lif_hoisted(frames, v0, conv[0]["w"],
+                                       conv[0]["b"], t=cfg.timesteps,
+                                       v_th=v_th, save_u=True)
+    del v0
+    check_lif_bwd(0, u)
+    del u
     for layer, x in ((1, trains[0]), (2, trains[1])):
         w, b = conv[layer]["w"], conv[layer]["b"]
         v0 = torch.zeros((BATCH,) + layer_shapes(cfg)[layer], device=dev)
@@ -597,37 +773,10 @@ def phase_train_kernels(cfg, params, trains):
              case=f"snn-mnist layer {layer}", **rec)
         summary["spiking_conv_lif_fwd"].append(rec)
 
-        # kernel D on C's u, every surrogate; fast_sigmoid (the default)
-        # is the main path's and its lam feeds kernel E
-        g_s, g_v = randn(*u.shape), randn(*u.shape[1:])
-        nbytes, flops = lif_bwd_work(u)
-        for kind in SURROGATE_KINDS:
-            kw = dict(v_th=v_th, alpha=10.0, kind=kind)
-            lam, dv0 = lif_bwd(u, g_s, g_v, **kw)
-            lam_p, dv0_p = ref.lif_bwd_ref(u, g_s, g_v, **kw)
-            errs = [float((a - b_).abs().max()) for a, b_ in
-                    ((lam, lam_p), (dv0, dv0_p))]
-            if not (torch.allclose(lam, lam_p, atol=BWD_TOL, rtol=BWD_TOL)
-                    and torch.allclose(dv0, dv0_p, atol=BWD_TOL,
-                                       rtol=BWD_TOL)):
-                fail(f"lif_bwd layer{layer} {kind}: lam/dv0 differ by "
-                     f"{errs}")
-            del lam_p, dv0_p
-            rec = {"shape": list(u.shape), "surrogate": kind,
-                   "max_abs_err": max(errs),
-                   "bit_identical": errs == [0.0, 0.0],
-                   "ms": cuda_ms(lambda: lif_bwd(u, g_s, g_v, **kw)),
-                   "plain_ms": cuda_ms(lambda: ref.lif_bwd_ref(u, g_s, g_v,
-                                                               **kw)),
-                   "library_ms": None}
-            set_bounds(rec, nbytes, flops)
-            emit("kernel", name="lif_bwd", case=f"snn-mnist layer {layer}",
-                 **rec)
-            if kind == "fast_sigmoid":
-                summary["lif_bwd"].append(rec)
-                lams[layer] = lam.reshape((-1,) + lam.shape[2:])
-            del lam, dv0
-        del u, g_s, g_v
+        # kernel D on C's u; the main path's lam feeds kernel E
+        lam = check_lif_bwd(layer, u)
+        lams[layer] = lam.reshape((-1,) + lam.shape[2:])
+        del u, lam
 
     # kernel E on lam folded to (T*B, ...): layer 2's backward, then 1's
     for layer in (2, 1):
@@ -695,17 +844,15 @@ def phase_model(cfg, params, frames, trains):
     import torch
     from repro_torch.core.scheduler import build_schedule
     from repro_torch.core.snn_model import snn_apply
-    from repro_torch.kernels.spiking_conv import (skip_table_fraction,
-                                                  spiking_conv)
-    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+    from repro_torch.kernels.spiking_conv import skip_table_fraction
     sched = build_schedule(params, cfg, "aprc+cbws")
-    spiking_conv.launches = spiking_conv_lif.launches = 0
+    reset_counts()
     got = snn_apply(params, frames, cfg, backend="hopper", schedule=sched)
     torch.cuda.synchronize()
-    launches = {"spiking_conv": spiking_conv.launches,
-                "spiking_conv_lif": spiking_conv_lif.launches}
-    if launches != {"spiking_conv": 1, "spiking_conv_lif": 2}:
-        fail(f"one hopper forward launched {launches}, expected 1 and 2")
+    launches = {k: v for k, v in read_counts().items() if v}
+    if launches != {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 2}:
+        fail(f"one hopper forward launched {launches}, expected the "
+             f"hoisted mode 1 and B 2")
     want = snn_apply(params, frames, cfg, backend="batched")
     want_skips = [float(skip_table_fraction(t, cfg.kernel_size))
                   for t in trains]
@@ -746,6 +893,10 @@ def phase_model(cfg, params, frames, trains):
              f"expected shape")
     if any(f > MAX_FLIP_FRACTION * n for f, n in flips):
         fail(f"threshold flips per layer {flips} exceed {MAX_FLIP_FRACTION}")
+    if flips[0][0]:
+        fail(f"layer 0's train differs from the plain path's at "
+             f"{flips[0][0]} sites: kernel A's hoisted mode must give its "
+             f"bits")
     if excess > LOGITS_ATOL:
         fail(f"hopper logits differ from batched by {excess} beyond their "
              f"threshold-flip bound (> {LOGITS_ATOL})")
@@ -782,6 +933,13 @@ def device_time(call, reps: int):
     return by_kernel, launches
 
 
+def device_ms(call, reps: int = 20) -> float:
+    """Device ms of one call of ``call``, by the profiler: a small call can
+    take less device time than its wrapper's host time, which the CUDA
+    events of ``cuda_ms`` include."""
+    return sum(device_time(call, reps)[0].values())
+
+
 def phase_profile(call, call_ms: float, what: str, reps: int = 3):
     """Where one call's time goes (a hopper forward, a train step): device
     time by kernel (the profiler's CUDA activity), against the call's time
@@ -809,30 +967,37 @@ def phase_serve(cfg, steps: int = 8):
          timed_requests=steps, frames=s["frames"], seconds=s["seconds"],
          fps=s["fps"], spikes_per_frame=s["spikes_per_frame"],
          device=s["device"], launches=launches)
-    if launches["spiking_conv"] == 0 or launches["spiking_conv_lif"] == 0:
+    path = ("spiking_conv_lif_hoisted", "spiking_conv_lif")
+    if any(launches[k] == 0 for k in path):
         fail(f"the serve run did not go through every kernel: {launches}")
-    return ({k: launches[k] for k in ("spiking_conv", "spiking_conv_lif")},
-            s["fps"])
+    return {k: launches[k] for k in path}, s["fps"]
 
 
 def _counters():
+    """Each kernel's launch counter: (wrapper, attribute).  The hoisted
+    mode's wrapper counts its two kernel instances apart."""
     from repro_torch.kernels import lif as f
     from repro_torch.kernels import spiking_conv as a
     from repro_torch.kernels import spiking_conv_lif as b
-    return {"spiking_conv": a.spiking_conv,
-            "spiking_conv_lif": b.spiking_conv_lif,
-            "spiking_conv_lif_fwd": b.spiking_conv_lif_fwd,
-            "lif_bwd": b.lif_bwd, "conv_grad_input": a.conv_grad_input,
-            "lif_fused": f.lif_fused}
+    return {"spiking_conv": (a.spiking_conv, "launches"),
+            "spiking_conv_lif_hoisted": (a.spiking_conv_lif_hoisted,
+                                         "launches"),
+            "spiking_conv_lif_hoisted_save_u": (a.spiking_conv_lif_hoisted,
+                                                "launches_save_u"),
+            "spiking_conv_lif": (b.spiking_conv_lif, "launches"),
+            "spiking_conv_lif_fwd": (b.spiking_conv_lif_fwd, "launches"),
+            "lif_bwd": (b.lif_bwd, "launches"),
+            "conv_grad_input": (a.conv_grad_input, "launches"),
+            "lif_fused": (f.lif_fused, "launches")}
 
 
 def reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in _counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
@@ -844,7 +1009,7 @@ def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
     from repro_torch.core.scheduler import permute_conv_params
     from repro_torch.core.snn_model import (_conv_folded, _conv_plain,
                                             _lif_scan, layer_shapes)
-    from repro_torch.kernels.spiking_conv import spiking_conv
+    from repro_torch.kernels.spiking_conv import spiking_conv_lif_hoisted
     from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
     inv = [None] * len(params["conv"])
     if sched is not None:
@@ -853,10 +1018,15 @@ def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
                for l in sched]
     conv, v_th = params["conv"], cfg.v_threshold
     with torch.no_grad():
-        z0 = (spiking_conv(frames, conv[0]["w"], conv[0]["b"]) if hopper
-              else _conv_plain(frames, conv[0], cfg.aprc))
-        s, _, _ = _lif_scan(z0, v_th, 10.0, "fast_sigmoid",
-                            torch.zeros_like(z0), const_t=cfg.timesteps)
+        v0 = frames.new_zeros((frames.shape[0],) + layer_shapes(cfg)[0])
+        if hopper:
+            s, _ = spiking_conv_lif_hoisted(frames, v0, conv[0]["w"],
+                                            conv[0]["b"], t=cfg.timesteps,
+                                            v_th=v_th)
+        else:
+            s, _, _ = _lif_scan(_conv_plain(frames, conv[0], cfg.aprc), v_th,
+                                10.0, "fast_sigmoid", v0,
+                                const_t=cfg.timesteps)
         trains = [s]
         for i in range(1, len(conv)):
             v0 = frames.new_zeros((frames.shape[0],) + layer_shapes(cfg)[i])
@@ -974,11 +1144,14 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
         fail(f"loss trajectories differ: hopper {h} batched {b}")
     if not h[0] - h[-1] >= MIN_LOSS_DROP:
         fail(f"the hopper loss fell by {h[0] - h[-1]} (< {MIN_LOSS_DROP})")
-    # per step A 1, C 2, D 2, E 2 (E never for the frames), and the
-    # held-out evaluation's forward A 1, B 2
-    want = {"spiking_conv": steps + 1, "spiking_conv_lif": 2,
-            "spiking_conv_lif_fwd": 2 * steps, "lif_bwd": 2 * steps,
-            "conv_grad_input": 2 * steps, "lif_fused": 0}
+    # per step the hoisted mode's SAVE_U 1, C 2, D 3 (layer 0 too), E 2
+    # (never for the frames), and the held-out evaluation's forward: the
+    # hoisted mode 1, B 2
+    want = {"spiking_conv": 0, "spiking_conv_lif_hoisted": 1,
+            "spiking_conv_lif_hoisted_save_u": steps,
+            "spiking_conv_lif": 2, "spiking_conv_lif_fwd": 2 * steps,
+            "lif_bwd": 3 * steps, "conv_grad_input": 2 * steps,
+            "lif_fused": 0}
     if counts["hopper"] != want:
         fail(f"the hopper train run launched {counts['hopper']}, expected "
              f"{want}")
@@ -1054,9 +1227,9 @@ def phase_lif_fused():
 
 def phase_t1_contract(cfg, params, frames):
     """Layer 1 at batch 256, one timestep, through the kernel-ops layer:
-    ``ops.spiking_conv`` (A) then ``ops.lif_fused`` (F) equals
-    ``ops.spiking_conv_lif`` (B) with T=1.  Returns F's launches on the
-    two-kernel path."""
+    ``ops.spiking_conv`` (A's dV mode) then ``ops.lif_fused`` (F) equals
+    ``ops.spiking_conv_lif`` (B) with T=1.  Returns A's and F's launches on
+    the two-kernel path."""
     import torch
     from repro_torch.core.snn_model import layer_shapes
     from repro_torch.kernels import ops
@@ -1080,7 +1253,7 @@ def phase_t1_contract(cfg, params, frames):
     emit("t1_contract", layer=1, batch=BATCH, launches=launches, **rec)
     if launches["spiking_conv"] != 1 or launches["lif_fused"] != 1:
         fail(f"the two-kernel path launched {launches}, expected A 1, F 1")
-    return launches["lif_fused"]
+    return {k: launches[k] for k in ("spiking_conv", "lif_fused")}
 
 
 def phase_chunk(cfg, params, frames):
@@ -1227,9 +1400,10 @@ def phase_engine(cfg, params, serve_fps):
         if mismatched:
             fail(f"engine {name}: {len(mismatched)} requests' logits differ "
                  f"from a batch-1 forward (rids {mismatched[:5]})")
-        if launches["spiking_conv"] == 0 or launches["spiking_conv_lif"] == 0:
-            fail(f"engine {name} did not go through kernels A and B: "
-                 f"{launches}")
+        if launches["spiking_conv_lif_hoisted"] == 0 or \
+                launches["spiking_conv_lif"] == 0:
+            fail(f"engine {name} did not go through the hoisted mode and "
+                 f"kernel B: {launches}")
     a, b = runs["virtual whole-T"], runs["virtual chunked"]
     if any(not np.array_equal(a[k], b[k]) for k in a):
         fail("chunked engine logits differ from whole-T")
@@ -1266,17 +1440,18 @@ def main() -> int:
             dtype=np.float32)).cuda()
         trains = _model_trains(cfg, params, frames)
         summary = phase_kernels(cfg, params, frames, trains)
-        summary.update(phase_train_kernels(cfg, params, trains))
+        summary.update(phase_train_kernels(cfg, params, frames, trains))
         phase_model(cfg, params, frames, trains)
         del trains
-        # kernels A and B count the serve run, C, D and E the train run,
-        # F the two-kernel path of the ops layer
+        # the hoisted mode and kernel B count the serve run; the hoisted
+        # mode's SAVE_U and C, D and E the train run; A's dV mode and F
+        # the two-kernel path of the ops layer
         launches, serve_fps = phase_serve(cfg)
     launches.update({k: v for k, v in phase_train(cfg).items()
                      if k not in launches})
     with torch.inference_mode():
         summary["lif_fused"] = phase_lif_fused()
-        launches["lif_fused"] = phase_t1_contract(cfg, params, frames)
+        launches.update(phase_t1_contract(cfg, params, frames))
         phase_chunk(cfg, params, frames)
         phase_bucket_rows(cfg, params, frames)
     phase_engine(cfg, params, serve_fps)
@@ -1286,6 +1461,10 @@ def main() -> int:
     sources = {
         "spiking_conv": (csrc + "spiking_conv.cu",
                          tpu + "spiking_conv.py:184"),
+        "spiking_conv_lif_hoisted": (csrc + "spiking_conv.cu",
+                                     tpu + "spiking_conv.py:184"),
+        "spiking_conv_lif_hoisted_save_u": (csrc + "spiking_conv.cu",
+                                            tpu + "spiking_conv.py:184"),
         "spiking_conv_lif": (csrc + "spiking_conv_lif.cu",
                              tpu + "spiking_conv_lif.py:181"),
         "spiking_conv_lif_fwd": (csrc + "spiking_conv_lif.cu",
@@ -1302,6 +1481,7 @@ def main() -> int:
             sum(r.get("tap_flops", 0) for r in recs),
             recs[0].get("peak_flops"))
         lib = [r["library_ms"] for r in recs]
+        dev_ms = [r.get("device_ms") for r in recs]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": launches[name],
@@ -1311,6 +1491,7 @@ def main() -> int:
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
             "bound_fp32_ms": tot["bound_fp32_ms"],
             "library_ms": None if None in lib else sum(lib),
+            "device_ms": None if None in dev_ms else sum(dev_ms),
             "shapes": [r["shape"] for r in recs]})
     emit("done", seconds=time.perf_counter() - t0)
     print(smi)

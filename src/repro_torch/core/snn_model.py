@@ -16,11 +16,12 @@ folded ``T*B`` batch; only the elementwise LIF recurrence loops over ``T``.
 Direct-coded input is constant over ``T``, so the first-layer conv is
 hoisted out of the time loop entirely.  ``"batched"`` stays in plain
 PyTorch ops; ``"hopper"`` runs the hand-written kernels: the hoisted
-first-layer conv through ``kernels.spiking_conv`` and every deeper conv
+first layer (its conv and all T steps of its LIF) through
+``kernels.spiking_conv.spiking_conv_lif_hoisted`` and every deeper conv
 layer through the fused ``kernels.spiking_conv_lif`` (time loop inside the
 kernel, membrane in registers).  Given CPU tensors the kernel wrappers
 compute through their plain versions, so ``"hopper"`` runs here too.
-Under autograd both wrappers go through their ``autograd.Function``s
+Under autograd both go through their ``autograd.Function``s
 (surrogate BPTT with the selected surrogate, on the backward kernels), so
 all three backends train to the same gradient.
 
@@ -365,9 +366,11 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     the readout accumulator enter/leave via ``carry``; the readouts are
     sequential loops over t.  Returns (per-layer (t_chunk, Cout) counts,
     per-fused-layer skip fractions, new carry)."""
-    from repro_torch.kernels.spiking_conv import (skip_table_fraction,
-                                                  spiking_conv)
-    from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
+    from repro_torch.kernels.spiking_conv import (needs_grad,
+                                                  skip_table_fraction,
+                                                  spiking_conv_lif_hoisted)
+    from repro_torch.kernels.spiking_conv_lif import (HoistedConvLIFFn,
+                                                      spiking_conv_lif)
 
     T = t_chunk
     hoist = frames.dim() == 4
@@ -415,12 +418,22 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         elif hoist and i == 0:
             # direct coding: input constant over T -> conv once, reuse
             if use_kernels:
-                z1 = spiking_conv(x.contiguous(), w, b, aprc=cfg.aprc)
+                # kernel A's hoisted mode: the conv and all T LIF steps in
+                # one launch
+                x, v0 = x.contiguous(), carry.conv_v[i].contiguous()
+                if needs_grad(x, v0, w, b):
+                    s, v_fin = HoistedConvLIFFn.apply(
+                        x, v0, w, b, T, float(v_th), cfg.aprc,
+                        float(surrogate_alpha), surrogate_kind)
+                else:
+                    s, v_fin = spiking_conv_lif_hoisted(
+                        x, v0, w, b, t=T, v_th=float(v_th), aprc=cfg.aprc)
+                cnt = s.sum(dim=(1, 2, 3))
             else:
                 z1 = _conv_plain(x, p, cfg.aprc)
-            s, cnt, v_fin = _lif_scan(z1, v_th, surrogate_alpha,
-                                      surrogate_kind, carry.conv_v[i],
-                                      const_t=T)
+                s, cnt, v_fin = _lif_scan(z1, v_th, surrogate_alpha,
+                                          surrogate_kind, carry.conv_v[i],
+                                          const_t=T)
             new_conv_v.append(v_fin)
             x = s
         else:

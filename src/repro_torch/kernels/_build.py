@@ -7,7 +7,10 @@ PyTorch headers, so a build takes seconds.  Libraries land in
 sources and flags, so a changed source is rebuilt and an unchanged one is
 reused.  Nothing is compiled when this module is imported: the first
 wrapper call builds what it needs, and ``build`` builds several kernels at
-once, one ``nvcc`` process each, all started together.  ``build`` and
+once, one ``nvcc`` process each, all started together.  A wrapper binds its
+entry point once (``entry``) and launches it on the current stream
+(``launch``), so a call costs the checks, a dictionary lookup and the
+ctypes call.  ``build`` and
 ``load`` hold one process-wide lock, and each build writes a temporary
 file named by process and thread, so serving lanes on several threads may
 make their first calls at once.
@@ -21,12 +24,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "check_cuda_args",
-           "check_launch"]
+__all__ = ["KERNELS", "BUILD_DIR", "build", "load", "entry", "launch",
+           "check_cuda_args", "check_launch"]
 
 # one library per source; spiking_conv_lif.cu holds kernels B and C
 KERNELS = ("spiking_conv", "spiking_conv_lif", "lif_bwd", "conv_grad_input",
@@ -37,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# (source, entry point) -> (library, bound launch function)
+_ENTRIES: Dict[Tuple[str, str], Tuple[ctypes.CDLL, object]] = {}
 # guards _LIBS, the build directory and the argtypes of the entry points
 _LOCK = threading.RLock()
 
@@ -111,13 +116,41 @@ def load(name: str, argtypes: Sequence, entry: str = "") -> ctypes.CDLL:
         return lib
 
 
+def entry(name: str, argtypes: Sequence, entry: str = ""
+          ) -> Tuple[ctypes.CDLL, object]:
+    """(library, launch function) of entry point ``entry`` (default
+    ``<name>_launch``) of source ``name``: ``load``ed and bound at the first
+    call, a dictionary lookup after it."""
+    key = (name, entry or f"{name}_launch")
+    found = _ENTRIES.get(key)
+    if found is None:
+        with _LOCK:
+            lib = load(name, argtypes, key[1])
+            found = _ENTRIES.setdefault(key, (lib, getattr(lib, key[1])))
+    return found
+
+
+def launch(dev: torch.device, fn: str, bound: Tuple[ctypes.CDLL, object],
+           *args) -> None:
+    """Call the launch function of ``bound`` (an ``entry``) with ``args``
+    and the current stream of ``dev``, on ``dev`` (made the current device
+    only when it is not), and raise if the launch failed."""
+    lib, func = bound
+    if dev.index == torch.cuda.current_device():
+        rc = func(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = func(*args, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, fn, rc)
+
+
 def check_cuda_args(fn: str, dtypes: Sequence[torch.dtype] = (torch.float32,),
                     **tensors: torch.Tensor) -> torch.device:
     """The checks every wrapper makes before it hands pointers to a kernel:
     one CUDA device, one of ``dtypes`` (float32 unless the kernel takes
     more), contiguous, and no autograd graph to feed (a launch builds none:
-    the autograd Functions of ``spiking_conv`` and ``spiking_conv_lif``
-    call the launchers on detached tensors)."""
+    the autograd Functions of ``spiking_conv``, ``spiking_conv_lif`` and
+    the hoisted first layer call the launchers on detached tensors)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{fn}: all tensors must lie on one CUDA device, "
@@ -131,9 +164,9 @@ def check_cuda_args(fn: str, dtypes: Sequence[torch.dtype] = (torch.float32,),
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
                 f"{fn}: {k} requires grad, but a raw kernel launch has no "
-                f"backward; differentiate through spiking_conv or "
-                f"spiking_conv_lif, whose autograd Functions run the "
-                f"backward kernels")
+                f"backward; differentiate through spiking_conv, "
+                f"spiking_conv_lif or HoistedConvLIFFn, whose autograd "
+                f"Functions run the backward kernels")
     return devices.pop()
 
 

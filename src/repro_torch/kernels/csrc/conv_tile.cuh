@@ -1,23 +1,19 @@
-// Device code of kernel A (spiking_conv.cu), the SIMT conv tile: the
-// thread-block decomposition, the shared-memory staging of one row-block's
-// halo and of the block's weight tile, and the fixed-order tap
-// accumulation.  Shared with the tensor-core kernels (mma_tile.cuh): the
-// shape (ConvShape), allow_smem, and tap_sum, the float32 path that kernels
-// B and C take for a (block, step) whose input is not all 0 and 1.
+// Device code shared by the conv kernels: the shape of one launch
+// (ConvShape), the float32 tap sum in the plain path's order (tap_add,
+// tap_sum), the asynchronous copies to shared memory (cp.async), and
+// allow_smem.  Kernel A (spiking_conv.cu) sums its taps with tap_add;
+// kernels B and C (spiking_conv_lif.cu, through mma_tile.cuh) take tap_sum
+// for a (block, step) whose input is not all 0 and 1.
 //
-// Decomposition.  One thread block per (image n, output row-block i, Cout
-// tile g): grid (N, ceil(E_h / BR), ceil(Cout / CT)).  Thread t owns output
-// pixel (i*BR + t / E_w, t % E_w) and the CT consecutive output channels
-// [g*CT, g*CT + CT), masked at Cout.  Rows past E_h (the ragged last
-// row-block) and channels past Cout are masked; the padding (APRC full or
-// SAME) is never materialised: staging reads zero outside the input.
-//
-// Shared memory, in floats (the host mirrors this in plan_tiles):
-//   ws  R*R*Cin*CT                      weights of the tile, [tap][ci][c]
-//   xs  (BR+R-1) * W_pad * CinP          halo rows, [row][col][ci]
-// with W_pad = E_w + R - 1 and CinP = Cin | 1: an odd pixel stride, so the
-// 32 threads of a warp, which read one channel of 32 neighbouring pixels,
-// hit 32 different banks.
+// The tap order.  The plain path (core/snn_layers.py:conv2d on an analog
+// input, then + bias) multiplies each input value by its weight, rounds,
+// and adds the product to the running sum, rounds again: taps (dy, dx)
+// row-major, input channels ci inside each tap, the first product being
+// the sum's start, and the bias added last.  tap_add repeats exactly that
+// with __fmul_rn and __fadd_rn, which nvcc never contracts into an FMA (it
+// does contract a*b+c under its default --fmad=true).  A sum starts from
+// -0.0f, the identity of IEEE addition (-0 + p == p for every p, -0
+// included), so adding the first product gives the product itself.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,88 +30,22 @@ struct ConvShape {
   __host__ __device__ int cin_p() const { return Cin | 1; }
 };
 
-template <int CT>
-__host__ __device__ inline size_t smem_floats(const ConvShape& s) {
-  return (size_t)s.R * s.R * s.Cin * CT +
-         (size_t)s.halo_rows() * s.w_pad() * s.cin_p();
-}
+// The start of a tap sum (see the tap order above).
+constexpr float kSumStart = -0.0f;
 
-// Copy the block's Cout tile of the (R, R, Cin, Cout) weights into
-// ws[(tap*Cin + ci)*CT + c], zero past Cout.
-template <int CT>
-__device__ __forceinline__ void stage_weights(float* ws,
-                                              const float* __restrict__ w,
-                                              ConvShape s, int c0) {
-  const int n = s.R * s.R * s.Cin * CT;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = i % CT, k = i / CT, co = c0 + c;
-    ws[i] = co < s.Cout ? w[(size_t)k * s.Cout + co] : 0.f;
-  }
-}
-
-// Copy the halo rows feeding output row-block i of one (H, W, Cin) image
-// into xs, zero outside the image.  Returns, to every thread of the block,
-// the number of threads that staged a nonzero value: 0 exactly when the
-// block's receptive field holds no spike (the skip test; nonzeros, not a
-// value sum, so an analog frame is never skipped).  It is also the barrier
-// after the staging.
-__device__ __forceinline__ int stage_halo(float* xs,
-                                          const float* __restrict__ img,
-                                          ConvShape s, int i) {
-  const int w_pad = s.w_pad(), cin_p = s.cin_p();
-  const int n = s.halo_rows() * w_pad * s.Cin;
-  const int row0 = i * s.BR - s.pad_lo;
-  int nonzero = 0;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int ci = k % s.Cin, pix = k / s.Cin;
-    const int iy = row0 + pix / w_pad, ix = pix % w_pad - s.pad_lo;
-    float v = 0.f;
-    if (iy >= 0 && iy < s.H && ix >= 0 && ix < s.W)
-      v = img[((size_t)iy * s.W + ix) * s.Cin + ci];
-    xs[pix * cin_p + ci] = v;
-    nonzero |= (v != 0.f);
-  }
-  return __syncthreads_count(nonzero);
-}
-
-// acc[c] += sum over taps (dy, dx) and input channels ci, in that fixed
-// order, of x_pad[ly+dy, lx+dx, ci] * w[dy, dx, ci, c0+c].  The input
-// value is read once and reused for the CT channels; the weights are read
-// as float4 broadcasts (every thread of the block reads the same address).
-template <int CT>
-__device__ __forceinline__ void accumulate(float (&acc)[CT], const float* xs,
-                                           const float* ws, ConvShape s,
-                                           int ly, int lx) {
-  static_assert(CT % 4 == 0, "cout tile must be a multiple of 4");
-  const int w_pad = s.w_pad(), cin_p = s.cin_p();
-  for (int dy = 0; dy < s.R; ++dy) {
-    for (int dx = 0; dx < s.R; ++dx) {
-      const float* xp = xs + ((ly + dy) * w_pad + (lx + dx)) * cin_p;
-      const float4* wp =
-          reinterpret_cast<const float4*>(ws + (dy * s.R + dx) * s.Cin * CT);
-      for (int ci = 0; ci < s.Cin; ++ci) {
-        const float xv = xp[ci];
-#pragma unroll
-        for (int q = 0; q < CT / 4; ++q) {
-          const float4 wv = wp[ci * (CT / 4) + q];
-          acc[4 * q + 0] = fmaf(xv, wv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(xv, wv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(xv, wv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(xv, wv.w, acc[4 * q + 3]);
-        }
-      }
-    }
-  }
+// acc + x * w, rounded twice, as the plain path rounds it.
+__device__ __forceinline__ float tap_add(float acc, float x, float w) {
+  return __fadd_rn(acc, __fmul_rn(x, w));
 }
 
 // The float32 tap sum of one output (y, x, channel co) of one (H, W, Cin)
-// image, read from device memory: the taps (dy, dx) and input channels ci
-// in accumulate's order, one fmaf each, zero outside the image, so it
-// gives accumulate's bits.  w is (R, R, Cin, Cout).
+// image, read from device memory, in the plain path's order (taps (dy, dx),
+// then ci; zero outside the image), without the bias.  w is
+// (R, R, Cin, Cout).
 __device__ __forceinline__ float tap_sum(const float* __restrict__ img,
-                                const float* __restrict__ w, ConvShape s,
-                                int y, int x, int co) {
-  float acc = 0.f;
+                                         const float* __restrict__ w,
+                                         ConvShape s, int y, int x, int co) {
+  float acc = kSumStart;
   for (int dy = 0; dy < s.R; ++dy) {
     const int iy = y + dy - s.pad_lo;
     for (int dx = 0; dx < s.R; ++dx) {
@@ -124,31 +54,65 @@ __device__ __forceinline__ float tap_sum(const float* __restrict__ img,
       const float* xp = img + ((size_t)iy * s.W + ix) * s.Cin;
       const float* wp = w + (size_t)(dy * s.R + dx) * s.Cin * s.Cout + co;
       for (int ci = 0; ci < s.Cin; ++ci)
-        acc = fmaf(inside ? __ldg(xp + ci) : 0.f,
-                   __ldg(wp + (size_t)ci * s.Cout), acc);
+        acc = tap_add(acc, inside ? __ldg(xp + ci) : 0.f,
+                      __ldg(wp + (size_t)ci * s.Cout));
     }
   }
   return acc;
 }
 
-// Write the CT values of one output pixel (channels c0.., masked at Cout):
-// four float4 stores per 16 channels when the whole tile is in range and
-// aligned, scalar stores otherwise.
-template <int CT>
-__device__ __forceinline__ void store_tile(float* dst, const float (&val)[CT],
-                                           int c0, int Cout) {
-  if (c0 + CT <= Cout && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-#pragma unroll
-    for (int q = 0; q < CT / 4; ++q)
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(val[4 * q], val[4 * q + 1], val[4 * q + 2],
-                      val[4 * q + 3]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < CT; ++c)
-      if (c0 + c < Cout) dst[c] = val[c];
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// Copy 16 (or 4) bytes from device to shared memory asynchronously; with
+// valid false the destination is filled with zeros and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The coordinates (row, col, q) of the units one thread visits in a
+// (rows, cols, q4) array, unit u = u0, u0 + stride, ...: the divisions are
+// made once, and each step adds the stride with carries.
+struct Walk {
+  int row, col, q, drow, dcol, dq, cols, q4;
+  __device__ Walk(int u0, int stride, int cols_, int q4_)
+      : cols(cols_), q4(q4_) {
+    q = u0 % q4;
+    col = u0 / q4 % cols;
+    row = u0 / q4 / cols;
+    dq = stride % q4;
+    dcol = stride / q4 % cols;
+    drow = stride / q4 / cols;
+  }
+  __device__ __forceinline__ void next() {
+    q += dq;
+    int carry = q >= q4;
+    q -= carry * q4;
+    col += dcol + carry;
+    carry = col >= cols;
+    col -= carry * cols;
+    row += drow + carry;
+  }
+};
 
 // Raise the block's dynamic shared-memory limit above the 48 KB default
 // when the tile needs it.

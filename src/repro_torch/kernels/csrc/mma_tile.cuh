@@ -1,7 +1,8 @@
 // Device code shared by the two tensor-core conv kernels (spiking_conv_lif.cu,
 // kernels B and C, and conv_grad_input.cu, kernel E): the implicit-GEMM
 // decomposition, the shared-memory plan, and thin wrappers of the PTX they
-// issue (ldmatrix, mma.sync, cp.async) and the TF32 rounding.
+// issue (ldmatrix, mma.sync; cp.async is in conv_tile.cuh) and the TF32
+// rounding.
 //
 // The GEMM view.  One thread block per (image n, output row-block i,
 // channel group g): M = the row-block's BR * E_w output pixels, in m16
@@ -82,10 +83,6 @@ struct MmaDims {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -129,55 +126,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
-
-// Copy 16 (or 4) bytes from device to shared memory asynchronously; with
-// valid false the destination is filled with zeros and nothing is read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The coordinates (row, col, q) of the units one thread visits in a
-// (rows, cols, q4) array, unit u = u0, u0 + stride, ...: the divisions are
-// made once, and each step adds the stride with carries.
-struct Walk {
-  int row, col, q, drow, dcol, dq, cols, q4;
-  __device__ Walk(int u0, int stride, int cols_, int q4_)
-      : cols(cols_), q4(q4_) {
-    q = u0 % q4;
-    col = u0 / q4 % cols;
-    row = u0 / q4 / cols;
-    dq = stride % q4;
-    dcol = stride / q4 % cols;
-    drow = stride / q4 / cols;
-  }
-  __device__ __forceinline__ void next() {
-    q += dq;
-    int carry = q >= q4;
-    q -= carry * q4;
-    col += dcol + carry;
-    carry = col >= cols;
-    col -= carry * cols;
-    row += drow + carry;
-  }
-};
 
 // Start the asynchronous copy of the halo rows of row-block i of one
 // (H, W, Cin) image into dst[pix * stride + ci], zeros outside the image:

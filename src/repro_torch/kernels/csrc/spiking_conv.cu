@@ -1,82 +1,276 @@
-// Spike-driven convolution for Hopper (sm_90a): dV = conv(x, w) + bias.
+// Spike-driven convolution for Hopper (sm_90a), kernel A, in two modes:
+//
+//   dV mode       spiking_conv_launch: dV = conv(x, w) + bias;
+//   hoisted mode  spiking_conv_lif_hoisted_launch: dV once, then T steps of
+//                 LIF on the constant current dV, writing the spike train
+//                 (and, with SAVE_U, the pre-reset membrane u).
 //
 // Replaces the TPU kernel repro/kernels/spiking_conv.py:spiking_conv_pallas
-// (kernel body _make_kernel).  On the main path it is the hoisted first
-// layer of snn-mnist: x (B, 28, 28, 1) analog frames, w (3, 3, 1, 16),
-// dV (B, 30, 30, 16), all float32, NHWC x RRIO, APRC full padding.
+// (kernel body _make_kernel); the hoisted mode also takes in the LIF scan
+// the reference runs on its output for the hoisted first layer
+// (repro/core/snn_model.py:_lif_scan_const).  On the main path it is the
+// first layer of snn-mnist: frames x (B, 28, 28, 1) float32, w (3, 3, 1,
+// 16), APRC full padding, out (T, B, 30, 30, 16); all NHWC x RRIO.
 //
-// What bounds it on the H100 at that shape (per frame; each input byte read
-// once, each output byte written once): 3.1 KB in, 57.6 KB out, 0.26 MFLOP
-// of taps at most.  At 3.35 TB/s and 67 TFLOP/s (float32, no tensor cores)
-// that is 18 ns of memory against 4 ns of arithmetic per frame: the kernel
-// is bound by writing dV.  So the design spends nothing on the arithmetic
-// and keeps the write dense: each thread owns one output pixel and CT
-// consecutive channels and writes them as float4 stores, so a warp's stores
-// cover whole contiguous spans of dV; the input and the weights are read
-// from global memory once per block into shared memory (conv_tile.cuh).
+// What bounds it on the H100.  The hoisted mode at batch 256, T=8 reads
+// 0.80 MB of frames and 14.75 MB of v0 and writes 117.96 MB of spikes and
+// 14.75 MB of v_final (plus 117.96 MB of u under SAVE_U): 148.3 MB, 0.044
+// ms at 3.35 TB/s (266.2 MB, 0.080 ms), against 0.19 GFLOP of taps and
+// membrane updates, 0.003 ms at 67 TFLOP/s.  The dV mode writes 14.75 MB.
+// Both are bound by their stores, so the design spends nothing on the
+// arithmetic and makes every store dense:
 //
-// A block whose halo rows hold no nonzero input writes the bias only (the
-// skip of the TPU kernel's counts table, taken here per block).  Sums run in
-// one fixed order per output, with no atomics.
+//   - each thread owns one output pixel and four consecutive channels (a
+//     quad) and writes them as one 16-byte store per output and step, the
+//     quads of a pixel on neighbouring threads, so a warp's store covers
+//     512 contiguous bytes;
+//   - the current dV and the membrane stay in registers across all T
+//     steps: every output byte is written once and nothing is read back;
+//   - one block per (image, row-block of BR full output rows, channel
+//     group), in a one-dimensional grid whose consecutive blocks write
+//     consecutive memory; the main path's 2,048 blocks of 480 threads
+//     keep all 132 SMs busy;
+//   - the block's weight tile and the halo rows of its frame go to shared
+//     memory by cp.async (zero-filled outside the image), overlapping the
+//     load of v0.
+//
+// The sum.  Each output sums its taps in the plain path's order with the
+// plain path's two roundings per tap (conv_tile.cuh: tap_add), then adds
+// the bias; the LIF steps are the plain path's float operations
+// (core/snn_model.py:_lif_scan): v = v + dV; s = (v - v_th >= 0);
+// v = v - v_th * s, each rounded as written.  So dV, the spike train, u and
+// v_final have the plain version's bits on an analog input (the direct-
+// coded frame).  A's tap sum is its own (tap_add); the float32 path of
+// kernels B and C (tap_sum) uses the same function, so they round alike.
+//
+// The skip.  A block whose halo rows hold no nonzero input (a count of
+// nonzero values, not a value sum, as in the TPU kernel's table, so a
+// faint analog frame is never skipped) sums no taps: its dV is the bias,
+// bit for bit what the taps' zero products plus the bias give.  No atomics,
+// and each output's sum lies in one thread, so the bits depend neither on
+// the block order nor on the batch, and a split of T into chunks that
+// threads v_final into v0 gives the bits of one call.
+//
+// Tiling.  The host plans (kernels/spiking_conv.py:plan_tiles): QT quads a
+// block (cout_tile = 4 * QT channels), BR rows, BR * E_w * QT <= 512
+// threads.  Thread t owns quad t % QT of pixel t / QT of the row-block.
+// Shared memory, in floats:
+//   ws  R*R*Cin*cout_tile              weights of the tile, [tap][ci][c]
+//   xs  (BR+R-1) * W_pad * CinP        halo rows, [row][col][ci]
+// with W_pad = E_w + R - 1 and CinP = Cin | 1.
 #include "conv_tile.cuh"
 
 namespace {
 
-template <int CT>
-__global__ void __launch_bounds__(512)
-spiking_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ b, float* __restrict__ out,
-                    snn::ConvShape s) {
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* xs = ws + (size_t)s.R * s.R * s.Cin * CT;
-  const int n = blockIdx.x, i = blockIdx.y, c0 = blockIdx.z * CT;
+constexpr int kMaxThreads = 512;
 
-  snn::stage_weights<CT>(ws, w, s, c0);
-  const int nonzero =
-      snn::stage_halo(xs, x + (size_t)n * s.H * s.W * s.Cin, s, i);
+// What a launch writes.  dV mode: dv.  Hoisted mode: s (T planes), v, and
+// u (T planes) under SAVE_U, from v0.
+struct Outs {
+  float* dv;
+  const float* v0;
+  float* s;
+  float* v;
+  float* u;
+  int T;
+  float v_th;
+};
 
-  const int ly = threadIdx.x / s.E_w, lx = threadIdx.x % s.E_w;
-  const int y = i * s.BR + ly;
-  if (ly >= s.BR || y >= s.E_h) return;
+enum Mode { kDV, kHoisted, kHoistedSaveU };
 
-  float acc[CT];
+// Load or store the quad of channels [c, c+4) of one pixel at p, masked at
+// Cout.  VEC (Cout a multiple of 4, every pointer 16-byte aligned): one
+// 16-byte access.
+template <bool VEC>
+__device__ __forceinline__ void load_quad(float (&q)[4], const float* p,
+                                          int c, int Cout) {
+  if (VEC) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    q[0] = a.x, q[1] = a.y, q[2] = a.z, q[3] = a.w;
+  } else {
 #pragma unroll
-  for (int c = 0; c < CT; ++c) acc[c] = 0.f;
-  if (nonzero) snn::accumulate<CT>(acc, xs, ws, s, ly, lx);
-#pragma unroll
-  for (int c = 0; c < CT; ++c) acc[c] += c0 + c < s.Cout ? b[c0 + c] : 0.f;
-  snn::store_tile<CT>(out + (((size_t)n * s.E_h + y) * s.E_w + lx) * s.Cout + c0,
-                      acc, c0, s.Cout);
+    for (int k = 0; k < 4; ++k) q[k] = c + k < Cout ? p[k] : 0.f;
+  }
 }
 
-template <int CT>
-int launch(const float* x, const float* w, const float* b, float* out, int N,
-           const snn::ConvShape& s, cudaStream_t stream) {
-  const size_t smem = snn::smem_floats<CT>(s) * sizeof(float);
-  cudaError_t err = snn::allow_smem(spiking_conv_kernel<CT>, smem);
+template <bool VEC>
+__device__ __forceinline__ void store_quad(float* p, const float (&q)[4],
+                                           int c, int Cout) {
+  if (VEC) {
+    *reinterpret_cast<float4*>(p) = make_float4(q[0], q[1], q[2], q[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (c + k < Cout) p[k] = q[k];
+  }
+}
+
+template <int MODE, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+spiking_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ b, Outs o, int N,
+                    snn::ConvShape s, int QT, int groups) {
+  extern __shared__ float4 smem4[];
+  const int ct = 4 * QT, w_pad = s.w_pad(), cin_p = s.cin_p();
+  float* ws = reinterpret_cast<float*>(smem4);
+  float* xs = ws + (size_t)s.R * s.R * s.Cin * ct;
+  const int row_blocks = (s.E_h + s.BR - 1) / s.BR;
+  const int g = blockIdx.x % groups;
+  const int i = blockIdx.x / groups % row_blocks;
+  const int n = blockIdx.x / groups / row_blocks;
+  const int c0 = g * ct;
+
+  // the weight tile, [tap][ci][c], zeros past Cout
+  const int n_w = s.R * s.R * s.Cin * ct;
+  for (int e = threadIdx.x; e < n_w; e += blockDim.x) {
+    const int co = c0 + e % ct;
+    const bool ok = co < s.Cout;
+    snn::cp_async4(snn::smem_u32(ws + e),
+                   ok ? w + (size_t)(e / ct) * s.Cout + co : w, ok);
+  }
+  // the halo rows of row-block i, zeros outside the image
+  const float* img = x + (size_t)n * s.H * s.W * s.Cin;
+  const int row0 = i * s.BR - s.pad_lo;
+  const int n_x = s.halo_rows() * w_pad * s.Cin;
+  snn::Walk wk(threadIdx.x, blockDim.x, w_pad, s.Cin);
+  for (int e = threadIdx.x; e < n_x; e += blockDim.x, wk.next()) {
+    const int iy = row0 + wk.row, ix = wk.col - s.pad_lo;
+    const bool ok = iy >= 0 && iy < s.H && ix >= 0 && ix < s.W;
+    snn::cp_async4(
+        snn::smem_u32(xs + (wk.row * w_pad + wk.col) * cin_p + wk.q),
+        ok ? img + ((size_t)iy * s.W + ix) * s.Cin + wk.q : img, ok);
+  }
+  snn::cp_async_commit();
+
+  // this thread's pixel and quad
+  const int qd = threadIdx.x % QT, pix = threadIdx.x / QT;
+  const int ly = pix / s.E_w, lx = pix % s.E_w, y = i * s.BR + ly;
+  const int c = c0 + 4 * qd;
+  const bool active = ly < s.BR && y < s.E_h && c < s.Cout;
+  const size_t at = (((size_t)n * s.E_h + y) * s.E_w + lx) * s.Cout + c;
+  float v[4];
+  if (MODE != kDV && active) load_quad<VEC>(v, o.v0 + at, c, s.Cout);
+
+  snn::cp_async_wait_all();
+  __syncthreads();
+  // the skip test: nonzero values in the halo, counted by every thread
+  int nz = 0;
+  for (int e = threadIdx.x; e < n_x; e += blockDim.x)
+    nz |= xs[e / s.Cin * cin_p + e % s.Cin] != 0.f;
+  const int nonzero = __syncthreads_count(nz);
+  if (!active) return;
+
+  float z[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) z[k] = snn::kSumStart;
+  if (nonzero) {
+    for (int dy = 0; dy < s.R; ++dy)
+      for (int dx = 0; dx < s.R; ++dx) {
+        const float* xp = xs + ((ly + dy) * w_pad + lx + dx) * cin_p;
+        const float4* wp = reinterpret_cast<const float4*>(
+                               ws + (dy * s.R + dx) * s.Cin * ct) + qd;
+        for (int ci = 0; ci < s.Cin; ++ci) {
+          const float xv = xp[ci];
+          const float4 wv = wp[ci * QT];
+          z[0] = snn::tap_add(z[0], xv, wv.x);
+          z[1] = snn::tap_add(z[1], xv, wv.y);
+          z[2] = snn::tap_add(z[2], xv, wv.z);
+          z[3] = snn::tap_add(z[3], xv, wv.w);
+        }
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    z[k] = __fadd_rn(z[k], c + k < s.Cout ? __ldg(b + c + k) : 0.f);
+
+  if (MODE == kDV) {
+    store_quad<VEC>(o.dv + at, z, c, s.Cout);
+    return;
+  }
+  const size_t plane = (size_t)N * s.E_h * s.E_w * s.Cout;
+  for (int t = 0; t < o.T; ++t) {
+    float sp[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = __fadd_rn(v[k], z[k]);                       // integrate
+      sp[k] = __fsub_rn(v[k], o.v_th) >= 0.f ? 1.f : 0.f;  // fire
+    }
+    if (MODE == kHoistedSaveU)
+      store_quad<VEC>(o.u + t * plane + at, v, c, s.Cout);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __fsub_rn(v[k], __fmul_rn(o.v_th, sp[k]));  // reset
+    store_quad<VEC>(o.s + t * plane + at, sp, c, s.Cout);
+  }
+  store_quad<VEC>(o.v + at, v, c, s.Cout);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int MODE, bool VEC>
+int launch(const float* x, const float* w, const float* b, const Outs& o,
+           int N, const snn::ConvShape& s, int QT, cudaStream_t stream) {
+  const int groups = (s.Cout + 4 * QT - 1) / (4 * QT);
+  const int threads = (s.BR * s.E_w * QT + 31) / 32 * 32;
+  const size_t blocks =
+      (size_t)N * ((s.E_h + s.BR - 1) / s.BR) * groups;
+  if (threads > kMaxThreads || blocks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      ((size_t)s.R * s.R * s.Cin * 4 * QT +
+       (size_t)s.halo_rows() * s.w_pad() * s.cin_p()) * sizeof(float);
+  cudaError_t err = snn::allow_smem(spiking_conv_kernel<MODE, VEC>, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N, (s.E_h + s.BR - 1) / s.BR, (s.Cout + CT - 1) / CT);
-  const int threads = (s.BR * s.E_w + 31) / 32 * 32;
-  spiking_conv_kernel<CT><<<grid, threads, smem, stream>>>(x, w, b, out, s);
+  spiking_conv_kernel<MODE, VEC><<<(unsigned)blocks, threads, smem, stream>>>(
+      x, w, b, o, N, s, QT, groups);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch(const float* x, const float* w, const float* b, const Outs& o,
+             int N, const snn::ConvShape& s, int cout_tile, bool vec,
+             cudaStream_t stream) {
+  if (cout_tile <= 0 || cout_tile % 4 != 0 || s.BR <= 0)
+    return (int)cudaErrorInvalidValue;
+  return vec ? launch<MODE, true>(x, w, b, o, N, s, cout_tile / 4, stream)
+             : launch<MODE, false>(x, w, b, o, N, s, cout_tile / 4, stream);
 }
 
 }  // namespace
 
-// x (N, H, W, Cin), w (R, R, Cin, Cout), b (Cout,) -> out (N, E_h, E_w, Cout);
-// float32, contiguous, on the stream's device.  Returns a cudaError_t.
+// dV mode.  x (N, H, W, Cin), w (R, R, Cin, Cout), b (Cout,) -> out
+// (N, E_h, E_w, Cout); float32, contiguous, on the stream's device.
+// Returns a cudaError_t.
 extern "C" int spiking_conv_launch(const float* x, const float* w,
                                    const float* b, float* out, int N, int H,
                                    int W, int Cin, int Cout, int R, int pad_lo,
                                    int E_h, int E_w, int block_rows,
                                    int cout_tile, void* stream) {
   const snn::ConvShape s{H, W, Cin, Cout, R, pad_lo, E_h, E_w, block_rows};
+  const Outs o{out, nullptr, nullptr, nullptr, nullptr, 0, 0.f};
+  const bool vec = Cout % 4 == 0 && aligned16(out);
+  return dispatch<kDV>(x, w, b, o, N, s, cout_tile, vec,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Hoisted mode.  x (N, H, W, Cin) frames, v0 (N, E_h, E_w, Cout) -> s
+// (T, N, E_h, E_w, Cout) spikes, v (N, E_h, E_w, Cout) the final membrane,
+// and, when u is not null, u (T, N, E_h, E_w, Cout) the pre-reset
+// membrane (SAVE_U).  T >= 1; float32, contiguous, on the stream's device.
+// Returns a cudaError_t.
+extern "C" int spiking_conv_lif_hoisted_launch(
+    const float* x, const float* v0, const float* w, const float* b,
+    float* s_out, float* v_out, float* u_out, int T, int N, int H, int W,
+    int Cin, int Cout, int R, int pad_lo, int E_h, int E_w, int block_rows,
+    int cout_tile, float v_th, void* stream) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  const snn::ConvShape s{H, W, Cin, Cout, R, pad_lo, E_h, E_w, block_rows};
+  const Outs o{nullptr, v0, s_out, v_out, u_out, T, v_th};
+  const bool vec = Cout % 4 == 0 && aligned16(v0) && aligned16(s_out) &&
+                   aligned16(v_out) && (!u_out || aligned16(u_out));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cout_tile) {
-    case 4: return launch<4>(x, w, b, out, N, s, st);
-    case 8: return launch<8>(x, w, b, out, N, s, st);
-    case 16: return launch<16>(x, w, b, out, N, s, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return u_out ? dispatch<kHoistedSaveU>(x, w, b, o, N, s, cout_tile, vec, st)
+               : dispatch<kHoisted>(x, w, b, o, N, s, cout_tile, vec, st);
 }

@@ -52,8 +52,10 @@
 // next step a pass converts them to bf16, counts the nonzero values (the
 // skip) and the values that are neither 0 nor 1.  A (block, step) whose
 // input is not all 0 and 1 takes the float32 tap sum of conv_tile.cuh
-// (tap_sum) for its outputs instead of the MMAs: the public wrappers take
-// any float32 input, as the reference's _fused_call does.  Each output's
+// (tap_sum, in the plain path's rounding order, so such a step's dV has
+// the plain version's bits) for its outputs instead of the MMAs: the
+// public wrappers take any float32 input, as the reference's _fused_call
+// does.  Each output's
 // sum runs in one fixed order inside one block (taps, then k steps, then
 // lo, mid, hi), with no atomics and no split of K across blocks, so a split
 // of T into chunks that threads v_final into v0 gives the same bits as one

@@ -48,13 +48,9 @@ def lif_fused(v: torch.Tensor, z: torch.Tensor, v_th: float
     v_new, s = torch.empty_like(v), torch.empty_like(v)
     if v.numel() == 0:
         return v_new, s
-    lib = _build.load(fn, _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lif_fused_launch(v.data_ptr(), z.data_ptr(),
-                                  v_new.data_ptr(), s.data_ptr(), v.numel(),
-                                  DTYPES.index(v.dtype), float(v_th), stream)
-    _build.check_launch(lib, fn, rc)
+    _build.launch(dev, fn, _build.entry(fn, _ARGTYPES), v.data_ptr(),
+                  z.data_ptr(), v_new.data_ptr(), s.data_ptr(), v.numel(),
+                  DTYPES.index(v.dtype), float(v_th))
     lif_fused.launches += 1
     return v_new, s
 

@@ -1,11 +1,19 @@
 """Spike-driven convolution: the wrappers of kernels ``csrc/spiking_conv.cu``
-(the forward) and ``csrc/conv_grad_input.cu`` (its input gradient), their
-plain versions, the autograd Function that joins them, and the padding and
-skip-table helpers.
+(the forward, kernel A, in its two modes) and ``csrc/conv_grad_input.cu``
+(its input gradient), their plain versions, the autograd Function that
+joins them, and the padding and skip-table helpers.
 
-``spiking_conv`` computes dV = conv(spikes, w) + bias in NHWC x RRIO with
-APRC full padding or SAME padding (the reference's
-``repro.kernels.spiking_conv.spiking_conv_pallas``).  When a gradient is
+``spiking_conv`` (A's dV mode) computes dV = conv(spikes, w) + bias in
+NHWC x RRIO with APRC full padding or SAME padding (the reference's
+``repro.kernels.spiking_conv.spiking_conv_pallas``).
+``spiking_conv_lif_hoisted`` (A's hoisted mode) is the hoisted first
+layer: dV of the direct-coded frames once, then T steps of LIF on that
+constant current (the reference's ``_lif_scan_const`` on
+``spiking_conv_pallas``'s output), writing only the spike train, the final
+membrane and, for training, the pre-reset membrane; its autograd Function
+is ``kernels.spiking_conv_lif.HoistedConvLIFFn``.  Both sum their taps in
+the plain path's order and rounding, so on an analog input (the frames)
+they give the plain version's bits.  When a gradient is
 needed it goes through ``SpikingConvFn`` (the reference's
 ``kernels/ops.py:_spiking_conv_vjp``): dx by ``conv_grad_input`` (the
 reference's ``conv_grad_input_pallas``) when the input needs one, and
@@ -23,6 +31,7 @@ block must not be skipped.  The kernel takes its skip per thread block
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -33,6 +42,7 @@ from repro_torch.kernels.ref import (conv_grad_input_ref, conv_grad_weights,
                                      conv_pads, spiking_conv_ref)
 
 __all__ = ["spiking_conv", "spiking_conv_plain", "SpikingConvFn",
+           "spiking_conv_lif_hoisted", "spiking_conv_lif_hoisted_plain",
            "conv_grad_input", "conv_grad_input_plain", "conv_grad_weights",
            "conv_pads", "row_block_counts", "skip_table_fraction",
            "plan_tiles", "MmaPlan", "plan_mma_tiles"]
@@ -45,6 +55,11 @@ MMA_TILES = 2             # m16 tiles one warp holds
 # spiking_conv_launch(x, w, b, out, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
 #                     block_rows, cout_tile, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# spiking_conv_lif_hoisted_launch(x, v0, w, b, s, v, u, T, N, H, W, Cin, Cout,
+#                                 R, pad_lo, E_h, E_w, block_rows, cout_tile,
+#                                 v_th, stream); u is null without SAVE_U
+_HOISTED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
+    + [ctypes.c_float, ctypes.c_void_p]
 # conv_grad_input_launch(g, w, dx, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
 #                        block_rows, cout_tile, stream), in the backward's
 # terms (see csrc/conv_grad_input.cu)
@@ -61,21 +76,28 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+@functools.lru_cache(maxsize=None)
 def plan_tiles(e_w: int, r: int, cin: int, cout: int) -> Tuple[int, int]:
     """(block_rows, cout_tile) of a launch of kernel A
-    (``csrc/spiking_conv.cu``, the SIMT tile): one thread per output pixel
-    of a ``block_rows x E_w`` row-block, each thread owning ``cout_tile``
-    consecutive output channels.  Rows shrink from ``BLOCK_ROWS`` only when
-    the threads or the shared memory (halo rows plus the weight tile, the
-    formula of ``csrc/conv_tile.cuh``) would not fit one block."""
-    ct = 4 if cout <= 4 else 8 if cout <= 8 else 16
-    w_pad, cin_p = e_w + r - 1, cin | 1
-    br = BLOCK_ROWS
-    while br >= 1:
-        smem = 4 * ((br + r - 1) * w_pad * cin_p + r * r * cin * ct)
-        if br * e_w <= _MAX_THREADS and smem <= _MAX_SMEM:
-            return br, ct
-        br //= 2
+    (``csrc/spiking_conv.cu``, both modes), the host's mirror of its
+    tiling: one thread per output pixel and quad of four channels, a block
+    of ``block_rows`` full output rows and ``cout_tile`` channels (a
+    multiple of 4; wider layers add channel groups on the grid), at most
+    ``_MAX_THREADS`` threads.  The channel tile takes as many quads of a
+    row as fit, split evenly over the groups; rows then grow up to
+    ``BLOCK_ROWS`` while the threads and the shared memory (halo rows plus
+    the weight tile, the formula of the source note) fit.  Cached per
+    shape: the wrappers plan every call."""
+    quads = -(-cout // 4)
+    fit = min(quads, _MAX_THREADS // e_w)
+    if fit >= 1:
+        groups = -(-quads // fit)
+        qt = -(-quads // groups)
+        w_pad, cin_p = e_w + r - 1, cin | 1
+        for br in range(min(BLOCK_ROWS, _MAX_THREADS // (e_w * qt)), 0, -1):
+            smem = 4 * ((br + r - 1) * w_pad * cin_p + r * r * cin * 4 * qt)
+            if smem <= _MAX_SMEM:
+                return br, 4 * qt
     raise ValueError(f"no tiling fits one thread block: E_w={e_w}, R={r}, "
                      f"Cin={cin}")
 
@@ -204,14 +226,10 @@ def _spiking_conv_primal(spikes: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n, e_h, e_w, cout), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.load("spiking_conv", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.spiking_conv_launch(
-            spikes.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            n, h, wd, cin, cout, r, pad_lo, e_h, e_w, block_rows, cout_tile,
-            stream)
-    _build.check_launch(lib, fn, rc)
+    _build.launch(dev, fn, _build.entry("spiking_conv", _ARGTYPES),
+                  spikes.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                  out.data_ptr(), n, h, wd, cin, cout, r, pad_lo, e_h, e_w,
+                  block_rows, cout_tile)
     spiking_conv.launches += 1
     return out
 
@@ -228,6 +246,88 @@ def spiking_conv(spikes: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 spiking_conv.launches = 0
+
+
+def spiking_conv_lif_hoisted_plain(
+        frames: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
+        bias: torch.Tensor, *, t: int, v_th: float = 1.0, aprc: bool = True,
+        save_u: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the hoisted mode: ``spiking_conv_plain``, then
+    ``t`` steps of the LIF recurrence on that constant current in
+    ``core.snn_model._lif_scan``'s float operations (``v = v + dV``, the
+    Heaviside of ``v - v_th``, ``v = v - v_th * s``).  Returns (spike train
+    (t, B, E_h, E_w, Cout), final membrane), and with ``save_u`` also the
+    pre-reset membrane train u."""
+    z = spiking_conv_plain(frames, w, bias, aprc=aprc)
+    v, s_seq, u_seq = v0, [], []
+    for _ in range(t):
+        v = v + z
+        u_seq.append(v)
+        s = (v - v_th >= 0.0).to(v.dtype)
+        v = v - v_th * s
+        s_seq.append(s)
+
+    def stack(seq):
+        return torch.stack(seq) if seq else z.new_empty((0,) + z.shape)
+
+    if save_u:
+        return stack(s_seq), v, stack(u_seq)
+    return stack(s_seq), v
+
+
+def spiking_conv_lif_hoisted(frames: torch.Tensor, v0: torch.Tensor,
+                             w: torch.Tensor, bias: torch.Tensor, *, t: int,
+                             v_th: float = 1.0, aprc: bool = True,
+                             save_u: bool = False
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The hoisted first layer (kernel A's hoisted mode): frames (B, H, W,
+    Cin), constant over the ``t`` steps; v0 (B, E_h, E_w, Cout) the
+    membrane it starts from (the chunk carry).  Returns (spike train (t, B,
+    E_h, E_w, Cout), final membrane), and with ``save_u`` (the training
+    forward) also the pre-reset membrane train u.  It builds no autograd
+    graph: training goes through ``HoistedConvLIFFn``.  Launches are
+    counted in ``.launches`` (inference) and ``.launches_save_u``
+    (training forward), two kernel instances, as kernels B and C are."""
+    fn = "spiking_conv_lif_hoisted"
+    if frames.dim() != 4:
+        raise ValueError(f"{fn}: frames must be (B, H, W, Cin), got "
+                         f"{tuple(frames.shape)}")
+    h, wd, cin, cout, r, pad_lo, e_h, e_w = _conv_dims(frames, w, bias,
+                                                      aprc, fn)
+    n = frames.shape[0]
+    if tuple(v0.shape) != (n, e_h, e_w, cout):
+        raise ValueError(f"{fn}: v0 must be {(n, e_h, e_w, cout)}, got "
+                         f"{tuple(v0.shape)}")
+    if t < 0:
+        raise ValueError(f"{fn}: t must be >= 0, got {t}")
+    if frames.device.type == "cpu":
+        return spiking_conv_lif_hoisted_plain(frames, v0, w, bias, t=t,
+                                              v_th=v_th, aprc=aprc,
+                                              save_u=save_u)
+    dev = _build.check_cuda_args(fn, frames=frames, v0=v0, w=w, bias=bias)
+    block_rows, cout_tile = plan_tiles(e_w, r, cin, cout)
+    s = torch.empty((t, n, e_h, e_w, cout), dtype=torch.float32, device=dev)
+    v = torch.empty_like(v0)
+    outs = (s, v, torch.empty_like(s)) if save_u else (s, v)
+    if t == 0 or v.numel() == 0:
+        v.copy_(v0)
+        return outs
+    _build.launch(dev, fn, _build.entry("spiking_conv", _HOISTED_ARGTYPES,
+                                        f"{fn}_launch"),
+                  frames.data_ptr(), v0.data_ptr(), w.data_ptr(),
+                  bias.data_ptr(), s.data_ptr(), v.data_ptr(),
+                  outs[2].data_ptr() if save_u else None, t, n, h, wd, cin,
+                  cout, r, pad_lo, e_h, e_w, block_rows, cout_tile,
+                  float(v_th))
+    if save_u:
+        spiking_conv_lif_hoisted.launches_save_u += 1
+    else:
+        spiking_conv_lif_hoisted.launches += 1
+    return outs
+
+
+spiking_conv_lif_hoisted.launches = 0
+spiking_conv_lif_hoisted.launches_save_u = 0
 
 
 def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
@@ -256,14 +356,10 @@ def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((n, h, wd, cin), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    lib = _build.load("conv_grad_input", _GRAD_INPUT_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.conv_grad_input_launch(
-            dz.data_ptr(), w.data_ptr(), out.data_ptr(), n, e_h, e_w, cout,
-            cin, r, r - 1 - lo, h, wd, plan.block_rows, plan.cout_tile,
-            stream)
-    _build.check_launch(lib, fn, rc)
+    _build.launch(dev, fn, _build.entry(fn, _GRAD_INPUT_ARGTYPES),
+                  dz.data_ptr(), w.data_ptr(), out.data_ptr(), n, e_h, e_w,
+                  cout, cin, r, r - 1 - lo, h, wd, plan.block_rows,
+                  plan.cout_tile)
     conv_grad_input.launches += 1
     return out
 

@@ -19,6 +19,10 @@ reference's ``spiking_conv_lif_fwd_pallas``); the backward runs
 (T*B) batch: ``conv_grad_input`` (``conv_grad_input_pallas``) when the
 input train needs a gradient, and ``conv_grad_weights``.
 
+``HoistedConvLIFFn`` is the same scheme for the hoisted first layer, whose
+forward is kernel A's hoisted mode (``spiking_conv.spiking_conv_lif_hoisted``)
+and whose input current is constant over T.
+
 Given CPU tensors every wrapper computes through its plain version; given
 CUDA tensors it launches its kernel or raises.
 """
@@ -35,11 +39,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lif_bwd_ref, spiking_conv_lif_ref
 from repro_torch.kernels.spiking_conv import (_conv_dims, conv_grad_input,
                                               conv_grad_weights, needs_grad,
-                                              plan_mma_tiles)
+                                              plan_mma_tiles,
+                                              spiking_conv_lif_hoisted)
 
 __all__ = ["spiking_conv_lif", "spiking_conv_lif_plain",
            "spiking_conv_lif_fwd", "lif_bwd", "lif_bwd_plain",
-           "SpikingConvLIFFn"]
+           "SpikingConvLIFFn", "HoistedConvLIFFn"]
 
 # spiking_conv_lif_launch(x, v0, w, b, s, v, T, N, H, W, Cin, Cout, R, pad_lo,
 #                         E_h, E_w, block_rows, cout_tile, v_th, stream);
@@ -83,16 +88,12 @@ def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
         return outs
     if v.numel() == 0:
         return outs
-    lib = _build.load("spiking_conv_lif", _FWD_ARGTYPES if save_u
-                      else _ARGTYPES, f"{fn}_launch")
-    ptrs = [o.data_ptr() for o in outs]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"{fn}_launch")(
-            spikes.data_ptr(), v0.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            *ptrs, t, n, h, wd, cin, cout, r, pad_lo, e_h, e_w,
-            plan.block_rows, plan.cout_tile, float(v_th), stream)
-    _build.check_launch(lib, fn, rc)
+    _build.launch(dev, fn, _build.entry(
+        "spiking_conv_lif", _FWD_ARGTYPES if save_u else _ARGTYPES,
+        f"{fn}_launch"),
+        spikes.data_ptr(), v0.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        *(o.data_ptr() for o in outs), t, n, h, wd, cin, cout, r, pad_lo,
+        e_h, e_w, plan.block_rows, plan.cout_tile, float(v_th))
     if save_u:
         spiking_conv_lif_fwd.launches += 1
     else:
@@ -136,15 +137,12 @@ def lif_bwd(u: torch.Tensor, g_s: torch.Tensor, g_v: torch.Tensor, *,
         return lam, dv0.copy_(g_v)
     if dv0.numel() == 0:
         return lam, dv0
-    lib = _build.load(fn, _BWD_ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lif_bwd_launch(
-            u.data_ptr(), g_s.data_ptr(), g_v.data_ptr(), lam.data_ptr(),
-            dv0.data_ptr(), u.shape[0], g_v.numel(),
-            # the kernel's Kind enum numbers the surrogates in this order
-            SURROGATE_KINDS.index(kind), float(v_th), float(alpha), stream)
-    _build.check_launch(lib, fn, rc)
+    _build.launch(dev, fn, _build.entry(fn, _BWD_ARGTYPES),
+                  u.data_ptr(), g_s.data_ptr(), g_v.data_ptr(),
+                  lam.data_ptr(), dv0.data_ptr(), u.shape[0], g_v.numel(),
+                  # the kernel's Kind enum numbers the surrogates in this
+                  # order
+                  SURROGATE_KINDS.index(kind), float(v_th), float(alpha))
     lif_bwd.launches += 1
     return lam, dv0
 
@@ -189,6 +187,47 @@ class SpikingConvLIFFn(torch.autograd.Function):
                 r=w.shape[0])
         dv0 = dv0 if ctx.needs_input_grad[1] else None
         return dx, dv0, dw, db, None, None, None, None
+
+
+class HoistedConvLIFFn(torch.autograd.Function):
+    """The hoisted first layer (``spiking_conv_lif_hoisted``) under
+    autograd: Heaviside spikes forward, surrogate BPTT backward, for a
+    current that is constant over the ``t`` steps.
+
+    forward: kernel A's hoisted mode with ``save_u``, saving (frames, w,
+    u).  backward: kernel D on u with the cotangents of (s, v_final) gives
+    lam (t, ...) and dv0; the constant current's cotangent is dz = the sum
+    of lam over t, added in ascending t; then ``conv_grad_weights`` for
+    (dw, db), and kernel E for the frames when they need a gradient.
+    Returns (dframes, dv0, dw, db).  Surrogates: kernel D's three."""
+
+    @staticmethod
+    def forward(ctx, frames, v0, w, bias, t, v_th, aprc, alpha, kind):
+        s, v, u = spiking_conv_lif_hoisted(
+            frames.detach(), v0.detach(), w.detach(), bias.detach(), t=t,
+            v_th=v_th, aprc=aprc, save_u=True)
+        ctx.save_for_backward(frames, w, u)
+        ctx.opts = (v_th, aprc, alpha, kind)
+        return s, v
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_s, g_v):
+        frames, w, u = ctx.saved_tensors
+        v_th, aprc, alpha, kind = ctx.opts
+        # autograd hands over materialized zeros for an unused output
+        lam, dv0 = lif_bwd(u, g_s.contiguous(), g_v.contiguous(), v_th=v_th,
+                           alpha=alpha, kind=kind)
+        dz = lam.new_zeros(lam.shape[1:])
+        for lam_t in lam:
+            dz = dz + lam_t
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv_grad_input(dz, w, aprc=aprc)
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dw, db = conv_grad_weights(frames, dz, aprc=aprc, r=w.shape[0])
+        dv0 = dv0 if ctx.needs_input_grad[1] else None
+        return dx, dv0, dw, db, None, None, None, None, None
 
 
 def spiking_conv_lif(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,

@@ -13,7 +13,9 @@ The saved pre-reset membrane is held to the final membrane's 1e-4 where
 the trains agree (a membrane that grows to tens differs from cuDNN's by a
 few ulps), the LIF backward to 1e-6 (rel and abs; it repeats the plain
 version's float operations), the input gradient to 1e-5 of its largest
-value.
+value.  Kernel A sums its taps in the plain path's order and rounding, so
+on analog frames its dV, and its hoisted mode's trains and membranes, equal
+the plain version's bit for bit.
 """
 import numpy as np
 import pytest
@@ -22,8 +24,10 @@ import torch
 from repro_torch.core.snn_model import _lif_scan
 from repro_torch.core.surrogate import SURROGATE_KINDS
 from repro_torch.kernels import ref
-from repro_torch.kernels.spiking_conv import conv_grad_input, spiking_conv
-from repro_torch.kernels.spiking_conv_lif import (lif_bwd, spiking_conv_lif,
+from repro_torch.kernels.spiking_conv import (conv_grad_input, spiking_conv,
+                                              spiking_conv_lif_hoisted)
+from repro_torch.kernels.spiking_conv_lif import (HoistedConvLIFFn, lif_bwd,
+                                                  spiking_conv_lif,
                                                   spiking_conv_lif_fwd)
 
 CONV_CASES = [
@@ -449,3 +453,128 @@ def test_plain_rows_do_not_depend_on_the_batch(card, backend):
         for n in (1, 2, 3, 4, 8):
             got = snn_apply(params, x[:n], cfg, backend=backend).logits
             assert torch.equal(got, full[:n]), f"batch {n}"
+
+
+# -- kernel A on analog frames: the dV mode and the hoisted mode -------------
+
+HOISTED_CASES = [
+    # T, B, H, W, Cin, Cout, R, aprc
+    (8, 4, 28, 28, 1, 16, 3, True),     # snn-mnist layer 0
+    (3, 2, 28, 28, 1, 16, 3, False),    # SAME
+    (3, 2, 12, 12, 2, 8, 5, True),      # 5x5 taps
+    (1, 3, 13, 11, 1, 16, 3, True),     # ragged rows
+    (3, 2, 9, 9, 3, 6, 3, True),        # Cout not a multiple of 4
+    (2, 2, 6, 60, 1, 48, 3, False),     # two channel groups
+]
+
+
+def _analog(case, zero_frame=False):
+    t, b, h, w_, cin, cout, r, aprc = case
+    rng = np.random.default_rng(sum(case) + 17)
+    e_h, e_w = (h + r - 1, w_ + r - 1) if aprc else (h, w_)
+    x = rng.random((b, h, w_, cin), dtype=np.float32)
+    if zero_frame:
+        x[0] = 0.0
+    w = (rng.standard_normal((r, r, cin, cout)) * 0.4).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.1 + 0.2).astype(np.float32)
+    v0 = (rng.standard_normal((b, e_h, e_w, cout)) * 0.4).astype(np.float32)
+    return x, w, bias, v0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_frame", [False, True])
+@pytest.mark.parametrize("case", HOISTED_CASES)
+def test_spiking_conv_is_bit_exact_on_analog_frames(card, case, zero_frame):
+    """Kernel A's dV mode sums in the plain path's order: equal bits."""
+    *_, aprc = case
+    x, w, bias, _ = _on(card, *_analog(case, zero_frame))
+    n = spiking_conv.launches
+    got = spiking_conv(x, w, bias, aprc=aprc)
+    torch.cuda.synchronize()
+    assert spiking_conv.launches == n + 1
+    assert torch.equal(got, ref.spiking_conv_ref(x, w, bias, aprc=aprc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_u", [False, True])
+@pytest.mark.parametrize("zero_frame", [False, True])
+@pytest.mark.parametrize("case", HOISTED_CASES)
+def test_hoisted_kernel_is_bit_exact(card, case, zero_frame, save_u):
+    """Kernel A's hoisted mode, with and without SAVE_U, from a nonzero v0:
+    the plain version's trains, final membranes and pre-reset membranes."""
+    from repro_torch.kernels.spiking_conv import \
+        spiking_conv_lif_hoisted_plain
+    t, *_, aprc = case
+    x, w, bias, v0 = _on(card, *_analog(case, zero_frame))
+    counter = "launches_save_u" if save_u else "launches"
+    n = getattr(spiking_conv_lif_hoisted, counter)
+    got = spiking_conv_lif_hoisted(x, v0, w, bias, t=t, v_th=1.0, aprc=aprc,
+                                   save_u=save_u)
+    torch.cuda.synchronize()
+    assert getattr(spiking_conv_lif_hoisted, counter) == n + 1
+    want = spiking_conv_lif_hoisted_plain(x, v0, w, bias, t=t, v_th=1.0,
+                                          aprc=aprc, save_u=save_u)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(got[0].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_hoisted_kernel_chunks_are_bit_exact(card):
+    x, w, bias, v0 = _on(card, *_analog(HOISTED_CASES[2]))
+    s, v = spiking_conv_lif_hoisted(x, v0, w, bias, t=5)
+    s_a, v_a = spiking_conv_lif_hoisted(x, v0, w, bias, t=2)
+    s_b, v_b = spiking_conv_lif_hoisted(x, v_a, w, bias, t=3)
+    assert torch.equal(torch.cat([s_a, s_b]), s) and torch.equal(v_b, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SURROGATE_KINDS)
+def test_hoisted_backward_matches_the_batched_path(card, kind):
+    """HoistedConvLIFFn (kernel A's hoisted mode with SAVE_U, D, E for the
+    frames, conv_grad_weights) against autograd through the conv and the
+    LIF scan it replaces, on the same inputs."""
+    t = 4
+    x, w, bias, v0 = _on(card, *_analog((t, 2, 9, 11, 2, 8, 3, True)))
+    proj = torch.randn((t,) + tuple(v0.shape),
+                       generator=torch.Generator().manual_seed(3)).to(card)
+    counts = (spiking_conv_lif_hoisted.launches_save_u, lif_bwd.launches,
+              conv_grad_input.launches)
+    grads, trains = [], []
+    for route in ("function", "replaced"):
+        args = [a.clone().requires_grad_(True) for a in (x, v0, w, bias)]
+        if route == "function":
+            s, v = HoistedConvLIFFn.apply(*args, t, 1.0, True, 4.0, kind)
+        else:
+            z = ref.spiking_conv_ref(args[0], args[2], args[3])
+            s, _, v = _lif_scan(z, 1.0, 4.0, kind, args[1], const_t=t)
+        ((s * proj).sum() + (v ** 2).sum()).backward()
+        grads.append([a.grad for a in args])
+        trains.append(s.detach())
+    torch.cuda.synchronize()
+    assert (spiking_conv_lif_hoisted.launches_save_u, lif_bwd.launches,
+            conv_grad_input.launches) == tuple(c + 1 for c in counts)
+    assert torch.equal(trains[0], trains[1])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hoisted_wrapper_checks_its_arguments(card):
+    x = torch.rand((1, 8, 8, 1), device=card)
+    w = torch.rand((3, 3, 1, 4), device=card)
+    b = torch.zeros(4, device=card)
+    v0 = torch.zeros((1, 10, 10, 4), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        spiking_conv_lif_hoisted(x.double(), v0.double(), w.double(),
+                                 b.double(), t=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        spiking_conv_lif_hoisted(x, v0.permute(0, 2, 1, 3), w, b, t=2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        spiking_conv_lif_hoisted(x, v0, w.cpu(), b, t=2)
+    with pytest.raises(NotImplementedError, match="backward"):
+        spiking_conv_lif_hoisted(x, v0, w.clone().requires_grad_(True), b,
+                                 t=2)
+    s, v = spiking_conv_lif_hoisted(x, v0, w, b, t=0)
+    assert s.shape == (0, 1, 10, 10, 4) and torch.equal(v, v0)

@@ -181,13 +181,16 @@ def test_skip_table_fraction_matches_reference(shape, r, aprc, rate):
 
 
 def test_tile_plan_at_the_main_path_shapes():
-    """snn-mnist's three layers keep full 8-row blocks (the ragged 30- and
-    34-row outputs mask their last block); wide snn-seg rows shrink the
-    block; a row no block can hold raises."""
-    assert plan_tiles(30, 3, 1, 16) == (8, 16)
-    assert plan_tiles(32, 3, 16, 32) == (8, 16)
-    assert plan_tiles(34, 3, 32, 8) == (8, 8)
-    assert plan_tiles(170, 3, 32, 16) == (2, 16)
+    """One thread per pixel and channel quad, at most 512 a block: snn-mnist
+    layer 0's 30-wide rows of 16 channels take 4 rows a block (the ragged
+    30-row output masks half its last block), layer 1's 32 channels 2 rows,
+    layer 2's 8 channels 7; wide snn-seg rows split their channels into
+    even groups of one row; a narrow layer keeps 8 rows; a row no block
+    can hold raises."""
+    assert plan_tiles(30, 3, 1, 16) == (4, 16)
+    assert plan_tiles(32, 3, 16, 32) == (2, 32)
+    assert plan_tiles(34, 3, 32, 8) == (7, 8)
+    assert plan_tiles(170, 3, 32, 16) == (1, 8)
     assert plan_tiles(10, 3, 3, 1) == (8, 4)
     with pytest.raises(ValueError, match="no tiling"):
         plan_tiles(2000, 3, 8, 8)
