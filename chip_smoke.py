@@ -32,9 +32,11 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           aprc+cbws schedule against backend="batched" (plain ops), both
           on the card; each layer's threshold flips (none in layer 0,
           whose kernel gives the plain path's bits); kernel launch counts
-          per forward
+          per forward; the logits-only forward (``logits_only=True``)
+          gives the same logits bits
   profile one hopper forward's device time by kernel (torch.profiler)
-          against its time between CUDA events: the device's idle share
+          against its time between CUDA events: the device's idle share;
+          the same for the logits-only forward and the batched one
   serve   the serve launcher answering a few requests (the main path of
           inference; the hoisted mode's and kernel B's launch counts are
           read around it)
@@ -68,10 +70,36 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           B's launch counts are read around each run; the virtual runs
           also give each micro-batch's measured dispatch time and the
           lanes' busy share
+  seg     snn-seg (the paper's second net, T=16) at full width on
+          ``road_like(16, seed=0)`` frames, He-normal weights from seed 0:
+          (a) the main path through the facade, ``Session("snn-seg",
+          ServeSpec(backend="hopper", schedule_mode="aprc+cbws"))``:
+          ``infer`` (launches per forward counted: hoisted mode 1, B 4, A's
+          dV mode 1 for the Cout=1 readout), ``serve`` and the serve
+          launcher; (b) hopper against batched at batch 16: threshold flips
+          per layer (none in layer 0) and the logits within the seg bound
+          below; (c) one gradient of the reference's segmentation test loss
+          ``sum(logits ** 2)``, hopper against batched, with its launches
+          (the hoisted mode's SAVE_U 1, C 4, D 5, E 5, A's dV mode 1);
+          (d) forward ms at batch 1 and 16, logits-only and batched, and
+          the profiles of the forwards and of the gradient; then every kernel
+          against its plain version at seg's shapes (the hoisted mode with
+          Cin=3 and T=16, B and C at layers 1-4, D at layers 0-4, E at the
+          readout, whose cotangent has one channel, and at layers 4-1,
+          A's dV mode at Cout=1), with kernel, plain, library and bound
+          times
+  api     snn-mnist at batch 256 through ``repro_torch.api.Session`` on the
+          card: ``infer`` equals ``snn_apply(backend="hopper", schedule=
+          ...)`` bit for bit, 24 ``serve_forever`` requests equal ``infer``
+          bit for bit, ``train_step`` (its first loss equals the raw
+          step's) and ``evaluate`` (equals ``core.snn_train.accuracy``)
 
 then the card's name and power limit as nvidia-smi gives them, the
-kernels' summary line and, last, ``{"ok": true, "device": {...}}``.  A
-failed check raises, and the script exits nonzero.
+kernels' summary line (each kernel's times, bounds and shapes summed over
+its main-path shapes of both nets, its launches over the counted runs) and,
+last, ``{"ok": true, "device": {...}}``.  A failed check raises, and the
+script exits nonzero; so does a deprecation warning of the port's facade
+(every call here passes ``spec=``).
 
 The comparison rule for the spike trains.  Kernels B and C sum the taps
 of a spike train in another order than the plain path (which sums exactly
@@ -95,7 +123,22 @@ spike, so the last train's differing sites bound how far each image's
 logits may move (``compare_trains``; 0 for an image without a flip).  A
 train step's loss agrees with batched to ``LOSS_ATOL`` beyond twice the
 mean of the images' largest flip bounds; with no threshold flip in the
-forward, every gradient leaf agrees to a relative norm of ``GRAD_REL``.
+forward, every gradient leaf agrees to a relative norm of ``GRAD_REL``
+(``FLIP_GRAD_REL`` with flips).
+
+The seg bound.  snn-seg's readout is the non-firing conv of layer 4's
+train: logits = crop(sum over t of dV_t) / T, dV_t = conv(s4_t, w5) + b5,
+summed over t in the same order on both backends.  A site of layer 4's
+train that differs at step t moves dV_t by |w5[dy, dx, c]| at each output
+of its 3x3 window, so a pixel's flip bound is conv(D, |w5|) / T, D the
+number of differing steps of each site (0 where the trains agree).  On top
+comes the rounding: kernel A's dV of a spike input (float32, its own
+order) and the plain path's (exact in float64, rounded once) differ by at
+most ``DV_TOL`` * (1 + |dV_t|) (the dV rule), the running sum rounds once
+more a step (2^-23 |v_t|) and the division by T once (2^-24 |logit|), with
+|dV_t| and |v_t| the larger of the two backends'.  A pixel's logits agree
+to the sum of its flip and rounding bounds, and the loss sum(logits ** 2)
+to the sum over pixels of e (2 |l| + e), e that bound.
 All plain versions and yardsticks run with TF32 off.
 """
 from __future__ import annotations
@@ -106,6 +149,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -863,6 +907,8 @@ def phase_model(cfg, params, frames, trains):
     forward_ms = cuda_ms(lambda: snn_apply(params, frames, cfg,
                                            backend="hopper", schedule=sched),
                          reps=10)
+    batched_ms = cuda_ms(lambda: snn_apply(params, frames, cfg,
+                                           backend="batched"), reps=10)
     err = (got.logits - want.logits).abs().double()
     flipped = flip_bound.amax(dim=1) > 0
     logit_err = float(err[~flipped].max()) if bool((~flipped).any()) else 0.0
@@ -884,9 +930,7 @@ def phase_model(cfg, params, frames, trains):
          spike_totals=totals,
          spike_totals_rel_diff=rel, skip_fractions=skips,
          skip_fractions_plain=want_skips,
-         forward_ms=forward_ms,
-         forward_ms_batched=cuda_ms(lambda: snn_apply(
-             params, frames, cfg, backend="batched"), reps=10))
+         forward_ms=forward_ms, forward_ms_batched=batched_ms)
     if tuple(got.logits.shape) != (BATCH, cfg.dense_units[-1]) or not bool(
             torch.isfinite(got.logits).all()):
         fail(f"logits {tuple(got.logits.shape)} not finite/of the "
@@ -909,6 +953,20 @@ def phase_model(cfg, params, frames, trains):
     phase_profile(lambda: snn_apply(params, frames, cfg, backend="hopper",
                                     schedule=sched), forward_ms,
                   "hopper forward")
+    # the logits-only forward (the serving cache's logits entries, the
+    # training loss): the same logits bits, without the counting work
+    only = snn_apply(params, frames, cfg, backend="hopper", schedule=sched,
+                     logits_only=True)
+    if not torch.equal(only.logits, got.logits) or only.spike_counts:
+        fail("the logits-only hopper forward differs from the full one")
+    only_ms = cuda_ms(lambda: snn_apply(params, frames, cfg,
+                                        backend="hopper", schedule=sched,
+                                        logits_only=True), reps=10)
+    phase_profile(lambda: snn_apply(params, frames, cfg, backend="hopper",
+                                    schedule=sched, logits_only=True),
+                  only_ms, "hopper forward, logits only")
+    phase_profile(lambda: snn_apply(params, frames, cfg, backend="batched"),
+                  batched_ms, "batched forward")
 
 
 def device_time(call, reps: int):
@@ -1001,7 +1059,8 @@ def read_counts():
 
 
 def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
-    """The spike trains of snn-mnist's three conv layers, computed the way
+    """The spike trains of the spiking conv layers (snn-mnist's three,
+    snn-seg's five: its readout conv does not fire), computed the way
     backend hopper (kernels, through the CBWS-permuted weights of
     ``sched`` if given) or batched (plain ops) computes them, each in the
     canonical channel order."""
@@ -1028,7 +1087,8 @@ def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
                                 10.0, "fast_sigmoid", v0,
                                 const_t=cfg.timesteps)
         trains = [s]
-        for i in range(1, len(conv)):
+        n_spiking = len(conv) if cfg.dense_units else len(conv) - 1
+        for i in range(1, n_spiking):
             v0 = frames.new_zeros((frames.shape[0],) + layer_shapes(cfg)[i])
             if hopper:
                 s, _ = spiking_conv_lif(s.contiguous(), v0, conv[i]["w"],
@@ -1040,6 +1100,17 @@ def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
     return [t if p is None else t[..., p] for t, p in zip(trains, inv)]
 
 
+def _train_flips(cfg, params, frames, sched=None):
+    """Per spiking layer [differing sites, sites] between the hopper and
+    batched trains, and the last layer's two trains (hopper, batched)."""
+    flips = []
+    for t_h, t_b in zip(_forward_trains(cfg, params, frames, True, sched),
+                        _forward_trains(cfg, params, frames, False)):
+        sites = (t_h != t_b).any(dim=0)
+        flips.append([int(sites.sum()), sites.numel()])
+    return flips, (t_h, t_b)
+
+
 def compare_trains(cfg, params, frames, sched=None):
     """Threshold flips between the hopper and batched spike trains: per
     layer [differing sites, sites], and per image and class how far the
@@ -1048,35 +1119,36 @@ def compare_trains(cfg, params, frames, sched=None):
     ``|d logit_ik| <= sum over differing (t, j) of |w_jk| / T``; where the
     trains agree the bound is 0, since both backends sum the readout
     exactly (float64 on the exact grid) and then round alike."""
-    import torch
     assert len(params["dense"]) == 1, "snn-mnist reads out its last conv"
-    flips, last = [], None
-    for t_h, t_b in zip(_forward_trains(cfg, params, frames, True, sched),
-                        _forward_trains(cfg, params, frames, False)):
-        diff = t_h != t_b
-        sites = diff.any(dim=0)
-        flips.append([int(sites.sum()), sites.numel()])
-        last = diff
-    per_image = last.sum(dim=0).flatten(1).double()
+    flips, (t_h, t_b) = _train_flips(cfg, params, frames, sched)
+    per_image = (t_h != t_b).sum(dim=0).flatten(1).double()
     bound = (per_image @ params["dense"][0]["w"].abs().double()
              / cfg.timesteps)
     return flips, bound
 
 
-def _loss_and_grads(cfg, params, x, y, backend):
+def _value_and_grads(params, loss_fn):
+    """``loss_fn(params)`` and its gradient by leaf name ("conv0.w", ...)."""
     import torch
-    from repro_torch.core.snn_train import make_loss_fn
     keys = [(kind, i, k) for kind in ("conv", "dense")
             for i in range(len(params[kind])) for k in ("w", "b")]
-    leaves = [params[kind][i][k].detach().clone().requires_grad_(True)
-              for kind, i, k in keys]
-    it = iter(leaves)
-    tree = {kind: [{k: next(it) for k in ("w", "b")} for _ in params[kind]]
-            for kind in ("conv", "dense")}
-    loss = make_loss_fn(cfg, backend=backend)(tree, x, y)
-    grads = torch.autograd.grad(loss, leaves)
+    with torch.inference_mode(False), torch.enable_grad():
+        leaves = [params[kind][i][k].detach().clone().requires_grad_(True)
+                  for kind, i, k in keys]
+        it = iter(leaves)
+        tree = {kind: [{k: next(it) for k in ("w", "b")}
+                       for _ in params[kind]] for kind in ("conv", "dense")}
+        loss = loss_fn(tree)
+        grads = torch.autograd.grad(loss, leaves)
     names = [f"{kind}{i}.{k}" for kind, i, k in keys]
     return float(loss.detach()), dict(zip(names, grads))
+
+
+def _loss_and_grads(cfg, params, x, y, backend):
+    from repro_torch.api import TrainSpec
+    from repro_torch.core.snn_train import make_loss_fn
+    loss_fn = make_loss_fn(cfg, spec=TrainSpec(backend=backend))
+    return _value_and_grads(params, lambda p: loss_fn(p, x, y))
 
 
 def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
@@ -1087,6 +1159,7 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
     import numpy as np
     import torch
     from torch.utils._pytree import tree_map
+    from repro_torch.api import TrainSpec
     from repro_torch.core.snn_model import init_snn
     from repro_torch.core.snn_train import make_train_step
     from repro_torch.data.synthetic import mnist_like
@@ -1162,13 +1235,13 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
     mom = tree_map(torch.zeros_like, params)
     step_ms = {}
     for backend in ("hopper", "batched"):
-        step = make_train_step(cfg, backend=backend, lr=lr)
+        step = make_train_step(cfg, spec=TrainSpec(backend=backend, lr=lr))
         step_ms[backend] = cuda_ms(lambda: step(params, mom, x, y), reps=5,
                                    warmup=2)
     emit("train", part="c: one train step", batch=BATCH, step_ms=step_ms,
          trained_frames_per_s={k: BATCH / v * 1e3
                                for k, v in step_ms.items()})
-    step = make_train_step(cfg, backend="hopper", lr=lr)
+    step = make_train_step(cfg, spec=TrainSpec(backend="hopper", lr=lr))
     phase_profile(lambda: step(params, mom, x, y), step_ms["hopper"],
                   "hopper train step")
     return counts["hopper"]
@@ -1409,6 +1482,475 @@ def phase_engine(cfg, params, serve_fps):
         fail("chunked engine logits differ from whole-T")
 
 
+# -- slice 6: snn-seg on the card, the facade -----------------------------------
+
+SEG_BATCH, SEG_STEPS = 16, 4
+API_REQUESTS = 24
+
+
+def seg_logit_bound(cfg, params, frames, sched):
+    """The seg rule of the module doc: per layer [differing sites, sites]
+    between the hopper and batched trains, and per pixel how far the
+    logits may differ: the flip bound (conv(D, |w5|) / T over the
+    differing steps D of each site of the last train) plus the rounding
+    bound of kernel A's dV against the plain path's, on each backend's own
+    last train."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.scheduler import permute_conv_params
+    from repro_torch.core.snn_model import finalize_logits
+    from repro_torch.kernels.spiking_conv import (spiking_conv,
+                                                  spiking_conv_plain)
+    flips, (s_h, s_b) = _train_flips(cfg, params, frames, sched)
+    t, b = s_b.shape[:2]
+    r = cfg.kernel_size
+    w5, b5 = params["conv"][-1]["w"], params["conv"][-1]["b"]
+    # (a) the flips: each differing (t, site) moves dV_t by |w5| over the
+    # site's 3x3 window
+    d = (s_h != s_b).double().sum(dim=0)                    # (B, H, W, C)
+    w_abs = w5.abs().double().permute(3, 2, 0, 1)           # OIHW
+    flip = F.conv2d(d.permute(0, 3, 1, 2), w_abs, padding=r - 1)
+    flip = finalize_logits(flip.permute(0, 2, 3, 1), cfg, t)
+    # (b) the rounding: per step DV_TOL * (1 + |dV_t|), the running sum's
+    # rounding 2^-23 |v_t| a step, the division's 2^-24 |logit|; dV_t and
+    # v_t the larger of the two backends' (the hopper readout through the
+    # CBWS-permuted weights it runs on)
+    w5h = permute_conv_params(params, list(sched))["conv"][-1] \
+        if sched is not None else params["conv"][-1]
+    perm_in = (torch.as_tensor(sched[-2].out_perm, device=s_h.device)
+               if sched is not None else None)
+    x_h = s_h if perm_in is None else s_h[..., perm_in]
+    z_h = spiking_conv(x_h.reshape((t * b,) + x_h.shape[2:]).contiguous(),
+                       w5h["w"].contiguous(), w5h["b"].contiguous())
+    z_b = spiking_conv_plain(s_b.reshape((t * b,) + s_b.shape[2:]), w5, b5)
+    z = torch.maximum(z_h.abs(), z_b.abs()).double().reshape(
+        (t, b) + z_b.shape[1:])
+    v = torch.maximum(z_h.reshape(z.shape).cumsum(0).abs(),
+                      z_b.reshape(z.shape).cumsum(0).abs()).double()
+    per_step = (DV_TOL * (1.0 + z) + 2.0 ** -23 * v).sum(dim=0)
+    rnd = finalize_logits(per_step, cfg, t)
+    logit = finalize_logits(v[-1], cfg, t)
+    return flips, flip + rnd + 2.0 ** -24 * logit, flip
+
+
+def phase_seg(cfg, batch: int = SEG_BATCH):
+    """snn-seg on the card, through the facade: the main path (Session.infer
+    and serve, the serve launcher), hopper against batched (forward and one
+    gradient), each kernel at seg's main-path shapes, and the timings.
+    Returns (summary entries, launch counts of the main path)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ServeSpec, Session
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.snn_model import snn_apply
+    from repro_torch.data.synthetic import road_like
+    from repro_torch.launch.serve import serve
+    h, w = cfg.input_hw
+    frames_np, _ = road_like(batch, h=h, w=w, seed=SEED)
+    sess = Session(cfg, ServeSpec(backend="hopper",
+                                  schedule_mode="aprc+cbws"),
+                   seed=SEED, device="cuda")
+    params = sess.params
+    sched = build_schedule(params, cfg, "aprc+cbws")
+    x = torch.from_numpy(frames_np).cuda()
+    out_shape = (batch, h, w, 1)
+
+    # (a) the main path: one Session.infer, counted
+    sess.infer(frames_np)                          # builds the engine
+    torch.cuda.synchronize()
+    reset_counts()
+    out = sess.infer(frames_np)
+    torch.cuda.synchronize()
+    fwd_launches = {k: v for k, v in read_counts().items() if v}
+    want = {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 4,
+            "spiking_conv": 1}
+    if fwd_launches != want:
+        fail(f"one snn-seg forward launched {fwd_launches}, expected {want}")
+    if out.logits.shape != out_shape or not np.isfinite(out.logits).all():
+        fail(f"snn-seg logits {out.logits.shape} not finite/of shape "
+             f"{out_shape}")
+    with torch.inference_mode():
+        raw = snn_apply(params, x, cfg, backend="hopper", schedule=sched)
+        if not np.array_equal(raw.logits.cpu().numpy(), out.logits):
+            fail("Session.infer's snn-seg logits differ from snn_apply's")
+    stats = sess.serve(frames_np, steps=SEG_STEPS)
+    reset_counts()
+    launcher = serve(cfg, backend="hopper", schedule="aprc+cbws",
+                     batch=batch, steps=SEG_STEPS, seed=SEED, device="cuda")
+    serve_launches = read_counts()
+    if any(serve_launches[k] != n * (SEG_STEPS + 1)
+           for k, n in want.items()):
+        fail(f"the snn-seg serve run launched {serve_launches}")
+    emit("seg", part="a: the main path", config=cfg.name, batch=batch,
+         timesteps=cfg.timesteps, launches_per_forward=fwd_launches,
+         spikes_per_frame=stats["spikes_per_frame"],
+         session_serve_fps=stats["fps"], launcher_fps=launcher["fps"],
+         launcher_launches=serve_launches,
+         spike_totals=[float(t) for t in out.spike_totals],
+         skip_fractions=[float(f) for f in out.skip_fractions])
+
+    # (b) hopper against batched: flips, logits within the seg bound
+    with torch.inference_mode():
+        got = snn_apply(params, x, cfg, backend="hopper", schedule=sched)
+        ref = snn_apply(params, x, cfg, backend="batched")
+        flips, bound, flip = seg_logit_bound(cfg, params, x, sched)
+    err = (got.logits - ref.logits).abs().double()
+    excess = float((err - bound).max())
+    totals = [(float(a), float(c)) for a, c in zip(got.spike_totals,
+                                                   ref.spike_totals)]
+    emit("seg", part="b: hopper against batched", batch=batch,
+         threshold_flips_per_layer=flips,
+         pixels_with_a_flip_bound=int((flip > 0).sum()),
+         max_abs_err_logits=float(err.max()),
+         max_flip_bound=float(flip.max()), max_bound=float(bound.max()),
+         max_abs_err_logits_beyond_bound=excess,
+         max_abs_logit=float(ref.logits.abs().max()),
+         spike_totals=totals)
+    if any(f > MAX_FLIP_FRACTION * n for f, n in flips):
+        fail(f"snn-seg threshold flips per layer {flips} exceed "
+             f"{MAX_FLIP_FRACTION}")
+    if flips[0][0]:
+        fail(f"snn-seg layer 0's train differs at {flips[0][0]} sites: "
+             f"kernel A's hoisted mode must give the plain path's bits")
+    if excess > 0:
+        fail(f"snn-seg hopper logits exceed the seg bound by {excess}")
+    del got, ref, flip
+
+    # (c) one gradient of sum(logits ** 2), hopper against batched
+    def seg_loss(backend):
+        def loss(p):
+            kw = {"schedule": sched} if backend == "hopper" else {}
+            o = snn_apply(p, x, cfg, backend=backend, logits_only=True, **kw)
+            return (o.logits ** 2).sum()
+        return loss
+
+    def peak_gb(fn):
+        """fn() and the device memory it took at its peak, in GB."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    reset_counts()
+    (loss_h, g_h), peak_h = peak_gb(
+        lambda: _value_and_grads(params, seg_loss("hopper")))
+    grad_launches = {k: v for k, v in read_counts().items() if v}
+    want_grad = {"spiking_conv_lif_hoisted_save_u": 1,
+                 "spiking_conv_lif_fwd": 4, "lif_bwd": 5,
+                 "conv_grad_input": 5, "spiking_conv": 1}
+    (loss_b, g_b), peak_b = peak_gb(
+        lambda: _value_and_grads(params, seg_loss("batched")))
+    rel = {k: float((g_h[k] - g_b[k]).norm() / g_b[k].norm()) for k in g_b}
+    n_flips = sum(f for f, _ in flips)
+    grad_bound = GRAD_REL if n_flips == 0 else FLIP_GRAD_REL
+    # |sum l_h^2 - sum l_b^2| <= sum e (2 |l_b| + e) for |l_h - l_b| <= e
+    with torch.inference_mode():
+        lb = snn_apply(params, x, cfg, backend="batched",
+                       logits_only=True).logits.abs().double()
+    loss_bound = float((bound * (2 * lb + bound)).sum())
+    del lb
+    grad_ms = cuda_ms(lambda: _value_and_grads(params, seg_loss("hopper")),
+                      reps=3, warmup=1)
+    grad_ms_batched = cuda_ms(
+        lambda: _value_and_grads(params, seg_loss("batched")), reps=3,
+        warmup=1)
+    emit("seg", part="c: one gradient, hopper against batched",
+         batch=batch, loss="sum(logits ** 2)", loss_hopper=loss_h,
+         loss_batched=loss_b, loss_abs_diff=abs(loss_h - loss_b),
+         loss_bound=loss_bound, grad_rel_diff=rel,
+         grad_rel_bound=grad_bound, launches=grad_launches,
+         grad_ms=grad_ms, grad_ms_batched=grad_ms_batched,
+         peak_memory_gb={"hopper": peak_h, "batched": peak_b})
+    if grad_launches != want_grad:
+        fail(f"the snn-seg gradient launched {grad_launches}, expected "
+             f"{want_grad}")
+    if abs(loss_h - loss_b) > loss_bound:
+        fail(f"snn-seg loss hopper {loss_h} vs batched {loss_b} "
+             f"(> {loss_bound})")
+    if not all(float(g.abs().max()) > 0 for g in g_h.values()):
+        fail("a hopper snn-seg gradient leaf is zero")
+    if max(rel.values()) > grad_bound:
+        fail(f"snn-seg hopper gradients differ from batched: {rel} "
+             f"(> {grad_bound}, {n_flips} flips)")
+    del g_h, g_b
+    with torch.inference_mode():
+        phase_profile(lambda: _value_and_grads(params, seg_loss("hopper")),
+                      grad_ms, "snn-seg hopper gradient", reps=2)
+
+    # (d) the timings
+    with torch.inference_mode():
+        def fwd(xx, logits_only=False):
+            return lambda: snn_apply(params, xx, cfg, backend="hopper",
+                                     schedule=sched, logits_only=logits_only)
+
+        times = {"forward_ms_batch1": cuda_ms(fwd(x[:1]), reps=10),
+                 "forward_ms": cuda_ms(fwd(x), reps=10),
+                 "forward_ms_logits_only": cuda_ms(fwd(x, True), reps=10),
+                 "forward_ms_batched": cuda_ms(lambda: snn_apply(
+                     params, x, cfg, backend="batched"), reps=5)}
+        emit("seg", part="d: timings", batch=batch, **times)
+        phase_profile(fwd(x), times["forward_ms"], "snn-seg hopper forward")
+        phase_profile(fwd(x, True), times["forward_ms_logits_only"],
+                      "snn-seg hopper forward, logits only")
+        phase_profile(lambda: snn_apply(params, x, cfg, backend="batched"),
+                      times["forward_ms_batched"], "snn-seg batched forward",
+                      reps=2)
+        summary = phase_seg_kernels(cfg, params, x)
+    launches = {k: fwd_launches.get(k, 0) + grad_launches.get(k, 0)
+                for k in set(fwd_launches) | set(grad_launches)}
+    return summary, launches
+
+
+def phase_seg_kernels(cfg, params, frames):
+    """Every kernel of snn-seg's path against its plain version at its
+    main-path shapes: the hoisted mode (Cin=3, T=16) with and without
+    SAVE_U bit for bit, B and C at layers 1-4 (layer 3: the 208 KB plan),
+    D at all five layers, E at the readout (one input channel) and layers
+    4-1, A's dV mode at the readout (Cout=1); returns the summary entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.snn_model import layer_shapes
+    from repro_torch.device import full_fp32
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spiking_conv import (
+        conv_grad_input, spiking_conv, spiking_conv_lif_hoisted,
+        spiking_conv_lif_hoisted_plain, spiking_conv_plain)
+    from repro_torch.kernels.spiking_conv_lif import (
+        lif_bwd, spiking_conv_lif, spiking_conv_lif_fwd,
+        spiking_conv_lif_plain)
+    dev, v_th, conv = frames.device, cfg.v_threshold, params["conv"]
+    T, n = cfg.timesteps, frames.shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    summary = {k: [] for k in ("spiking_conv_lif_hoisted",
+                               "spiking_conv_lif_hoisted_save_u",
+                               "spiking_conv_lif", "spiking_conv_lif_fwd",
+                               "lif_bwd", "conv_grad_input", "spiking_conv")}
+    case = "snn-seg layer {}"
+
+    # layer 0: the hoisted mode; its u feeds D
+    w0, b0 = conv[0]["w"], conv[0]["b"]
+    v0 = torch.zeros((n,) + layer_shapes(cfg)[0], device=dev)
+    us = []
+    for save_u in (False, True):
+        name = "spiking_conv_lif_hoisted" + ("_save_u" if save_u else "")
+        kw = dict(t=T, v_th=v_th, save_u=save_u)
+        got = spiking_conv_lif_hoisted(frames, v0, w0, b0, **kw)
+        err = check_exact(f"{name} snn-seg layer0", got,
+                          spiking_conv_lif_hoisted_plain(frames, v0, w0, b0,
+                                                         **kw))
+        nbytes, flops = hoisted_work(frames, w0, T, True, save_u)
+        rec = {"shape": list(frames.shape), "timesteps": T,
+               "spikes": float(got[0].sum()), "max_abs_err": err,
+               "ms": cuda_ms(lambda: spiking_conv_lif_hoisted(
+                   frames, v0, w0, b0, **kw)),
+               "device_ms": device_ms(lambda: spiking_conv_lif_hoisted(
+                   frames, v0, w0, b0, **kw)),
+               "plain_ms": cuda_ms(lambda: spiking_conv_lif_hoisted_plain(
+                   frames, v0, w0, b0, **kw), reps=5),
+               "library_ms": None}
+        set_bounds(rec, nbytes, flops)
+        emit("kernel", name=name, case=case.format(0), **rec)
+        summary[name].append(rec)
+        s_in = got[0]
+        if save_u:
+            us.append(got[2])
+        del got
+
+    # layers 1-4: B, then C (its u feeds D), on the plain trains
+    for layer in range(1, len(conv) - 1):
+        w, b = conv[layer]["w"], conv[layer]["b"]
+        v0 = torch.zeros((n,) + layer_shapes(cfg)[layer], device=dev)
+        s_p, v_p, u_p = spiking_conv_lif_plain(s_in, v0, w, b, v_th=v_th,
+                                               save_u=True)
+        for name, save_u in (("spiking_conv_lif", False),
+                             ("spiking_conv_lif_fwd", True)):
+            fn = spiking_conv_lif_fwd if save_u else spiking_conv_lif
+            got = fn(s_in, v0, w, b, v_th=v_th)
+            rec = check_train(f"{name} snn-seg layer{layer}", got[0], got[1],
+                              s_p, v_p, u_p, v_th)
+            u_err = 0.0
+            if save_u:
+                agree = (got[0] == s_p).all(dim=0)
+                u_err = float((got[2] - u_p).abs()[:, agree].max())
+                if u_err > U_ATOL:
+                    fail(f"{name} snn-seg layer{layer}: u differs by {u_err}"
+                         f" (> {U_ATOL}) where the trains agree")
+                us.append(got[2])
+            nbytes, flops, taps = conv_work(s_in, w, True, lif=True,
+                                            save_u=save_u)
+            rec.update(
+                shape=list(s_in.shape),
+                max_abs_err=max(u_err, rec["max_abs_err_v_agreeing"]),
+                ms=cuda_ms(lambda: fn(s_in, v0, w, b, v_th=v_th), reps=10),
+                plain_ms=cuda_ms(lambda: spiking_conv_lif_plain(
+                    s_in, v0, w, b, v_th=v_th, save_u=save_u), reps=3),
+                library_ms=None)
+            set_bounds(rec, nbytes, flops, taps, PEAK_BF16)
+            emit("kernel", name=name, case=case.format(layer), **rec)
+            summary[name].append(rec)
+            del got
+        s_in = s_p
+        del v_p, u_p
+
+    # the readout: A's dV mode on layer 4's train folded to (T*B, ...)
+    w5, b5 = conv[-1]["w"], conv[-1]["b"]
+    x5 = s_in.reshape((-1,) + s_in.shape[2:])
+    del s_in
+    err = check_dv("spiking_conv snn-seg readout", spiking_conv(x5, w5, b5),
+                   spiking_conv_plain(x5, w5, b5))
+    nbytes, flops, _ = conv_work(x5, w5, True, lif=False)
+    w_oihw, x_nchw = w5.permute(3, 2, 0, 1).contiguous(), x5.permute(0, 3,
+                                                                     1, 2)
+
+    def library():
+        with full_fp32():
+            return F.conv2d(x_nchw, w_oihw, b5, padding=2)
+
+    rec = {"shape": list(x5.shape), "max_abs_err": err,
+           "ms": cuda_ms(lambda: spiking_conv(x5, w5, b5)),
+           "device_ms": device_ms(lambda: spiking_conv(x5, w5, b5)),
+           "plain_ms": cuda_ms(lambda: spiking_conv_plain(x5, w5, b5),
+                               reps=5),
+           "library_ms": cuda_ms(library)}
+    set_bounds(rec, nbytes, flops)
+    emit("kernel", name="spiking_conv", case="snn-seg readout (Cout=1)",
+         **rec)
+    summary["spiking_conv"].append(rec)
+    del x5
+
+    # D on every layer's u (the default surrogate), its lam feeding E
+    lams = []
+    for layer, u in enumerate(us):
+        g_s, g_v = randn(*u.shape), randn(*u.shape[1:])
+        kw = dict(v_th=v_th, alpha=10.0, kind="fast_sigmoid")
+        lam, dv0 = lif_bwd(u, g_s, g_v, **kw)
+        lam_p, dv0_p = ref.lif_bwd_ref(u, g_s, g_v, **kw)
+        errs = [float((a - c).abs().max()) for a, c in
+                ((lam, lam_p), (dv0, dv0_p))]
+        if not (torch.allclose(lam, lam_p, atol=BWD_TOL, rtol=BWD_TOL) and
+                torch.allclose(dv0, dv0_p, atol=BWD_TOL, rtol=BWD_TOL)):
+            fail(f"lif_bwd snn-seg layer{layer}: lam/dv0 differ by {errs}")
+        del lam_p, dv0_p
+        nbytes, flops = lif_bwd_work(u)
+        rec = {"shape": list(u.shape), "surrogate": "fast_sigmoid",
+               "max_abs_err": max(errs), "bit_identical": errs == [0.0, 0.0],
+               "ms": cuda_ms(lambda: lif_bwd(u, g_s, g_v, **kw)),
+               "plain_ms": cuda_ms(lambda: ref.lif_bwd_ref(u, g_s, g_v, **kw),
+                                   reps=5),
+               "library_ms": None}
+        set_bounds(rec, nbytes, flops)
+        emit("kernel", name="lif_bwd", case=case.format(layer), **rec)
+        summary["lif_bwd"].append(rec)
+        lams.append(lam.reshape((-1,) + lam.shape[2:]) if layer else None)
+        del g_s, g_v, lam, dv0
+    del us
+
+    # E: the readout's (its cotangent has one channel), then layers 4-1
+    e_cases = [("snn-seg readout backward (Cout=1)",
+                randn(T * n, *layer_shapes(cfg)[-1]), w5)]
+    e_cases += [(f"snn-seg layer {layer} backward", lams[layer],
+                 conv[layer]["w"]) for layer in range(len(lams) - 1, 0, -1)]
+    del lams
+    for label, dz, w in e_cases:
+        got = conv_grad_input(dz, w)
+        err = check_dx(f"conv_grad_input {label}", got,
+                       ref.conv_grad_input_ref(dz, w))
+        del got
+        nbytes, flops = grad_input_work(dz, w, True)
+        r = w.shape[0]
+        w_oihw, g_nchw = w.permute(3, 2, 0, 1).contiguous(), dz.permute(
+            0, 3, 1, 2)
+        x_size = (dz.shape[0], w.shape[2], dz.shape[1] - r + 1,
+                  dz.shape[2] - r + 1)
+
+        def library():
+            with full_fp32():
+                return torch.nn.grad.conv2d_input(x_size, w_oihw, g_nchw,
+                                                  padding=r - 1)
+
+        rec = {"shape": list(dz.shape), "max_abs_err": err,
+               "ms": cuda_ms(lambda: conv_grad_input(dz, w)),
+               "plain_ms": cuda_ms(lambda: ref.conv_grad_input_ref(dz, w)),
+               "library_ms": cuda_ms(library)}
+        set_bounds(rec, nbytes, flops, flops, PEAK_TF32)
+        emit("kernel", name="conv_grad_input", case=label, **rec)
+        summary["conv_grad_input"].append(rec)
+    return summary
+
+
+def phase_api(cfg, frames):
+    """snn-mnist at batch 256 through the facade on the card:
+    ``Session.infer`` equals ``snn_apply(backend="hopper", schedule=...)``
+    bit for bit, a handful of ``serve_forever`` requests equal ``infer``
+    bit for bit, and ``train_step`` and ``evaluate`` run (the first loss
+    and the accuracy equal the raw step's and ``accuracy``'s)."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.api import ServeSpec, Session, TrainSpec
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.snn_model import snn_apply
+    from repro_torch.core.snn_train import accuracy, make_train_step
+    from repro_torch.data.synthetic import mnist_like
+    frames_np = frames.cpu().numpy()
+    sess = Session(cfg, ServeSpec(backend="hopper", schedule_mode="aprc+cbws",
+                                  num_lanes=2, max_batch=16),
+                   seed=SEED, device="cuda")
+    sess.infer(frames_np)
+    reset_counts()
+    out = sess.infer(frames_np)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    with torch.inference_mode():
+        raw = snn_apply(sess.params, frames, cfg, backend="hopper",
+                        schedule=build_schedule(sess.params, cfg,
+                                                "aprc+cbws"))
+        raw = raw.logits.cpu().numpy()
+    infer_equal = bool(np.array_equal(out.logits, raw))
+    with sess.serve_forever() as live:
+        handles = [live.submit(f) for f in frames_np[:API_REQUESTS]]
+        live_logits = [h.result(timeout=120.0) for h in handles]
+    live_equal = all(np.array_equal(got, out.logits[i])
+                     for i, got in enumerate(live_logits))
+    served = live.summary()["served"]
+    tr = Session(cfg, TrainSpec(backend="hopper", lr=1e-2), seed=SEED,
+                 device="cuda")
+    x0, y0 = mnist_like(BATCH, seed=0)
+    step = make_train_step(cfg, spec=TrainSpec(backend="hopper", lr=1e-2))
+    _, _, raw_loss = step(tr.params, tree_map(torch.zeros_like, tr.params),
+                          *(torch.from_numpy(a).cuda() for a in (x0, y0)))
+    losses = [tr.train_step(*mnist_like(BATCH, seed=i)) for i in range(3)]
+    xe, ye = mnist_like(BATCH, seed=10_000)
+    acc = tr.evaluate(xe, ye)
+    raw_acc = accuracy(tr.params, cfg, *(torch.from_numpy(a).cuda()
+                                         for a in (xe, ye)),
+                       backend="hopper")
+    emit("api", config=cfg.name, batch=BATCH,
+         infer_launches=launches, infer_equals_snn_apply=infer_equal,
+         live_requests=len(handles), live_served=served,
+         live_equals_infer=live_equal, train_losses=losses,
+         first_loss_equals_raw_step=losses[0] == float(raw_loss),
+         accuracy=acc, accuracy_raw=raw_acc)
+    if launches != {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 2}:
+        fail(f"Session.infer launched {launches}")
+    if not infer_equal:
+        fail("Session.infer's logits differ from snn_apply's")
+    if served != len(handles) or not live_equal:
+        fail(f"serve_forever: {served} of {len(handles)} served, bits "
+             f"equal to infer: {live_equal}")
+    if not (all(np.isfinite(losses)) and losses[0] == float(raw_loss)):
+        fail(f"Session.train_step losses {losses} (raw step "
+             f"{float(raw_loss)})")
+    if acc != raw_acc:
+        fail(f"Session.evaluate {acc} != accuracy {raw_acc}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1424,6 +1966,9 @@ def main() -> int:
               f"run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # the facade's deprecation shims must not be reached from here
+    warnings.filterwarnings("error", category=DeprecationWarning,
+                            message=r".*repro_torch\.api")
     import numpy as np
     from repro_torch.config import get_snn
     from repro_torch.core.snn_model import init_snn
@@ -1455,6 +2000,13 @@ def main() -> int:
         phase_chunk(cfg, params, frames)
         phase_bucket_rows(cfg, params, frames)
     phase_engine(cfg, params, serve_fps)
+    # snn-seg's path (its own launch counts) and the facade
+    seg_summary, seg_launches = phase_seg(get_snn("snn-seg"))
+    for name, recs in seg_summary.items():
+        summary.setdefault(name, []).extend(recs)
+    for name, n in seg_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    phase_api(cfg, frames)
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     # each TPU kernel's pl.pallas_call site
@@ -1474,8 +2026,8 @@ def main() -> int:
                             tpu + "spiking_conv.py:294"),
         "lif_fused": (csrc + "lif_fused.cu", tpu + "lif.py:49")}
     for name, recs in summary.items():
-        # per snn-mnist forward or train step: the sum over the kernel's
-        # main-path shapes
+        # the sum over the kernel's main-path shapes: per snn-mnist forward
+        # or train step, plus per snn-seg forward or gradient
         tot = set_bounds(
             {}, sum(r["bytes"] for r in recs), sum(r["flops"] for r in recs),
             sum(r.get("tap_flops", 0) for r in recs),

@@ -18,20 +18,24 @@ A library GEMM or convolution picks its algorithm, and so its summation
 order, by the row count, so ``conv2d`` and ``dense`` avoid that:
 
 - a spike input (every value 0 or 1: every dense input, and every conv
-  input after the first layer) is multiplied in one float64 GEMM against
-  the weights rounded onto a power-of-two grid fine enough that every
-  partial sum is exact (``exact_grid``): exact sums are the same in any
-  order, so the library's choice of algorithm cannot change a bit.  The
-  rounding moves each weight by less than 2**-50 of the layer's largest
-  column sum; the result is rounded to float32 once, like a float32
-  product;
+  input after the first layer) is multiplied in float64 against the
+  weights rounded onto a power-of-two grid fine enough that every partial
+  sum is exact (``exact_grid``): exact sums are the same in any order, so
+  the library's choice of algorithm cannot change a bit.  The rounding
+  moves each weight by less than 2**-50 of the layer's largest column
+  sum; the result is rounded to float32 once, like a float32 product.  A
+  conv takes one GEMM per tap (R*R of them, accumulated in float64: each
+  partial sum is exact, so the bits are those of a single GEMM over the
+  im2col patches, which is never built), and its backward keeps only the
+  input (``_SpikeConv``);
 - any other conv input (the direct-coded frame of a first layer, analog
   values, for which the float64 products would not be exact) is convolved
   by elementwise multiply-adds in a fixed tap and channel order.
 
 ``conv2d`` tells the two apart by looking at the values, which costs one
-pass over the input and, on the card, a host sync: these are the plain
-paths, not the kernels.
+pass over the input and, on the card, a host sync, unless the caller says
+which it is (``binary=``): a layer fed by a spiking layer knows.  These are
+the plain paths, not the kernels.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from repro_torch.core.neuron import LIFState, lif_step
 
@@ -70,28 +75,116 @@ def with_exact_grid(p: Dict) -> Dict:
     return p if "wq" in p else {**p, "wq": exact_grid(p["w"], dim=0)}
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, *, aprc: bool) -> torch.Tensor:
+def _pads(r: int, aprc: bool) -> Tuple[int, int]:
+    return (r - 1, r - 1) if aprc else ((r - 1) // 2, r - 1 - (r - 1) // 2)
+
+
+def _taps(xp: torch.Tensor, r: int, e_h: int, e_w: int):
+    """The R*R shifted windows of the padded input, (dy, dx) row-major."""
+    for k in range(r * r):
+        dy, dx = divmod(k, r)
+        yield k, xp[:, dy:dy + e_h, dx:dx + e_w, :]
+
+
+def _flat_rows(x: torch.Tensor, lo: int, hi: int):
+    """``x`` padded (one more row at the bottom) and flattened to rows of
+    its channels: (N * L, C), L = (H_pad + 1) * W_pad.  Output pixel (y, x)
+    of an image is row y * W_pad + x of its L, and tap (dy, dx) reads input
+    row y * W_pad + x + dy * W_pad + dx: each tap's operand is one
+    contiguous slice of the rows, shifted by that offset, for the whole
+    batch at once.  The rows of columns x >= E_w, and those that run into
+    the next image, compute values that are never read; the extra row
+    keeps the last image's slices inside the tensor.  Returns (rows, H_pad
+    + 1, W_pad)."""
+    xp = F.pad(x, (0, 0, lo, hi, lo, hi + 1))
+    n, hp, wp, c = xp.shape
+    return xp.reshape(n * hp * wp, c), hp, wp
+
+
+def _tap_offsets(r: int, wp: int):
+    """(k, row offset) of the R*R taps in ``_flat_rows``' layout."""
+    return [(k, (k // r) * wp + k % r) for k in range(r * r)]
+
+
+class _SpikeConv(torch.autograd.Function):
+    """The conv of a 0/1 input on the exact-grid weights: float64, one GEMM
+    per tap on a shifted view of the input's rows (``_flat_rows``: no copy
+    of the taps), accumulated in place over the taps (module doc), rounded
+    to the input's type once.  The backward keeps only the input and the
+    weights: dx adds each tap's transposed product into the padded input's
+    rows at the tap's offset, dw is one product per tap, both in float64
+    and rounded once."""
+
+    @staticmethod
+    def forward(ctx, x, w, lo, hi):
+        r, _, cin, cout = w.shape
+        n = x.shape[0]
+        e_h = x.shape[1] + lo + hi - r + 1
+        e_w = x.shape[2] + lo + hi - r + 1
+        wq = exact_grid(w.detach().reshape(r * r * cin, cout), dim=0)
+        xr, hp, wp = _flat_rows(x.detach().double(), lo, hi)
+        rows = xr.shape[0] - (r - 1) * (wp + 1)
+        z = xr.new_empty((xr.shape[0], cout))
+        for k, off in _tap_offsets(r, wp):
+            wk = wq[k * cin:(k + 1) * cin]
+            if k == 0:
+                torch.mm(xr[off:off + rows], wk, out=z[:rows])
+            else:
+                z[:rows].addmm_(xr[off:off + rows], wk)
+        ctx.save_for_backward(x, wq)
+        ctx.geom = (r, lo, hi, e_h, e_w, w.dtype)
+        z = z.reshape(n, hp, wp, cout)[:, :e_h, :e_w]
+        return z.to(x.dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, wq = ctx.saved_tensors
+        r, lo, hi, e_h, e_w, w_dtype = ctx.geom
+        n, h, wd, cin = x.shape
+        cout = wq.shape[-1]
+        hp, wp = h + lo + hi + 1, wd + lo + hi
+        rows = n * hp * wp - (r - 1) * (wp + 1)
+        # the cotangent in the forward's row layout, zero at the rows that
+        # are no output
+        gr = g.new_zeros((n, hp, wp, cout), dtype=torch.float64)
+        gr[:, :e_h, :e_w] = g
+        gr = gr.reshape(-1, cout)[:rows]
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dxr = gr.new_zeros((n * hp * wp, cin))
+            for k, off in _tap_offsets(r, wp):
+                dxr[off:off + rows].addmm_(gr, wq[k * cin:(k + 1) * cin].T)
+            dx = dxr.reshape(n, hp, wp, cin)[:, lo:lo + h, lo:lo + wd]
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xr, _, _ = _flat_rows(x.double(), lo, hi)
+            dw = torch.stack([xr[off:off + rows].T @ gr
+                              for _, off in _tap_offsets(r, wp)])
+            dw = dw.reshape(r, r, cin, cout).to(w_dtype)
+        return dx, dw, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, aprc: bool,
+           binary: Optional[bool] = None) -> torch.Tensor:
     """NHWC x RRIO convolution; APRC = full padding + stride 1.  Rows are
-    independent of the batch (module doc)."""
-    r, _, cin, cout = w.shape
-    lo, hi = (r - 1, r - 1) if aprc else ((r - 1) // 2, r - 1 - (r - 1) // 2)
-    b_, h, wd = x.shape[0], x.shape[1], x.shape[2]
-    e_h, e_w = h + lo + hi - r + 1, wd + lo + hi - r + 1
-    xd = x.detach()
-    binary = bool(((xd == 0) | (xd == 1)).all())
-    xp = F.pad(x.double() if binary else x, (0, 0, lo, hi, lo, hi))
-    taps = [xp[:, dy:dy + e_h, dx:dx + e_w, :]
-            for dy in range(r) for dx in range(r)]
-    if not binary:
-        z = None
-        for k, tap in enumerate(taps):
-            for ci in range(cin):
-                term = tap[..., ci:ci + 1] * w[k // r, k % r, ci]
-                z = term if z is None else z + term
-        return z
-    patches = torch.cat(taps, dim=-1).reshape(b_ * e_h * e_w, r * r * cin)
-    wq = exact_grid(w.reshape(r * r * cin, cout), dim=0)
-    return (patches @ wq).to(x.dtype).reshape(b_, e_h, e_w, cout)
+    independent of the batch (module doc).  ``binary`` says whether every
+    value of ``x`` is 0 or 1; ``None`` looks at the values (a host sync on
+    the card)."""
+    r, _, cin, _ = w.shape
+    lo, hi = _pads(r, aprc)
+    if binary is None:
+        xd = x.detach()
+        binary = bool(((xd == 0) | (xd == 1)).all())
+    if binary:
+        return _SpikeConv.apply(x, w, lo, hi)
+    e_h, e_w = x.shape[1] + lo + hi - r + 1, x.shape[2] + lo + hi - r + 1
+    z = None
+    for k, tap in _taps(F.pad(x, (0, 0, lo, hi, lo, hi)), r, e_h, e_w):
+        for ci in range(cin):
+            term = tap[..., ci:ci + 1] * w[k // r, k % r, ci]
+            z = term if z is None else z + term
+    return z
 
 
 def dense(x: torch.Tensor, p: Dict) -> torch.Tensor:
@@ -132,12 +225,13 @@ def spiking_conv_step(
     params: Dict, state: LIFState, spikes_in: torch.Tensor,
     *, aprc: bool, v_th: float, surrogate_alpha: float = 10.0,
     surrogate_kind: str = "fast_sigmoid", backend: str = "ref",
+    binary: Optional[bool] = None,
 ) -> Tuple[LIFState, torch.Tensor]:
     """One timestep: synaptic current (Eq. 2) then LIF update (Eq. 1+3).
 
-    ``backend="ref"``/``"batched"`` is the differentiable plain path;
-    ``backend="hopper"`` runs the fused conv+LIF kernel
-    (``kernels.spiking_conv_lif``) with T=1.
+    ``backend="ref"``/``"batched"`` is the differentiable plain path
+    (``binary`` as for ``conv2d``); ``backend="hopper"`` runs the fused
+    conv+LIF kernel (``kernels.spiking_conv_lif``) with T=1.
     """
     if backend == "hopper":
         from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
@@ -151,7 +245,8 @@ def spiking_conv_step(
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {SNN_BACKENDS} "
             "(the model-level switch lives in core.snn_model.snn_apply)")
-    z = conv2d(spikes_in, params["w"], aprc=aprc) + params["b"]
+    z = conv2d(spikes_in, params["w"], aprc=aprc, binary=binary) \
+        + params["b"]
     return lif_step(state, z, v_th=v_th, surrogate_alpha=surrogate_alpha,
                     surrogate_kind=surrogate_kind)
 

@@ -27,9 +27,13 @@ all three backends train to the same gradient.
 
 Both orders compute the same math and also count per-layer per-channel
 spikes, the actual-workload signal CBWS/balance evaluation consumes (paper
-Fig. 2/7).  Whole-T execution is one chunk started from the zero carry,
-and every readout is a sequential loop over t, so a chunked run only
-has to thread the carry.
+Fig. 2/7).  A caller that reads only the logits (the serving cache's
+``"logits"`` entries, the training loss) passes ``logits_only=True``: the
+forward then skips every count, the skip table and the casts and copies
+that feed them, returns empty observability fields, and gives the same
+logits bits (and so the same gradients).  Whole-T execution is one chunk
+started from the zero carry, and every readout is a sequential loop over
+t, so a chunked run only has to thread the carry.
 
 This is the counterpart of ``repro.core.snn_model``: same layouts (NHWC,
 RRIO conv weights, (din, dout) dense weights), same names, same outputs.
@@ -185,7 +189,9 @@ def freeze_params(params: Dict) -> Dict:
 def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
               *, surrogate_alpha: float = 10.0,
               surrogate_kind: str = "fast_sigmoid", backend: str = "ref",
-              schedule: Optional[Sequence] = None) -> SNNOutputs:
+              schedule: Optional[Sequence] = None,
+              spec: Optional[object] = None,
+              logits_only: bool = False) -> SNNOutputs:
     """frames: (B, H, W, Cin) analog input in [0,1] (direct coding) or a
     pre-encoded spike train (T, B, H, W, Cin), on the parameters' device.
 
@@ -193,7 +199,15 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     pipeline, plain ops) or "hopper" (time-batched through the hand-written
     kernels).  ``schedule`` (a ``core.scheduler.build_schedule`` result)
     routes the hopper backend through CBWS-permuted weights; outputs are
-    reported in canonical channel order regardless.
+    reported in canonical channel order regardless.  ``logits_only``
+    computes the logits alone (module doc).
+
+    ``spec`` (a ``repro_torch.api.ExecutionSpec``, duck-typed so core never
+    imports the facade) carries backend/surrogate in one validated record
+    and overrides the individual kwargs.  Spec fields this function cannot
+    apply are loud errors, never silent drops: ``spec.timesteps`` must
+    already be resolved into ``cfg`` (``Session`` does this), and a
+    ``spec.schedule_mode`` needs the built ``schedule`` passed alongside.
     """
     if frames.shape[-1] != cfg.input_channels:
         # the batched path's single-channel implicit-GEMM conv would
@@ -202,11 +216,40 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
             f"frames carry {frames.shape[-1]} channels but the config "
             f"expects input_channels={cfg.input_channels} "
             f"(frames shape {tuple(frames.shape)})")
+    if spec is not None:
+        t_spec = getattr(spec, "timesteps", None)
+        if t_spec is not None and t_spec != cfg.timesteps:
+            raise ValueError(
+                f"spec.timesteps={t_spec} conflicts with "
+                f"cfg.timesteps={cfg.timesteps}: resolve the spec's T into "
+                f"the config first (repro_torch.api.Session does this) — "
+                f"snn_apply will not silently pick one")
+        mode = getattr(spec, "resolved_schedule", lambda: None)()
+        if mode is not None and schedule is None:
+            raise ValueError(
+                f"spec.schedule_mode={mode!r} but no built schedule was "
+                f"passed: snn_apply takes the core.scheduler.build_schedule "
+                f"result via schedule= (repro_torch.api.Session/the serving "
+                f"engine build it) — the mode alone cannot be applied here")
+        backend = spec.backend
+        surrogate_alpha = spec.surrogate_alpha
+        surrogate_kind = spec.surrogate_kind
+        chunk_t = getattr(spec, "chunk_timesteps", None)
+        if chunk_t is not None:
+            # the chunked driver is bit-identical to whole T (chunk-parity
+            # contract), so Session.infer/evaluate serve what a
+            # chunk-scheduling engine serves
+            return snn_apply_chunked(
+                params, frames, cfg, chunk_timesteps=chunk_t,
+                surrogate_alpha=surrogate_alpha,
+                surrogate_kind=surrogate_kind, backend=backend,
+                schedule=schedule, logits_only=logits_only)
     if backend in ("batched", "hopper"):
         return _apply_time_batched(
             params, frames, cfg, surrogate_alpha=surrogate_alpha,
             surrogate_kind=surrogate_kind,
-            use_kernels=(backend == "hopper"), schedule=schedule)
+            use_kernels=(backend == "hopper"), schedule=schedule,
+            logits_only=logits_only)
     if backend != "ref":
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {SNN_BACKENDS}")
@@ -218,7 +261,7 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     carry = init_chunk_carry(cfg, B, z_in.dtype, z_in.device)
     counts, t_counts, carry = _apply_ref_chunk(
         params, z_in, cfg, carry, surrogate_alpha=surrogate_alpha,
-        surrogate_kind=surrogate_kind)
+        surrogate_kind=surrogate_kind, logits_only=logits_only)
     return SNNOutputs(
         logits=finalize_logits(carry.readout_v, cfg, cfg.timesteps),
         spike_counts=tuple(counts),
@@ -229,12 +272,13 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
 
 def _apply_ref_chunk(params: Dict, z_chunk: torch.Tensor, cfg: SNNConfig,
                      carry: ChunkCarry, *, surrogate_alpha: float,
-                     surrogate_kind: str):
+                     surrogate_kind: str, logits_only: bool = False):
     """One timestep segment of the reference (timestep-outer) path.
 
     ``z_chunk`` is a (t, B, H, W, Cin) slice; LIF/readout state enters and
     leaves through ``carry``.  Returns (per-layer spike counts for the
-    chunk, per-layer (t, Cout) timestep counts, new carry)."""
+    chunk, per-layer (t, Cout) timestep counts, new carry); both lists are
+    empty under ``logits_only``."""
     B = z_chunk.shape[1]
     n_conv = len(cfg.conv_channels)
     shapes = layer_shapes(cfg)
@@ -256,20 +300,26 @@ def _apply_ref_chunk(params: Dict, z_chunk: torch.Tensor, cfg: SNNConfig,
     for z_t in z_chunk:
         x = z_t
         for i in range(n_conv):
+            # a layer after the first is fed a spike train: no value check
+            binary = True if i else None
             if i == n_conv - 1 and head_dim is None:
                 # segmentation: last conv is the non-firing readout
-                z = L.conv2d(x, params["conv"][i]["w"], aprc=cfg.aprc) \
-                    + params["conv"][i]["b"]
+                z = L.conv2d(x, params["conv"][i]["w"], aprc=cfg.aprc,
+                             binary=binary) + params["conv"][i]["b"]
                 v = conv_s[i].v + z
                 conv_s[i] = LIFState(v=v)
-                s = (v >= cfg.v_threshold).to(v.dtype)  # mask spikes (metric only)
                 x = v
+                if logits_only:
+                    continue
+                s = (v >= cfg.v_threshold).to(v.dtype)  # mask spikes (metric only)
             else:
                 conv_s[i], s = L.spiking_conv_step(
                     params["conv"][i], conv_s[i], x, aprc=cfg.aprc,
                     v_th=cfg.v_threshold, surrogate_alpha=surrogate_alpha,
-                    surrogate_kind=surrogate_kind)
+                    surrogate_kind=surrogate_kind, binary=binary)
                 x = s
+                if logits_only:
+                    continue
             s_t = s.sum(dim=(0, 1, 2))
             cnts[i] = cnts[i] + s_t
             t_counts[i].append(s_t)
@@ -288,15 +338,18 @@ def _apply_ref_chunk(params: Dict, z_chunk: torch.Tensor, cfg: SNNConfig,
         conv_v=tuple(st.v for st in conv_s[:len(carry.conv_v)]),
         dense_v=tuple(st.v for st in dense_s),
         readout_v=(conv_s[-1].v if head_dim is None else v_out))
+    if logits_only:
+        return [], [], new_carry
     return cnts, [torch.stack(c) for c in t_counts], new_carry
 
 
 def _lif_scan(z_seq, v_th: float, alpha: float, kind: str,
-              v0: torch.Tensor, *, const_t: int = 0):
+              v0: torch.Tensor, *, const_t: int = 0, count: bool = True):
     """LIF recurrence over a current train z_seq (T, B, ...), or over the
     constant current z_seq (B, ...) for ``const_t`` steps (the hoisted first
     layer).  Returns (spike train (T, ...), per-step channel counts
-    (T, C), final membrane); ``v0`` seeds the membrane (the chunk carry)."""
+    (T, C), or None without ``count``, final membrane); ``v0`` seeds the
+    membrane (the chunk carry)."""
     zs = [z_seq] * const_t if const_t else z_seq
     v, s_seq, cnt = v0, [], []
     for z in zs:
@@ -304,19 +357,23 @@ def _lif_scan(z_seq, v_th: float, alpha: float, kind: str,
         s = spike_fn(v - v_th, alpha, kind)
         v = v - v_th * s
         s_seq.append(s)
-        cnt.append(s.sum(dim=tuple(range(s.dim() - 1))))
-    return torch.stack(s_seq), torch.stack(cnt), v
+        if count:
+            cnt.append(s.sum(dim=tuple(range(s.dim() - 1))))
+    return torch.stack(s_seq), (torch.stack(cnt) if count else None), v
 
 
-def _conv_plain(x: torch.Tensor, p: Dict, aprc: bool) -> torch.Tensor:
+def _conv_plain(x: torch.Tensor, p: Dict, aprc: bool,
+                binary: Optional[bool] = None) -> torch.Tensor:
     """Synaptic-current conv, plain path (``snn_layers.conv2d``: a row's
     bits do not depend on its batch)."""
-    return L.conv2d(x, p["w"], aprc=aprc) + p["b"]
+    return L.conv2d(x, p["w"], aprc=aprc, binary=binary) + p["b"]
 
 
 def _conv_folded(x_seq: torch.Tensor, p: Dict, cfg: SNNConfig,
-                 use_kernels: bool) -> torch.Tensor:
-    """Time-batched synaptic current: fold (T, B) -> T*B and convolve once."""
+                 use_kernels: bool,
+                 binary: Optional[bool] = None) -> torch.Tensor:
+    """Time-batched synaptic current: fold (T, B) -> T*B and convolve once
+    (``binary`` as for ``snn_layers.conv2d``, on the plain path)."""
     from repro_torch.kernels.spiking_conv import spiking_conv
     t, b = x_seq.shape[:2]
     x = x_seq.reshape((t * b,) + x_seq.shape[2:])
@@ -324,14 +381,14 @@ def _conv_folded(x_seq: torch.Tensor, p: Dict, cfg: SNNConfig,
         z = spiking_conv(x.contiguous(), p["w"].contiguous(),
                          p["b"].contiguous(), aprc=cfg.aprc)
     else:
-        z = _conv_plain(x, p, cfg.aprc)
+        z = _conv_plain(x, p, cfg.aprc, binary)
     return z.reshape((t, b) + z.shape[1:])
 
 
 def _apply_time_batched(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                         *, surrogate_alpha: float, surrogate_kind: str,
-                        use_kernels: bool,
-                        schedule: Optional[Sequence]) -> SNNOutputs:
+                        use_kernels: bool, schedule: Optional[Sequence],
+                        logits_only: bool = False) -> SNNOutputs:
     """Layer-outer execution: each layer consumes the whole (T, B) block.
     Whole-T is exactly one chunk of ``_time_batched_chunk`` started from the
     zero carry."""
@@ -344,7 +401,7 @@ def _apply_time_batched(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     counts_t, skips, carry = _time_batched_chunk(
         params, frames, cfg, surrogate_alpha=surrogate_alpha,
         surrogate_kind=surrogate_kind, use_kernels=use_kernels,
-        schedule=schedule, carry=carry, t_chunk=T)
+        schedule=schedule, carry=carry, t_chunk=T, logits_only=logits_only)
     return SNNOutputs(
         logits=finalize_logits(carry.readout_v, cfg, cfg.timesteps),
         spike_counts=tuple(c.sum(dim=0) for c in counts_t),
@@ -357,7 +414,8 @@ def _apply_time_batched(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
 def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                         *, surrogate_alpha: float, surrogate_kind: str,
                         use_kernels: bool, schedule: Optional[Sequence],
-                        carry: ChunkCarry, t_chunk: int):
+                        carry: ChunkCarry, t_chunk: int,
+                        logits_only: bool = False):
     """One timestep segment of the layer-outer pipeline.
 
     ``frames`` is either the (B, H, W, Cin) direct-coded input (constant
@@ -365,7 +423,8 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     (t_chunk, B, ...) spike-train slice.  All per-layer LIF membranes and
     the readout accumulator enter/leave via ``carry``; the readouts are
     sequential loops over t.  Returns (per-layer (t_chunk, Cout) counts,
-    per-fused-layer skip fractions, new carry)."""
+    per-fused-layer skip fractions, new carry); under ``logits_only`` both
+    lists are empty and nothing that feeds them is computed."""
     from repro_torch.kernels.spiking_conv import (needs_grad,
                                                   skip_table_fraction,
                                                   spiking_conv_lif_hoisted)
@@ -383,8 +442,10 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     if use_kernels and schedule is not None:
         from repro_torch.core.scheduler import permute_conv_params
         params = permute_conv_params(params, list(schedule))
-        inv_perms = [torch.as_tensor(s.out_perm, device=frames.device)
-                     .argsort() for s in schedule]
+        if not logits_only:
+            inv_perms = [torch.as_tensor(s.out_perm, device=frames.device)
+                         .argsort() for s in schedule]
+    count = not logits_only
 
     counts_t: List[torch.Tensor] = []      # per layer (t_chunk, Cout)
     skips: List[torch.Tensor] = []         # per fused layer: skip-cell fraction
@@ -396,12 +457,15 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     def note_skip(train, r):
         # observability: the fused kernel's skip-table sparsity, computed on
         # the train the kernel sees
-        if use_kernels and train.dim() == 5:
+        if count and use_kernels and train.dim() == 5:
             skips.append(skip_table_fraction(train, r, aprc=cfg.aprc))
 
     for i in range(n_conv):
         p = params["conv"][i]
         w, b = p["w"].contiguous(), p["b"].contiguous()
+        # a layer after the first is fed a spike train: no value check
+        binary = True if i else None
+        cnt = None
         if i == n_conv - 1 and head_dim is None:
             # segmentation: non-firing conv readout — membrane accumulates
             # via a sequential loop over t
@@ -409,12 +473,15 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                 x = x.unsqueeze(0).expand((T,) + x.shape)
                 hoist = False
             note_skip(x, w.shape[0])
-            z = _conv_folded(x, p, cfg, use_kernels)
-            v, cnt = carry.readout_v, []
+            z = _conv_folded(x, p, cfg, use_kernels, binary)
+            v, cnts = carry.readout_v, []
             for z_t in z:
                 v = v + z_t
-                cnt.append((v >= v_th).to(z_t.dtype).sum(dim=(0, 1, 2)))
-            new_readout, cnt = v, torch.stack(cnt)
+                if count:
+                    cnts.append((v >= v_th).to(z_t.dtype).sum(dim=(0, 1, 2)))
+            new_readout = v
+            if count:
+                cnt = torch.stack(cnts)
         elif hoist and i == 0:
             # direct coding: input constant over T -> conv once, reuse
             if use_kernels:
@@ -428,12 +495,13 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                 else:
                     s, v_fin = spiking_conv_lif_hoisted(
                         x, v0, w, b, t=T, v_th=float(v_th), aprc=cfg.aprc)
-                cnt = s.sum(dim=(1, 2, 3))
+                if count:
+                    cnt = s.sum(dim=(1, 2, 3))
             else:
                 z1 = _conv_plain(x, p, cfg.aprc)
                 s, cnt, v_fin = _lif_scan(z1, v_th, surrogate_alpha,
                                           surrogate_kind, carry.conv_v[i],
-                                          const_t=T)
+                                          const_t=T, count=count)
             new_conv_v.append(v_fin)
             x = s
         else:
@@ -444,13 +512,17 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                     x, carry.conv_v[i].contiguous(), w, b, v_th=float(v_th),
                     aprc=cfg.aprc, surrogate_alpha=surrogate_alpha,
                     surrogate_kind=surrogate_kind)
-                cnt = s.sum(dim=(1, 2, 3))
+                if count:
+                    cnt = s.sum(dim=(1, 2, 3))
             else:
-                z = _conv_folded(x, p, cfg, use_kernels)
+                z = _conv_folded(x, p, cfg, use_kernels, binary)
                 s, cnt, v_fin = _lif_scan(z, v_th, surrogate_alpha,
-                                          surrogate_kind, carry.conv_v[i])
+                                          surrogate_kind, carry.conv_v[i],
+                                          count=count)
             new_conv_v.append(v_fin)
             x = s
+        if not count:
+            continue
         if inv_perms[i] is not None:
             cnt = cnt[:, inv_perms[i]]
         counts_t.append(cnt.float())
@@ -490,6 +562,7 @@ def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
                     surrogate_kind: str = "fast_sigmoid",
                     backend: str = "batched",
                     schedule: Optional[Sequence] = None,
+                    logits_only: bool = False,
                     ) -> Tuple[ChunkOutputs, ChunkCarry]:
     """One timestep chunk of the network, any backend.
 
@@ -500,12 +573,13 @@ def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
     to the whole-T run's internal state (``finalize_logits(carry.readout_v,
     cfg, T)`` reproduces its logits exactly).  This is what the serving
     engine runs per (bucket, backend, t_chunk) for chunk-boundary
-    rescheduling."""
+    rescheduling.  ``logits_only`` leaves the outputs empty (module doc)."""
     if backend in ("batched", "hopper"):
         counts_t, skips, carry = _time_batched_chunk(
             params, frames, cfg, surrogate_alpha=surrogate_alpha,
             surrogate_kind=surrogate_kind, use_kernels=(backend == "hopper"),
-            schedule=schedule, carry=carry, t_chunk=t_chunk)
+            schedule=schedule, carry=carry, t_chunk=t_chunk,
+            logits_only=logits_only)
     elif backend == "ref":
         if frames.dim() == 4:
             z = frames.unsqueeze(0).expand((t_chunk,) + frames.shape)
@@ -513,7 +587,7 @@ def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
             z = frames
         _, counts_t, carry = _apply_ref_chunk(
             params, z, cfg, carry, surrogate_alpha=surrogate_alpha,
-            surrogate_kind=surrogate_kind)
+            surrogate_kind=surrogate_kind, logits_only=logits_only)
         skips = []
     else:
         raise ValueError(
@@ -531,7 +605,8 @@ def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                       surrogate_alpha: float = 10.0,
                       surrogate_kind: str = "fast_sigmoid",
                       backend: str = "batched",
-                      schedule: Optional[Sequence] = None) -> SNNOutputs:
+                      schedule: Optional[Sequence] = None,
+                      logits_only: bool = False) -> SNNOutputs:
     """Chunked run: T in segments of ``chunk_timesteps`` with the
     membrane/readout state carried between segments.
 
@@ -541,7 +616,7 @@ def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     so chunk boundaries change nothing but where the carry is held.
     ``timestep_counts`` are the chunks' counts concatenated along T; spike
     counts/totals are their (integer-exact) sums; ``skip_fractions`` is the
-    chunk-length-weighted mean."""
+    chunk-length-weighted mean; all empty under ``logits_only``."""
     hoist = frames.dim() == 4
     t_total = cfg.timesteps if hoist else frames.shape[0]
     B = frames.shape[0] if hoist else frames.shape[1]
@@ -553,7 +628,7 @@ def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         out, carry = snn_apply_chunk(
             params, xin, carry, cfg, t_chunk=c,
             surrogate_alpha=surrogate_alpha, surrogate_kind=surrogate_kind,
-            backend=backend, schedule=schedule)
+            backend=backend, schedule=schedule, logits_only=logits_only)
         parts.append(out)
         t_done += c
     timestep_counts = tuple(

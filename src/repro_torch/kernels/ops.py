@@ -64,14 +64,16 @@ def spiking_conv_lif(
         if spec_backend is not None and spec_backend != "hopper":
             raise ValueError(
                 f"spec.backend={spec_backend!r} cannot be applied by "
-                f"ops.spiking_conv_lif — this op IS the hopper kernel; "
-                f"route backend selection through snn_apply")
+                f"ops.spiking_conv_lif — this op IS the hopper kernel "
+                f"(the reference's pallas kernel); route backend selection "
+                f"through snn_apply/Session")
         t_spec = getattr(spec, "timesteps", None)
         if t_spec is not None and t_spec != spikes.shape[0]:
             raise ValueError(
                 f"spec.timesteps={t_spec} conflicts with the spike train's "
                 f"T={spikes.shape[0]} — the kernel runs the train it is "
-                f"given; resolve T upstream")
+                f"given; resolve T upstream (repro_torch.api.Session does "
+                f"this)")
         if getattr(spec, "resolved_schedule", lambda: None)() is not None:
             raise ValueError(
                 "spec.schedule_mode cannot be applied by ops.spiking_conv_lif"

@@ -29,8 +29,9 @@ boundaries, ``--slo-ms`` adds admission-time latency-budget control
 deadline.  ``--forever`` demonstrates live submission (``serve_forever``
 + per-request futures, threaded lanes, ``--max-queue`` backpressure).
 The reference launcher reaches the engine through its ``repro.api``
-facade, which the port does not have yet, so this one builds the
-``EngineConfig`` itself.
+facade; this one still builds the ``EngineConfig`` itself.  The port's
+facade is ``repro_torch.api``; moving this launcher onto it (with
+``--spec-file``, ``--mesh`` and ``--trace-out``) is ROADMAP item 12.
 """
 from __future__ import annotations
 

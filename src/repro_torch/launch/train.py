@@ -7,9 +7,9 @@ selectable backend.
         --steps 2 --batch 4
 
 Step i trains on ``mnist_like(batch, seed=i)`` with SGD and momentum 0.9
-(``core.snn_train.make_train_step``), from random weights drawn from
-``--seed``; then the accuracy on ``mnist_like(256, seed=10_000)`` is
-evaluated through the same backend.  A step is done when its loss is on
+(``core.snn_train.make_train_step`` with a ``TrainSpec``), from random
+weights drawn from ``--seed``; then the accuracy on ``mnist_like(256,
+seed=10_000)`` is evaluated through the same backend.  A step is done when its loss is on
 the host.  The reference's ``--snn`` path of ``repro.launch.train``,
 without its facade, mesh and checkpointing.
 """
@@ -25,6 +25,7 @@ from typing import Dict
 import torch
 from torch.utils._pytree import tree_map
 
+from repro_torch.api.specs import TrainSpec
 from repro_torch.config import SNNConfig, get_snn
 from repro_torch.core.snn_model import SNN_BACKENDS, init_snn
 from repro_torch.core.snn_train import accuracy, make_train_step
@@ -46,8 +47,8 @@ def train(cfg: SNNConfig, *, backend: str = "hopper",
     dev = resolve_device(device)
     params = init_snn(torch.Generator().manual_seed(seed), cfg, device=dev)
     mom = tree_map(torch.zeros_like, params)
-    step = make_train_step(cfg, backend=backend, lr=lr,
-                           surrogate_kind=surrogate)
+    step = make_train_step(cfg, spec=TrainSpec(
+        backend=backend, lr=lr, surrogate_kind=surrogate))
 
     def to_dev(x, y):
         return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)

@@ -16,7 +16,8 @@ window into workload-balanced micro-batches.
   dispatch    lane execution, straggler monitoring, failure/retry
   metrics     p50/p99 latency, FPS, queue depth, balance, energy/image
   engine      the continuous-batching loop (virtual or worker-thread lanes)
-              + single-shot mode
+              + single-shot mode, and the deprecated ``serve_frames`` shim
+              onto the ``repro_torch.api`` facade
 """
 from repro_torch.serving.admission import (admit, bucket_size_plan,
                                            predict_workload, slo_filter)
@@ -24,7 +25,8 @@ from repro_torch.serving.batcher import (DEFAULT_BUCKETS, DynamicBatcher,
                                          ExecCache, bucket_for)
 from repro_torch.serving.clock import Clock, VirtualClock, WallClock
 from repro_torch.serving.dispatch import LaneDispatcher, LaneFailed
-from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.engine import (EngineConfig, ServingEngine,
+                                        serve_frames)
 from repro_torch.serving.futures import (Cancelled, DeadlineExceeded,
                                          QueueFull, RequestHandle,
                                          ShutdownTimeout, SLORejected)
@@ -37,7 +39,7 @@ __all__ = [
     "DEFAULT_BUCKETS", "DynamicBatcher", "ExecCache", "bucket_for",
     "Clock", "VirtualClock", "WallClock",
     "LaneDispatcher", "LaneFailed", "LaneSupervisor",
-    "EngineConfig", "ServingEngine",
+    "EngineConfig", "ServingEngine", "serve_frames",
     "RequestHandle", "SLORejected", "DeadlineExceeded", "Cancelled",
     "QueueFull", "ShutdownTimeout",
     "ServingMetrics", "energy_per_image",

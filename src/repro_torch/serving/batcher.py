@@ -83,7 +83,8 @@ class ExecCache:
     its ``compiles`` count (entries built).
 
     ``outputs="logits"`` returns the logits alone (the engine's throughput
-    mode); metric-bearing paths use ``"full"``.
+    mode), from a forward that computes nothing else (``snn_apply``'s
+    ``logits_only``); metric-bearing paths use ``"full"``.
 
     ``timesteps`` builds a reduced-T variant of the network, the entry
     behind SLO admission's *degrade* action.  ``None`` means the config's
@@ -181,10 +182,12 @@ class ExecCache:
                     if ct is not None:
                         out = snn_apply_chunked(p, x, cfg, chunk_timesteps=ct,
                                                 backend=backend,
-                                                schedule=sched)
+                                                schedule=sched,
+                                                logits_only=logits_only)
                     else:
                         out = snn_apply(p, x, cfg, backend=backend,
-                                        schedule=sched)
+                                        schedule=sched,
+                                        logits_only=logits_only)
                     return out.logits if logits_only else out
             fn = self._entry(run, self._param_device())
             self._fns[key] = fn

@@ -41,8 +41,9 @@ whose predicted latency exceeds the budget (``admission.slo_filter``).
   infer_pipelined() throughput mode: N batches launched without a per-batch
                     host sync, then one synchronize
 
-This is the port of ``repro.serving.engine``.  Until the port has the
-reference's facade (``ServeSpec``, ``Session``), ``EngineConfig`` is built
+This is the port of ``repro.serving.engine``.  Users reach it through
+the facade, ``repro_torch.api`` (``ServeSpec.to_engine_config``,
+``Session.engine``/``serve_forever``); ``EngineConfig`` can also be built
 directly (``repro_torch.launch.serve --engine`` does).  The engine runs
 where ``EngineConfig.device`` says: the card unless it names the CPU.
 Service times on the wall clock are read after the outputs are on the
@@ -106,7 +107,7 @@ from repro_torch.serving.metrics import ServingMetrics, energy_per_image
 from repro_torch.serving.request import Request
 from repro_torch.serving.supervisor import LaneSupervisor
 
-__all__ = ["EngineConfig", "ServingEngine"]
+__all__ = ["EngineConfig", "ServingEngine", "serve_frames"]
 
 SLO_ACTIONS = ("reject", "degrade")
 
@@ -1910,3 +1911,27 @@ class ServingEngine:
                                       self.metrics.served))
         return s
 
+
+def serve_frames(params: Dict, cfg: SNNConfig, frames: np.ndarray, *,
+                 backend: str = "batched", steps: int = 1,
+                 schedule_mode: Optional[str] = None,
+                 device=None) -> Dict[str, float]:
+    """DEPRECATED single-shot serving helper; use the ``repro_torch.api``
+    facade: ``Session(cfg, ServeSpec(backend=...), params=params).serve(
+    frames)``.
+
+    A thin shim kept for old call sites: it warns once per process and
+    delegates to ``Session.serve`` (``steps`` iterations of one fixed
+    batch through the bucketed exec cache, each synchronized), on
+    ``device`` (default: the card)."""
+    from repro_torch.api import ServeSpec, Session
+    from repro_torch.api._compat import warn_deprecated_once
+    warn_deprecated_once(
+        "serve_frames",
+        "repro_torch.serving.serve_frames is deprecated; build a "
+        "repro_torch.api.Session with a ServeSpec and call "
+        "Session.serve(frames, steps=...)")
+    spec = ServeSpec(backend=backend, schedule_mode=schedule_mode,
+                     num_lanes=1)
+    return Session(cfg, spec, params=params, device=device).serve(
+        frames, steps=steps)

@@ -110,6 +110,9 @@ def test_package_imports_neither_jax_nor_the_reference():
         "import repro_torch.runtime.fault_tolerance\n"
         "import repro_torch.runtime.faults, repro_torch.runtime.straggler\n"
         "import repro_torch.perfmodel\n"
+        "import repro_torch.api, repro_torch.api.session\n"
+        "import repro_torch.api.specs, repro_torch.api._compat\n"
+        "import repro_torch.dist, repro_torch.dist.mesh\n"
         "from repro_torch.config import get_snn\n"
         "from repro_torch.core import init_snn, snn_apply, build_schedule\n"
         "from repro_torch.core import snn_apply_chunked\n"
@@ -135,6 +138,14 @@ def test_package_imports_neither_jax_nor_the_reference():
         "for f in x.numpy():\n"
         "    eng.submit(f)\n"
         "assert eng.run()['served'] == 2\n"
+        "from repro_torch.api import ServeSpec, Session, TrainSpec\n"
+        "sess = Session(cfg, ServeSpec(backend='hopper',\n"
+        "               schedule_mode='aprc+cbws'), device='cpu')\n"
+        "assert sess.infer(x.numpy()).logits.shape == (2, 10)\n"
+        "sess.train_step(x, torch.tensor([1, 2]))\n"
+        "assert 0.0 <= sess.evaluate(x, torch.tensor([1, 2])) <= 1.0\n"
+        "from repro_torch.dist import parse_mesh\n"
+        "assert TrainSpec(mesh=parse_mesh('data=2')).mesh == (('data', 2),)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

@@ -578,3 +578,200 @@ def test_hoisted_wrapper_checks_its_arguments(card):
                                  t=2)
     s, v = spiking_conv_lif_hoisted(x, v0, w, b, t=0)
     assert s.shape == (0, 1, 10, 10, 4) and torch.equal(v, v0)
+
+
+# -- snn-seg's shapes, the batched conv, the facade ----------------------------
+
+def _seg(card, batch=2):
+    from repro_torch.api import ServeSpec, Session
+    from repro_torch.config import get_snn
+    from repro_torch.data.synthetic import road_like
+    cfg = get_snn("snn-seg")
+    sess = Session(cfg, ServeSpec(backend="hopper", schedule_mode="aprc+cbws"),
+                   seed=0, device=card)
+    frames, _ = road_like(batch, seed=0)
+    return cfg, sess, frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_u", [False, True])
+def test_hoisted_kernel_at_seg_widths(card, save_u):
+    """Three-channel frames at E_w = 162, T = 16: bit for bit."""
+    from repro_torch.kernels.spiking_conv import \
+        spiking_conv_lif_hoisted_plain
+    x, w, bias, v0 = _on(card, *_analog((16, 2, 80, 160, 3, 8, 3, True)))
+    got = spiking_conv_lif_hoisted(x, v0, w, bias, t=16, save_u=save_u)
+    want = spiking_conv_lif_hoisted_plain(x, v0, w, bias, t=16,
+                                          save_u=save_u)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [1, 2, 3, 4])
+def test_fused_kernels_at_seg_widths(card, layer):
+    """B and C at snn-seg's layers (E_w 164-170; layer 3 takes a plan of
+    208 KB of shared memory)."""
+    from repro_torch.core.snn_model import layer_shapes
+    from repro_torch.config import get_snn
+    from repro_torch.kernels.spiking_conv import plan_mma_tiles
+    cfg = get_snn("snn-seg")
+    (h, w_, cin), (e_h, e_w, cout) = (layer_shapes(cfg)[layer - 1],
+                                      layer_shapes(cfg)[layer])
+    if layer == 3:
+        assert plan_mma_tiles(e_w, 3, cin, cout).smem_bytes > 200 * 1024
+    rng = np.random.default_rng(layer)
+    x = (rng.random((4, 2, h, w_, cin)) < 0.2).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.3).astype(np.float32)
+    bias = np.full(cout, 0.05, np.float32)
+    v0 = np.zeros((2, e_h, e_w, cout), np.float32)
+    x, w, bias, v0 = _on(card, x, w, bias, v0)
+    s, v, u = spiking_conv_lif_fwd(x, v0, w, bias)
+    sb, vb = spiking_conv_lif(x, v0, w, bias)
+    assert torch.equal(s, sb) and torch.equal(v, vb)
+    sp, vp, up = ref.spiking_conv_lif_ref(x, v0, w, bias, save_u=True)
+    assert _flips_near_threshold(s, sp, up, 1.0)
+    agree = (s == sp).all(dim=0)
+    torch.testing.assert_close(v[agree], vp[agree], atol=1e-4, rtol=0)
+    torch.testing.assert_close(u[:, agree], up[:, agree], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_readout_conv_and_its_input_gradient_at_cout_1(card):
+    """snn-seg's readout: A's dV mode with one output channel (its masked
+    store), and E whose cotangent has one channel."""
+    rng = np.random.default_rng(5)
+    x = (rng.random((8, 90, 170, 16)) < 0.3).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 16, 1)) * 0.1).astype(np.float32)
+    bias = np.full(1, -0.02, np.float32)
+    dz = rng.standard_normal((8, 92, 172, 1)).astype(np.float32)
+    x, w, bias, dz = _on(card, x, w, bias, dz)
+    torch.testing.assert_close(spiking_conv(x, w, bias),
+                               ref.spiking_conv_ref(x, w, bias),
+                               atol=1e-5, rtol=1e-5)
+    want = ref.conv_grad_input_ref(dz, w)
+    got = conv_grad_input(dz, w)
+    assert got.shape == (8, 90, 170, 16)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_seg_session_forward_goes_through_the_kernels(card):
+    """Session.infer on snn-seg: snn_apply's bits, one launch of the hoisted
+    mode, four of B and one of A's dV mode a forward, finite logits of the
+    frame's shape."""
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.snn_model import snn_apply
+    cfg, sess, frames = _seg(card)
+    sess.infer(frames)
+    counts = (spiking_conv_lif_hoisted.launches, spiking_conv_lif.launches,
+              spiking_conv.launches)
+    out = sess.infer(frames)
+    assert (spiking_conv_lif_hoisted.launches, spiking_conv_lif.launches,
+            spiking_conv.launches) == (counts[0] + 1, counts[1] + 4,
+                                       counts[2] + 1)
+    assert out.logits.shape == (2, 80, 160, 1)
+    assert np.isfinite(out.logits).all()
+    with torch.inference_mode():
+        raw = snn_apply(sess.params, torch.from_numpy(frames).to(card), cfg,
+                        backend="hopper",
+                        schedule=build_schedule(sess.params, cfg,
+                                                "aprc+cbws")).logits
+    assert np.array_equal(raw.cpu().numpy(), out.logits)
+
+
+@pytest.mark.cuda
+def test_seg_gradient_matches_the_batched_path(card):
+    """One gradient of sum(logits ** 2) at batch 1, hopper against batched:
+    every leaf agrees to 1e-2 of its norm (``chip_smoke.py``'s bound when
+    the forward may hold a threshold flip; the seg phase applies 1e-4 when
+    it holds none)."""
+    from repro_torch.core.snn_model import snn_apply
+    cfg, sess, frames = _seg(card, batch=1)
+    x = torch.from_numpy(frames).to(card)
+    grads = {}
+    for backend in ("hopper", "batched"):
+        leaves = [p.detach().clone().requires_grad_(True)
+                  for p in (t for layer in sess.params["conv"]
+                            for t in (layer["w"], layer["b"]))]
+        params = {"conv": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                           for i in range(len(leaves) // 2)], "dense": []}
+        out = snn_apply(params, x, cfg, backend=backend, logits_only=True)
+        grads[backend] = torch.autograd.grad((out.logits ** 2).sum(), leaves)
+    for g_h, g_b in zip(grads["hopper"], grads["batched"]):
+        assert float(g_h.abs().max()) > 0
+        assert float((g_h - g_b).norm() / g_b.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_batched_spike_conv_does_not_sync_the_host(card):
+    """The batched conv told its input is a spike train runs forward and
+    backward without a host sync (sync debug mode raises on one)."""
+    from repro_torch.core import snn_layers as L
+    rng = np.random.default_rng(7)
+    x = (rng.random((32, 30, 30, 16)) < 0.2).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 16, 32)) * 0.2).astype(np.float32)
+    x, w = _on(card, x, w)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    want = L.conv2d(x, w, aprc=True)
+    g = torch.randn(want.shape, generator=torch.Generator().manual_seed(0)
+                    ).to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = L.conv2d(x, w, aprc=True, binary=True)
+        dx, dw = torch.autograd.grad((got * g).sum(), (x, w))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    with pytest.raises(RuntimeError):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            L.conv2d(x.detach(), w.detach(), aprc=True)   # looks: syncs
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_logits_only_forward_on_the_card(card):
+    """The logits-only hopper forward gives the full forward's logits bits
+    and launches the same kernels."""
+    from repro_torch.core.snn_model import snn_apply
+    cfg, params = _tiny_model(card)
+    x = torch.rand((4, 12, 12, 1), generator=torch.Generator()
+                   .manual_seed(3)).to(card)
+    with torch.inference_mode():
+        full = snn_apply(params, x, cfg, backend="hopper")
+        n = (spiking_conv_lif_hoisted.launches, spiking_conv_lif.launches)
+        only = snn_apply(params, x, cfg, backend="hopper", logits_only=True)
+    assert (spiking_conv_lif_hoisted.launches,
+            spiking_conv_lif.launches) == (n[0] + 1, n[1] + 1)
+    assert torch.equal(full.logits, only.logits) and not only.spike_counts
+
+
+@pytest.mark.cuda
+def test_session_on_the_card_matches_snn_apply_and_serve_forever(card):
+    import dataclasses
+
+    from repro_torch.api import ServeSpec, Session
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.snn_model import snn_apply
+    cfg, params = _tiny_model(card)
+    sess = Session(cfg, ServeSpec(backend="hopper", schedule_mode="aprc+cbws",
+                                  num_lanes=2, max_batch=4),
+                   params=params, device=card)
+    x = np.random.default_rng(4).random((6, 12, 12, 1), dtype=np.float32)
+    out = sess.infer(x)
+    with torch.inference_mode():
+        raw = snn_apply(params, torch.from_numpy(x).to(card), cfg,
+                        backend="hopper",
+                        schedule=build_schedule(params, cfg, "aprc+cbws"))
+    assert np.array_equal(out.logits, raw.logits.cpu().numpy())
+    with sess.serve_forever() as live:
+        handles = [live.submit(f) for f in x]
+        got = [h.result(timeout=60.0) for h in handles]
+    for i, row in enumerate(got):
+        assert np.array_equal(row, out.logits[i])
+    assert dataclasses.is_dataclass(sess.spec)
