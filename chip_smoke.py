@@ -93,6 +93,23 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           ...)`` bit for bit, 24 ``serve_forever`` requests equal ``infer``
           bit for bit, ``train_step`` (its first loss equals the raw
           step's) and ``evaluate`` (equals ``core.snn_train.accuracy``)
+  entry   the user-facing entry points: (a) the serve launcher with a
+          ServeSpec file (hopper, aprc+cbws), single-shot at batch 256
+          (its predictions equal ``Session.infer``'s bits) and ``--engine
+          --trace-out`` at 512 requests (the file parses, one lane "X"
+          event per micro-batch, one flow per request; the write's ms);
+          (b) the train launcher with a TrainSpec file, 10 steps: its
+          losses equal phase ``train``'s flag path's and the raw
+          ``make_train_step``'s bit for bit; (c) the four
+          ``examples/torch_*.py`` at the reference's defaults on hopper
+          (quickstart's asserts hold), and the Fig. 7 ablation on snn-seg
+          (80x160, T=12, 4 frames, ``skew_channels(sigma=1.2, seed=1)``)
+          on hopper and on batched: per mode the threshold flips per
+          layer, the per-layer count bound (the sum of |hopper - batched|
+          spike counts over (t, channel) is at most T x the differing
+          sites) and the logits within the seg bound below, under SAME
+          pad for 'none' and 'cbws'; launches counted around each run
+          (the ablation: hoisted 1, B 4, A's dV mode 1 a forward)
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line (each kernel's times, bounds and shapes summed over
@@ -1081,7 +1098,7 @@ def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
         if hopper:
             s, _ = spiking_conv_lif_hoisted(frames, v0, conv[0]["w"],
                                             conv[0]["b"], t=cfg.timesteps,
-                                            v_th=v_th)
+                                            v_th=v_th, aprc=cfg.aprc)
         else:
             s, _, _ = _lif_scan(_conv_plain(frames, conv[0], cfg.aprc), v_th,
                                 10.0, "fast_sigmoid", v0,
@@ -1092,7 +1109,8 @@ def _forward_trains(cfg, params, frames, hopper: bool, sched=None):
             v0 = frames.new_zeros((frames.shape[0],) + layer_shapes(cfg)[i])
             if hopper:
                 s, _ = spiking_conv_lif(s.contiguous(), v0, conv[i]["w"],
-                                        conv[i]["b"], v_th=v_th)
+                                        conv[i]["b"], v_th=v_th,
+                                        aprc=cfg.aprc)
             else:
                 s, _, _ = _lif_scan(_conv_folded(s, conv[i], cfg, False),
                                     v_th, 10.0, "fast_sigmoid", v0)
@@ -1154,8 +1172,8 @@ def _loss_and_grads(cfg, params, x, y, backend):
 def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
     """(a) one loss and gradient, hopper against batched; (b) the training
     launcher on both backends (the main path of training); (c) one train
-    step's time and profile.  Returns the launch counts of the hopper
-    run of (b)."""
+    step's time and profile.  Returns the launch counts and the losses of
+    the hopper run of (b)."""
     import numpy as np
     import torch
     from torch.utils._pytree import tree_map
@@ -1244,7 +1262,7 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
     step = make_train_step(cfg, spec=TrainSpec(backend="hopper", lr=lr))
     phase_profile(lambda: step(params, mom, x, y), step_ms["hopper"],
                   "hopper train step")
-    return counts["hopper"]
+    return counts["hopper"], h
 
 
 # -- slice 3: kernel F, the ops layer, chunked execution, the engine ----------
@@ -1499,17 +1517,19 @@ def seg_logit_bound(cfg, params, frames, sched):
     import torch.nn.functional as F
     from repro_torch.core.scheduler import permute_conv_params
     from repro_torch.core.snn_model import finalize_logits
+    from repro_torch.kernels.ref import conv_pads
     from repro_torch.kernels.spiking_conv import (spiking_conv,
                                                   spiking_conv_plain)
     flips, (s_h, s_b) = _train_flips(cfg, params, frames, sched)
     t, b = s_b.shape[:2]
     r = cfg.kernel_size
+    pad = conv_pads(r, cfg.aprc)[0]         # seg's odd R: symmetric
     w5, b5 = params["conv"][-1]["w"], params["conv"][-1]["b"]
     # (a) the flips: each differing (t, site) moves dV_t by |w5| over the
     # site's 3x3 window
     d = (s_h != s_b).double().sum(dim=0)                    # (B, H, W, C)
     w_abs = w5.abs().double().permute(3, 2, 0, 1)           # OIHW
-    flip = F.conv2d(d.permute(0, 3, 1, 2), w_abs, padding=r - 1)
+    flip = F.conv2d(d.permute(0, 3, 1, 2), w_abs, padding=pad)
     flip = finalize_logits(flip.permute(0, 2, 3, 1), cfg, t)
     # (b) the rounding: per step DV_TOL * (1 + |dV_t|), the running sum's
     # rounding 2^-23 |v_t| a step, the division's 2^-24 |logit|; dV_t and
@@ -1521,8 +1541,10 @@ def seg_logit_bound(cfg, params, frames, sched):
                if sched is not None else None)
     x_h = s_h if perm_in is None else s_h[..., perm_in]
     z_h = spiking_conv(x_h.reshape((t * b,) + x_h.shape[2:]).contiguous(),
-                       w5h["w"].contiguous(), w5h["b"].contiguous())
-    z_b = spiking_conv_plain(s_b.reshape((t * b,) + s_b.shape[2:]), w5, b5)
+                       w5h["w"].contiguous(), w5h["b"].contiguous(),
+                       aprc=cfg.aprc)
+    z_b = spiking_conv_plain(s_b.reshape((t * b,) + s_b.shape[2:]), w5, b5,
+                             aprc=cfg.aprc)
     z = torch.maximum(z_h.abs(), z_b.abs()).double().reshape(
         (t, b) + z_b.shape[1:])
     v = torch.maximum(z_h.reshape(z.shape).cumsum(0).abs(),
@@ -1951,6 +1973,235 @@ def phase_api(cfg, frames):
         fail(f"Session.evaluate {acc} != accuracy {raw_acc}")
 
 
+# -- slice 7: the launchers on the facade, the examples ------------------------
+
+ENTRY_ENGINE_STEPS, ENTRY_ENGINE_BATCH = 64, 8     # 512 requests
+
+
+def _example(name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _timed_counted(fn):
+    """fn(), its host seconds (done when its results are on the host) and
+    the kernel launches it made."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: v for k, v in
+                                           read_counts().items() if v}
+
+
+def phase_entry(cfg, train_losses):
+    """The user-facing entry points on the card: (a) the serve launcher
+    with a ServeSpec file, single-shot (predictions equal Session.infer's
+    bits) and ``--engine --trace-out`` at 512 requests (one lane "X" event
+    per micro-batch, one flow per request); (b) the train launcher with a
+    TrainSpec file (losses equal the flag path's and the raw step's bit for
+    bit); (c) the four examples at the reference's defaults on hopper, the
+    Fig. 7 ablation also on batched, with threshold flips per layer, the
+    count bound and the seg logit bound per mode.  Returns the launch
+    counts of the launchers' and the ablation's hopper runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.api import ServeSpec, Session, TrainSpec
+    from repro_torch.config import get_snn
+    from repro_torch.core.snn_model import init_snn, snn_apply
+    from repro_torch.core.snn_train import make_train_step
+    from repro_torch.data.synthetic import mnist_like, road_like
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    counted = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            counted[k] = counted.get(k, 0) + v
+
+    quiet = ["--device", "cuda", "--log-level", "warning"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sspec = ServeSpec(backend="hopper", schedule_mode="aprc+cbws")
+        (tmp / "serve.json").write_text(json.dumps(sspec.to_dict()))
+        tspec = TrainSpec(backend="hopper", lr=1e-2)
+        (tmp / "train.json").write_text(json.dumps(tspec.to_dict()))
+
+        # (a) the serve launcher: single-shot, then the traced engine
+        steps = 8
+        s, _, launches = _timed_counted(lambda: serve_launcher.main(
+            ["--spec-file", str(tmp / "serve.json"), "--batch", str(BATCH),
+             "--steps", str(steps)] + quiet))
+        add(launches)
+        rng = np.random.default_rng(SEED)
+        last = [rng.random((BATCH, *cfg.input_hw, cfg.input_channels),
+                           dtype=np.float32) for _ in range(steps + 1)][-1]
+        want = Session(cfg, sspec, seed=SEED, device="cuda").infer(last)
+        equal = bool(np.array_equal(s["logits"], want.logits)
+                     and np.array_equal(s["predictions"],
+                                        want.logits.argmax(-1)))
+        emit("entry", part="a: serve launcher, --spec-file, single-shot",
+             batch=BATCH, requests=steps + 1, fps=s["fps"],
+             seconds=s["seconds"], launches=launches,
+             predictions_equal_session_infer=equal, device=s["device"])
+        if not equal:
+            fail("the serve launcher's --spec-file predictions differ from "
+                 "Session.infer's")
+        if launches != {"spiking_conv_lif_hoisted": steps + 1,
+                        "spiking_conv_lif": 2 * (steps + 1)}:
+            fail(f"the serve launcher launched {launches}")
+        trace_path = tmp / "trace.json"
+        n_req = ENTRY_ENGINE_STEPS * ENTRY_ENGINE_BATCH
+        s, seconds, launches = _timed_counted(lambda: serve_launcher.main(
+            ["--spec-file", str(tmp / "serve.json"), "--engine",
+             "--steps", str(ENTRY_ENGINE_STEPS),
+             "--batch", str(ENTRY_ENGINE_BATCH),
+             "--trace-out", str(trace_path)] + quiet))
+        add(launches)
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        ph = [e["ph"] for e in events]
+        emit("entry", part="a: serve launcher, --engine --trace-out",
+             requests=n_req, served=s["served"], fps=s["fps"],
+             p50_ms=s["p50_latency_s"] * 1e3,
+             p99_ms=s["p99_latency_s"] * 1e3, rounds=s["rounds"],
+             micro_batches=s["micro_batches"], trace_events=len(events),
+             lane_x_events=ph.count("X"), flow_starts=ph.count("s"),
+             flow_ends=ph.count("f"), trace_write_ms=s["trace_write_ms"],
+             trace_bytes=trace_path.stat().st_size, host_seconds=seconds,
+             launches=launches)
+        if s["served"] != n_req or len(events) != s["trace_events"]:
+            fail(f"traced engine: {s['served']} of {n_req} served, "
+                 f"{len(events)} events in the file, {s['trace_events']} "
+                 f"written")
+        if ph.count("X") != s["micro_batches"] or not \
+                ph.count("s") == ph.count("f") == n_req:
+            fail(f"the trace file has {ph.count('X')} lane events for "
+                 f"{s['micro_batches']} micro-batches and {ph.count('s')}/"
+                 f"{ph.count('f')} flows for {n_req} requests")
+        if launches.get("spiking_conv_lif_hoisted", 0) < s["micro_batches"]:
+            fail(f"the traced engine launched {launches} for "
+                 f"{s['micro_batches']} micro-batches")
+
+        # (b) the train launcher: spec file, flag path, raw step
+        r, _, launches = _timed_counted(lambda: train_launcher.main(
+            ["--spec-file", str(tmp / "train.json"), "--steps",
+             str(len(train_losses)), "--batch", str(BATCH)] + quiet))
+        add(launches)
+    params = init_snn(torch.Generator().manual_seed(SEED), cfg,
+                      device="cuda")
+    mom = tree_map(torch.zeros_like, params)
+    step = make_train_step(cfg, spec=tspec)
+    raw = []
+    for i in range(len(train_losses)):
+        x, y = (torch.from_numpy(a).cuda() for a in mnist_like(BATCH, seed=i))
+        params, mom, loss = step(params, mom, x, y)
+        raw.append(float(loss))
+    emit("entry", part="b: train launcher, --spec-file", batch=BATCH,
+         losses=r["losses"], losses_flag_path=train_losses,
+         losses_raw_step=raw, median_step_ms=r["median_step_ms"],
+         accuracy=r["accuracy"], launches=launches)
+    if not r["losses"] == list(train_losses) == raw:
+        fail("the train launcher's --spec-file losses differ from the flag "
+             "path's or the raw step's")
+
+    # (c) the four examples, at the reference's defaults on hopper
+    q, seconds, launches = _timed_counted(
+        lambda: _example("quickstart").run(device="cuda"))
+    emit("entry", part="c: examples/torch_quickstart.py", seconds=seconds,
+         loss_first=q["losses"][0], loss_last=q["losses"][-1],
+         accuracy=q["accuracy"], single_shot_fps=q["single_shot_fps"],
+         live_served=q["live"]["served"],
+         live_p50_ms=q["live"]["p50_latency_s"] * 1e3,
+         live_p99_ms=q["live"]["p99_latency_s"] * 1e3,
+         live_accuracy=q["live_accuracy"], launches=launches)
+    m, seconds, launches = _timed_counted(
+        lambda: _example("snn_mnist_train").run(device="cuda"))
+    emit("entry", part="c: examples/torch_snn_mnist_train.py",
+         seconds=seconds, train_seconds=m["train_seconds"],
+         loss_first=m["losses"][0], loss_last=m["losses"][-1],
+         accuracy=m["accuracy"], table1_xc7z045_model=m["table1"],
+         spearman=m["spearman"], launches=launches)
+    b, seconds, launches = _timed_counted(
+        lambda: _example("serve_batched").serve_snn_batched(
+            get_snn("snn-mnist"), device="cuda"))
+    emit("entry", part="c: examples/torch_serve_batched.py",
+         seconds=seconds, ms_per_batch=b["ms_per_batch"], fps=b["fps"],
+         speedup_vs_ref=b["speedup"], launches=launches)
+    if not launches.get("spiking_conv_lif_hoisted"):
+        fail(f"torch_serve_batched.py did not run the kernels: {launches}")
+
+    # the Fig. 7 ablation on snn-seg, hopper and batched
+    sim = _example("snn_accelerator_sim")
+    seg = get_snn("snn-seg")
+    runs = {}
+    for backend in ("hopper", "batched"):
+        runs[backend], seconds, launches = _timed_counted(
+            lambda: sim.simulate(seg, backend=backend, device="cuda"))
+        runs[backend]["seconds"] = seconds
+        if backend == "hopper":
+            add(launches)
+            want = {"spiking_conv_lif_hoisted": 3, "spiking_conv_lif": 12,
+                    "spiking_conv": 3}
+            if launches != want:
+                fail(f"the ablation's three hopper forwards launched "
+                     f"{launches}, expected {want}")
+    h_run, b_run = runs["hopper"], runs["batched"]
+    t = h_run["timesteps"]
+    params = init_snn(torch.Generator().manual_seed(SEED), seg,
+                      device="cuda")
+    x = torch.from_numpy(road_like(h_run["frames"], h=seg.input_hw[0],
+                                   w=seg.input_hw[1], seed=0)[0]).cuda()
+    for mode in sim.MODES:
+        hm, bm = h_run["modes"][mode], b_run["modes"][mode]
+        vcfg, vparams, sched = sim.variant(seg, params, mode, t)
+        with torch.inference_mode():
+            flips, bound, _ = seg_logit_bound(vcfg, vparams, x, sched)
+            got = snn_apply(vparams, x, vcfg, backend="hopper",
+                            schedule=sched, logits_only=True).logits
+            ref = snn_apply(vparams, x, vcfg, backend="batched",
+                            logits_only=True).logits
+        excess = float(((got - ref).abs().double() - bound).max())
+        dcounts = [float(np.abs(a - c).sum()) for a, c in
+                   zip(hm["timestep_counts"], bm["timestep_counts"])]
+        emit("entry", part="c: examples/torch_snn_accelerator_sim.py",
+             mode=mode, aprc=vcfg.aprc, frames=h_run["frames"], timesteps=t,
+             balance_xc7z045_model={"hopper": hm["balance"],
+                                    "batched": bm["balance"],
+                                    "paper": hm["paper_balance"]},
+             barrier_balance={"hopper": hm["barrier_balance"],
+                              "batched": bm["barrier_balance"]},
+             fps_model={"hopper": hm["fps"], "batched": bm["fps"]},
+             mj_per_frame_model={"hopper": hm["mj_per_frame"],
+                                 "batched": bm["mj_per_frame"]},
+             threshold_flips_per_layer=flips,
+             count_abs_diff_per_layer=dcounts,
+             max_abs_err_logits=float((got - ref).abs().max()),
+             max_abs_err_logits_beyond_bound=excess,
+             seconds={k: r["seconds"] for k, r in runs.items()})
+        if any(f > MAX_FLIP_FRACTION * n for f, n in flips):
+            fail(f"ablation {mode}: threshold flips per layer {flips} exceed "
+                 f"{MAX_FLIP_FRACTION}")
+        if any(d > t * f for d, (f, _) in zip(dcounts, flips)):
+            fail(f"ablation {mode}: count differences {dcounts} exceed T x "
+                 f"the differing sites {flips}")
+        if excess > 0:
+            fail(f"ablation {mode}: hopper logits exceed the seg bound by "
+                 f"{excess}")
+    emit("entry", part="c: the ablation's gain",
+         gain_xc7z045_model={k: r["gain"] for k, r in runs.items()},
+         paper_gain=1.4)
+    return counted
+
+
 def main() -> int:
     try:
         import torch
@@ -1992,7 +2243,8 @@ def main() -> int:
         # mode's SAVE_U and C, D and E the train run; A's dV mode and F
         # the two-kernel path of the ops layer
         launches, serve_fps = phase_serve(cfg)
-    launches.update({k: v for k, v in phase_train(cfg).items()
+    train_launches, train_losses = phase_train(cfg)
+    launches.update({k: v for k, v in train_launches.items()
                      if k not in launches})
     with torch.inference_mode():
         summary["lif_fused"] = phase_lif_fused()
@@ -2007,6 +2259,9 @@ def main() -> int:
     for name, n in seg_launches.items():
         launches[name] = launches.get(name, 0) + n
     phase_api(cfg, frames)
+    # the launchers on the facade and the four examples (their own counts)
+    for name, n in phase_entry(cfg, train_losses).items():
+        launches[name] = launches.get(name, 0) + n
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     # each TPU kernel's pl.pallas_call site

@@ -1,0 +1,133 @@
+"""Batched SNN frame inference through the selectable backend, on the
+PyTorch port (the SNN path of the reference's
+``examples/serve_batched.py``; its LM path waits for the port of the LM
+substrate).
+
+    PYTHONPATH=src python examples/torch_serve_batched.py --snn snn-mnist \
+        --batch 8
+    PYTHONPATH=src python examples/torch_serve_batched.py --snn snn-mnist \
+        --threaded --lanes 2        # worker-thread lanes vs single thread
+    PYTHONPATH=src python examples/torch_serve_batched.py --device cpu \
+        --backend batched --batch 2
+
+The default A/B serves one batch through the timestep-outer ``ref``
+backend and through ``--backend`` (``hopper``, the default: the kernels on
+the card), both through ``Session.serve``; ``--threaded`` A/Bs the
+worker-thread engine against the single-thread virtual-clock engine on a
+skewed burst.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch import api
+from repro_torch.config import SNNConfig, get_snn
+from repro_torch.core import SNN_BACKENDS
+from repro_torch.obs.log import configure_logging, get_logger
+
+log = get_logger("examples")
+
+
+def serve_snn_batched(cfg: SNNConfig, *, params: Optional[Dict] = None,
+                      frames: Optional[np.ndarray] = None,
+                      backend: str = "hopper", batch: int = 4,
+                      chunk_timesteps: Optional[int] = None,
+                      device=None) -> Dict:
+    """A/B the seed scan (``ref``) against ``backend``, both through
+    ``Session.serve`` (4 timed iterations of one batch); ``frames``
+    default to ``batch`` uniform frames from numpy seed 1.  Returns the ms
+    per batch and FPS of each backend, the speedup, and each backend's
+    outputs (on the host)."""
+    sess = api.Session(cfg, params=params, device=device)
+    if frames is None:
+        frames = np.random.default_rng(1).random(
+            (batch, *cfg.input_hw, cfg.input_channels), dtype=np.float32)
+    ms, fps, outputs = {}, {}, {}
+    for b in dict.fromkeys(("ref", backend)):
+        spec_sess = api.Session(
+            cfg, api.ServeSpec(backend=b, chunk_timesteps=chunk_timesteps),
+            params=sess.params, device=sess.device)
+        s = spec_sess.serve(frames, steps=4)
+        ms[b] = s["seconds"] / 4 * 1e3
+        fps[b], outputs[b] = s["fps"], s["outputs"]
+        log.info("%8s: %6.1f ms/batch (%.1f FPS)", b, ms[b], fps[b])
+        if not np.isfinite(s["outputs"].logits).all():
+            raise AssertionError(f"backend {b} gave non-finite logits")
+    speedup = ms["ref"] / ms[backend]
+    if backend != "ref":
+        log.info("time-batched speedup vs seed scan: %.2fx", speedup)
+    return {"ms_per_batch": ms, "fps": fps, "speedup": speedup,
+            "outputs": outputs}
+
+
+def serve_snn_threaded(cfg: SNNConfig, *, params: Optional[Dict] = None,
+                       backend: str = "hopper", batch: int = 4,
+                       lanes: int = 2, chunk_timesteps: Optional[int] = None,
+                       device=None) -> Dict:
+    """A/B the worker-thread engine against the single-thread virtual-clock
+    engine on the same skewed burst of ``4 * batch`` frames (numpy seed
+    0); one ``ServeSpec`` per mode, executed by one shared ``Session``.
+    Returns each mode's frames per second of wall time and request
+    balance, and the threaded speedup."""
+    sess = api.Session(cfg, params=params, device=device)
+    rng = np.random.default_rng(0)
+    n = 4 * batch
+    frames = np.clip(
+        rng.uniform(0, 1, (n, *cfg.input_hw, cfg.input_channels))
+        * rng.lognormal(-0.5, 1.2, (n, 1, 1, 1)), 0, 1).astype(np.float32)
+    walls, balance = {}, {}
+    for threaded in (False, True):
+        spec = api.ServeSpec(
+            backend=backend, num_lanes=lanes, max_batch=batch,
+            buckets=(batch,), threaded=threaded, keep_logits=False,
+            chunk_timesteps=chunk_timesteps)
+        eng = sess.engine(spec)
+        eng.warmup()
+        for f in frames:
+            eng.submit(f, arrival=0.0)
+        t0 = time.perf_counter()
+        s = eng.run()
+        mode = "threaded" if threaded else "1-thread"
+        walls[mode] = time.perf_counter() - t0
+        balance[mode] = s["request_balance"]
+        log.info("%9s: %7.1f frames/s wall (balance=%.3f, lanes=%d)",
+                 mode, n / walls[mode], balance[mode], lanes)
+    speedup = walls["1-thread"] / walls["threaded"]
+    log.info("threaded speedup: %.2fx", speedup)
+    return {"frames_per_s": {k: n / v for k, v in walls.items()},
+            "request_balance": balance, "speedup": speedup}
+
+
+def main(argv=None) -> Dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--snn", default="snn-mnist")
+    ap.add_argument("--backend", default="hopper", choices=SNN_BACKENDS,
+                    help="SNN execution backend (see core.snn_model)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--threaded", action="store_true",
+                    help="A/B worker-thread engine lanes vs single thread")
+    ap.add_argument("--lanes", type=int, default=2,
+                    help="engine lanes (with --threaded)")
+    ap.add_argument("--chunk-timesteps", type=int, default=None,
+                    help="run T in chunks of this many timesteps "
+                         "(bit-identical logits to whole-T dispatch)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    configure_logging("info")
+    cfg = get_snn(args.snn)
+    if args.threaded:
+        return serve_snn_threaded(cfg, backend=args.backend,
+                                  batch=args.batch, lanes=args.lanes,
+                                  chunk_timesteps=args.chunk_timesteps,
+                                  device=args.device)
+    return serve_snn_batched(cfg, backend=args.backend, batch=args.batch,
+                             chunk_timesteps=args.chunk_timesteps,
+                             device=args.device)
+
+
+if __name__ == "__main__":
+    main()

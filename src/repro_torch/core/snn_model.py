@@ -42,6 +42,7 @@ from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -647,6 +648,25 @@ def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         timestep_counts=timestep_counts,
         skip_fractions=skip_fractions,
     )
+
+
+def skew_channels(params: Dict, sigma: float = 1.0, seed: int = 0) -> Dict:
+    """Emulate a trained net's channel skew (paper Fig. 2b: per-channel spike
+    counts spread over orders of magnitude).  Random-initialized filters have
+    near-uniform magnitudes, so scheduler studies would see no imbalance to
+    fix; scaling each output channel by a lognormal factor reproduces the
+    operating regime the paper measures.  The factors are the reference's
+    draws (``np.random.default_rng(seed).lognormal(0, sigma, cout)`` per
+    conv layer, in order), cast to float32; ``w`` and ``b`` are multiplied
+    on their own device."""
+    rng = np.random.default_rng(seed)
+    new_conv = []
+    for p in params["conv"]:
+        w, b = p["w"], p["b"]
+        f = rng.lognormal(0.0, sigma, w.shape[-1])
+        f = torch.from_numpy(f.astype(np.float32)).to(w.device)
+        new_conv.append({"w": w * f, "b": b * f})
+    return {**params, "conv": new_conv}
 
 
 class SNN(nn.Module):

@@ -1,19 +1,43 @@
-"""Synthetic datasets of the paper's two tasks, made with numpy from a seed
-(no download): a copy of ``repro.data.synthetic``'s ``mnist_like`` and
-``road_like``, which give the same arrays bit for bit.
+"""Synthetic datasets, made with numpy from a seed (no download): a copy of
+``repro.data.synthetic``, which gives the same arrays bit for bit.
 
+  * token streams with a Zipfian unigram + Markov bigram structure, so LM
+    training loss has real signal (``token_batches``);
   * an MNIST-like procedural digit set (28x28 glyph rendering + jitter +
-    noise) for the paper's classification task;
+    noise) for the paper's classification task (``mnist_like``,
+    ``digit_batches``);
   * road-scene-like segmentation frames (perspective trapezoid lane masks)
-    at 80x160 for the paper's segmentation task.
+    at 80x160 for the paper's segmentation task (``road_like``,
+    ``road_batches``).
+
+The ``*_batches`` iterators are endless generators of numpy dicts; batch i
+of ``digit_batches``/``road_batches`` is ``mnist_like``/``road_like`` at
+``seed + i``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
-__all__ = ["mnist_like", "road_like"]
+__all__ = ["token_batches", "mnist_like", "digit_batches", "road_like",
+           "road_batches"]
+
+
+def token_batches(vocab: int, batch: int, seq: int, seed: int = 0
+                  ) -> Iterator[dict]:
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    # cheap bigram structure: token t+1 ~ mix(unigram, shift(t))
+    while True:
+        base = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+        shifted = (base[:, :-1] * 31 + 7) % vocab
+        mix = rng.random((batch, seq)) < 0.5
+        tokens = np.where(mix, shifted, base[:, 1:]).astype(np.int32)
+        inp = base[:, :-1].astype(np.int32)[:, :seq]
+        yield {"tokens": inp, "labels": tokens}
 
 _SEGS = {  # 7-segment-like strokes on a 20x12 canvas, per digit
     0: "abcdef", 1: "bc", 2: "abged", 3: "abgcd", 4: "fgbc",
@@ -50,6 +74,14 @@ def mnist_like(n: int, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     return imgs[..., None], labels.astype(np.int32)
 
 
+def digit_batches(batch: int, seed: int = 0) -> Iterator[dict]:
+    s = seed
+    while True:
+        x, y = mnist_like(batch, seed=s)
+        s += 1
+        yield {"image": x, "label": y}
+
+
 def road_like(n: int, h: int = 80, w: int = 160, seed: int = 0
               ) -> Tuple[np.ndarray, np.ndarray]:
     """(n, h, w, 3) frames; (n, h, w, 1) binary lane masks."""
@@ -68,3 +100,11 @@ def road_like(n: int, h: int = 80, w: int = 160, seed: int = 0
             masks[i, y, x0:x1, 0] = 1.0
             frames[i, y, x0:x1, :] += 0.4  # road is brighter
     return np.clip(frames, 0, 1), masks
+
+
+def road_batches(batch: int, seed: int = 0) -> Iterator[dict]:
+    s = seed
+    while True:
+        x, y = road_like(batch, seed=s)
+        s += 1
+        yield {"image": x, "mask": y}

@@ -1,172 +1,225 @@
-"""Serving launcher: SNN frame inference through the selectable backend.
+"""Serving launcher: SNN frame inference through the ``repro_torch.api``
+facade.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
         --backend hopper --schedule aprc+cbws --batch 256 --steps 8
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
         --backend batched --batch 4 --steps 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
-        --engine --lanes 2 --device cpu
+        --spec-file serve.json --engine --trace-out trace.json
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
         --engine --threaded --lanes 2 --slo-ms 50 --slo-action degrade
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
         --forever --lanes 2      # live submission + per-request futures
 
-Weights are random, drawn from ``--seed``; frames are made from the same
-seed with numpy.  The default path answers ``--steps`` requests, each a
-batch of ``--batch`` frames, through ``snn_apply``: the synchronous
-single-batch loop of the reference's ``Session.serve``.  One untimed
-request first builds the kernels and warms the caches.  A request is
-answered when its class predictions are on the host.
+The flags build one validated ``ServeSpec`` (backend, ``--schedule``
+kernel schedule, lanes, SLO), or ``--spec-file`` loads one from JSON
+(``api.spec_from_dict``); ``--max-queue``, ``--deadline-ms``,
+``--chunk-timesteps`` and ``--trace-out`` layer over either source.  A
+``Session`` executes it, with weights drawn from ``--seed``; frames are
+made from the same seed with numpy.
 
+The default path answers ``--steps`` requests, each a batch of
+``--batch`` frames, through ``Session.infer`` (the synchronous
+single-batch loop); one untimed request first builds the kernels and warms
+the caches, and a request is answered when its outputs are on the host.
 ``--engine`` replays an open-loop trace of ``--steps`` x ``--batch``
 single-frame requests with exponential gaps of mean 1 ms (numpy seed 0,
-the reference launcher's trace) through the continuous-batching
-``serving.ServingEngine`` (FIFO windows, CBWS-balanced micro-batch lanes
-of at most ``--batch`` frames); ``--threaded`` runs its lanes as worker
-threads on the wall clock, ``--chunk-timesteps`` reschedules at chunk
-boundaries, ``--slo-ms`` adds admission-time latency-budget control
-(reject or degrade, ``--slo-action``), ``--deadline-ms`` a per-request
-deadline.  ``--forever`` demonstrates live submission (``serve_forever``
-+ per-request futures, threaded lanes, ``--max-queue`` backpressure).
-The reference launcher reaches the engine through its ``repro.api``
-facade; this one still builds the ``EngineConfig`` itself.  The port's
-facade is ``repro_torch.api``; moving this launcher onto it (with
-``--spec-file``, ``--mesh`` and ``--trace-out``) is ROADMAP item 12.
+the reference launcher's trace) through the continuous-batching engine
+(FIFO windows, CBWS-balanced micro-batch lanes); ``--threaded`` runs its
+lanes as worker threads on the wall clock, ``--chunk-timesteps``
+reschedules at chunk boundaries, ``--slo-ms`` adds admission-time
+latency-budget control (reject or degrade, ``--slo-action``),
+``--deadline-ms`` a per-request deadline.  ``--forever`` demonstrates live
+submission (``Session.serve_forever`` + per-request futures, threaded
+lanes, ``--max-queue`` backpressure).  ``--trace-out`` records the
+engine's lifecycle events and writes them as Chrome trace-event JSON
+(``obs.export``; load it in Perfetto).
 """
 from __future__ import annotations
 
 import argparse
-import logging
+import dataclasses
+import json
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import api
 from repro_torch.config import SNNConfig, get_snn
-from repro_torch.core.scheduler import build_schedule
-from repro_torch.core.snn_model import SNN, SNN_BACKENDS, init_snn
-from repro_torch.device import resolve_device
+from repro_torch.core.snn_model import SNN_BACKENDS
+from repro_torch.obs.export import write_chrome_trace
+from repro_torch.obs.log import LOG_LEVELS, configure_logging, get_logger
 
-log = logging.getLogger("repro_torch.serve")
+log = get_logger("serve")
 
 SCHEDULES = ("auto", "none", "cbws", "aprc+cbws")
 
 
-def resolve_schedule(mode: str, backend: str) -> Optional[str]:
-    """'auto' = aprc+cbws on the hopper backend, none otherwise; a schedule
-    on another backend is an error (only the kernel backend applies one)."""
-    if mode == "auto":
-        return "aprc+cbws" if backend == "hopper" else None
-    if mode == "none":
-        return None
-    if backend != "hopper":
-        raise ValueError(f"--schedule {mode} applies to the hopper backend "
-                         f"only, not to backend={backend!r}")
-    return mode
+def load_spec_file(path: str, kind):
+    """Parse a ``--spec-file`` JSON document into a validated spec via
+    ``spec_from_dict`` (its ``kind`` tag dispatches; unknown fields and
+    invalid values fail here); a spec of another class than ``kind``
+    exits with the reference launcher's words."""
+    with open(path) as f:
+        spec = api.spec_from_dict(json.load(f))
+    if not isinstance(spec, kind):
+        use = {api.ServeSpec: "serving", api.TrainSpec: "training"}[kind]
+        raise SystemExit(
+            f"--spec-file {path} holds a {type(spec).__name__} "
+            f"(kind={spec.KIND!r}); {use} needs a {kind.__name__} "
+            f"(kind={kind.KIND!r})")
+    return spec
 
 
-def serve(cfg: SNNConfig, *, backend: str = "hopper",
-          schedule: str = "auto", batch: int = 256, steps: int = 8,
-          seed: int = 0, device=None) -> Dict:
-    """Answer ``steps`` requests of ``batch`` frames; returns the counts
-    and times of the timed requests."""
-    dev = resolve_device(device)
-    mode = resolve_schedule(schedule, backend)
+def device_name(sess) -> str:
+    """The card's name, or "cpu": where a session's numbers were taken."""
+    return (torch.cuda.get_device_name(sess.device)
+            if sess.device.type == "cuda" else "cpu")
+
+
+def serve(cfg: SNNConfig, spec: Optional[api.ServeSpec] = None, *,
+          backend: str = "hopper", schedule: str = "auto", batch: int = 256,
+          steps: int = 8, seed: int = 0, device=None) -> Dict:
+    """Answer ``steps`` requests of ``batch`` frames through
+    ``Session.infer``, each done when its outputs are on the host; returns
+    the counts and times of the timed requests and the last request's
+    logits and class predictions.  Without a ``spec``, one is built from
+    ``backend`` and ``schedule``."""
+    if spec is None:
+        spec = api.ServeSpec(
+            backend=backend,
+            schedule_mode=api.resolve_schedule(schedule, backend))
+    sess = api.Session(cfg, spec, seed=seed, device=device)
     rng = np.random.default_rng(seed)
-    model = SNN(cfg, generator=torch.Generator().manual_seed(seed),
-                device=dev)
-    sched = (build_schedule(model.param_dict(), cfg, mode)
-             if mode is not None else None)
-    shape = (batch, *cfg.input_hw, cfg.input_channels)
+    shape = (batch, *sess.cfg.input_hw, sess.cfg.input_channels)
     requests = [rng.random(shape, dtype=np.float32)
                 for _ in range(steps + 1)]
-
-    def answer(frames: np.ndarray):
-        x = torch.from_numpy(frames).to(dev)
-        out = model(x, backend=backend, schedule=sched)
-        return out, out.logits.argmax(dim=-1).cpu()
-
-    with torch.inference_mode():
-        answer(requests[0])                       # build + warm, untimed
-        t0 = time.perf_counter()
-        for frames in requests[1:]:
-            out, _ = answer(frames)
-        seconds = time.perf_counter() - t0
+    sess.infer(requests[0])                       # build + warm, untimed
+    t0 = time.perf_counter()
+    for frames in requests[1:]:
+        out = sess.infer(frames)
+    seconds = time.perf_counter() - t0
     done = steps * batch
     return {
         "frames": done,
         "seconds": seconds,
         "fps": done / seconds if seconds > 0 else 0.0,
         "spikes_per_frame": sum(float(t) for t in out.spike_totals) / batch,
-        "backend": backend,
-        "schedule": mode or "none",
-        "timesteps": cfg.timesteps,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "logits": out.logits,
+        # outside the clock: numpy's argmax over seg's one-channel pixels
+        # takes milliseconds
+        "predictions": out.logits.argmax(axis=-1),
+        "backend": spec.backend,
+        "schedule": spec.schedule_mode or "none",
+        "timesteps": sess.cfg.timesteps,
+        "device": device_name(sess),
     }
 
 
-def serve_engine(cfg: SNNConfig, *, backend: str = "hopper",
-                 schedule: str = "auto", lanes: int = 2, batch: int = 8,
-                 steps: int = 8, threaded: bool = False,
-                 forever: bool = False, chunk_timesteps: Optional[int] = None,
-                 slo_ms: Optional[float] = None, slo_action: str = "reject",
-                 max_queue: Optional[int] = None,
-                 deadline_ms: Optional[float] = None, seed: int = 0,
-                 device=None) -> Dict:
+def _write_trace(trace, path: Optional[str], s: Dict) -> None:
+    """Export the engine's lifecycle trace as Chrome trace-event JSON
+    (``--trace-out``), recording the event count and the write's ms."""
+    if not path:
+        return
+    t0 = time.perf_counter()
+    s["trace_events"] = write_chrome_trace(trace, path)
+    s["trace_write_ms"] = (time.perf_counter() - t0) * 1e3
+    s["trace_out"] = path
+    log.info("wrote %d trace events to %s in %.1f ms", s["trace_events"],
+             path, s["trace_write_ms"])
+
+
+def serve_engine(cfg: SNNConfig, spec: api.ServeSpec, *, batch: int = 8,
+                 steps: int = 8, forever: bool = False, seed: int = 0,
+                 device=None, trace_out: Optional[str] = None) -> Dict:
     """Serve ``steps * batch`` single-frame requests through the
-    continuous-batching engine: replayed on the open-loop exponential-gap
-    trace (``forever=False``), or submitted live to ``serve_forever``.
-    Returns the engine's metrics summary, plus the live outcomes."""
-    from repro_torch.serving import EngineConfig, ServingEngine
-    dev = resolve_device(device)
-    ecfg = EngineConfig(
-        backend=backend, schedule_mode=resolve_schedule(schedule, backend),
-        num_lanes=lanes, max_batch=batch, threaded=threaded or forever,
-        chunk_timesteps=chunk_timesteps,
-        latency_budget_s=slo_ms / 1e3 if slo_ms else None,
-        slo_action=slo_action, max_queue=max_queue,
-        default_deadline_s=deadline_ms / 1e3 if deadline_ms else None,
-        device=str(dev))
-    params = init_snn(torch.Generator().manual_seed(seed), cfg, device=dev)
-    eng = ServingEngine(params, cfg, ecfg)
+    continuous-batching engine ``spec`` configures: replayed on the
+    open-loop exponential-gap trace (``forever=False``), or submitted live
+    to ``serve_forever``.  Returns the engine's metrics summary, plus the
+    live outcomes, the micro-batches the trace recorded (0 untraced) and,
+    with ``trace_out``, the trace file's event count and write time."""
+    if trace_out and not spec.trace:
+        spec = dataclasses.replace(spec, trace=True)
+    sess = api.Session(cfg, spec, seed=seed, device=device)
     frames = np.random.default_rng(seed).random(
-        (batch, *cfg.input_hw, cfg.input_channels), dtype=np.float32)
+        (batch, *sess.cfg.input_hw, sess.cfg.input_channels),
+        dtype=np.float32)
     n = steps * batch
     if forever:
-        eng.serve_forever()
-        handles = [eng.submit_live(frames[i % batch]) for i in range(n)]
-        snap = eng.snapshot()
+        live = sess.serve_forever()
+        handles = [live.submit(frames[i % batch]) for i in range(n)]
+        snap = live.metrics()
         log.info("mid-burst snapshot: served=%d queued=%d in_flight=%d "
                  "lanes=%d/%d", snap.served, snap.queued, snap.in_flight,
                  snap.lanes_alive, snap.lanes_total)
         # exception() instead of result(): with --slo-ms an over-budget
         # submission resolves to SLORejected, an outcome to count here
         outcomes = [h.exception(timeout=60.0) for h in handles]
-        s = eng.shutdown()
+        s = dict(live.shutdown())
         s["futures_resolved"] = sum(e is None for e in outcomes)
         s["futures_failed"] = sum(e is not None for e in outcomes)
+        trace = live.trace()
     else:
+        eng = sess.engine()
         gaps = np.random.default_rng(0).exponential(1e-3, n)
         for i, arr in enumerate(np.cumsum(gaps)):
             eng.submit(frames[i % batch], arrival=float(arr))
         s = eng.run()
+        trace = eng.trace
     s["mode"] = ("forever" if forever else
-                 "threaded" if threaded else "virtual")
-    s["device"] = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu")
+                 "threaded" if spec.threaded else "virtual")
+    s["micro_batches"] = len(trace.events("dispatch"))
+    s["device"] = device_name(sess)
+    _write_trace(trace, trace_out, s)
     return s
 
 
-def main(argv=None) -> None:
+def spec_from_args(args) -> api.ServeSpec:
+    """The ``ServeSpec`` of the command line: ``--spec-file``, or the
+    per-flag spec, with the layered flags applied over it
+    (``--trace-out`` turns ``trace`` on in ``serve_engine``)."""
+    if args.spec_file:
+        spec = load_spec_file(args.spec_file, api.ServeSpec)
+    else:
+        spec = api.ServeSpec(
+            backend=args.backend,
+            schedule_mode=api.resolve_schedule(args.schedule, args.backend),
+            num_lanes=args.lanes, max_batch=args.batch or 8,
+            threaded=args.threaded,
+            latency_budget_s=args.slo_ms / 1e3 if args.slo_ms else None,
+            slo_action=args.slo_action)
+    # these flags layer onto either spec source (explicit flags win)
+    overrides = {}
+    if args.max_queue is not None:
+        overrides["max_queue"] = args.max_queue
+    if args.deadline_ms is not None:
+        overrides["default_deadline_s"] = args.deadline_ms / 1e3
+    if args.chunk_timesteps is not None:
+        overrides["chunk_timesteps"] = args.chunk_timesteps
+    return dataclasses.replace(spec, **overrides) if overrides else spec
+
+
+def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--snn", default="snn-mnist")
     ap.add_argument("--backend", default="hopper", choices=SNN_BACKENDS)
-    ap.add_argument("--schedule", default="auto", choices=SCHEDULES)
+    ap.add_argument("--schedule", default="auto", choices=SCHEDULES,
+                    help="kernel-level CBWS channel schedule (hopper "
+                         "backend only; 'auto' = aprc+cbws on hopper, none "
+                         "otherwise; a mode on another backend is a "
+                         "ServeSpec error)")
+    ap.add_argument("--spec-file", default=None,
+                    help="JSON ServeSpec (api.spec_from_dict; kind='serve'), "
+                         "in place of the per-flag spec; --max-queue, "
+                         "--deadline-ms, --chunk-timesteps and --trace-out "
+                         "still layer on top")
     ap.add_argument("--batch", type=int, default=None,
                     help="frames per request (default 256), or the engine's "
-                         "largest micro-batch (default 8, at most 16)")
+                         "largest micro-batch (default 8, or the spec "
+                         "file's max_batch)")
     ap.add_argument("--steps", type=int, default=8,
                     help="timed requests (after one untimed warm-up), or "
                          "x --batch single-frame engine requests")
@@ -198,34 +251,37 @@ def main(argv=None) -> None:
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="default per-request deadline in ms; requests "
                          "expired in queue fail with DeadlineExceeded")
+    ap.add_argument("--trace-out", default=None,
+                    help="record the engine's lifecycle events "
+                         "(ServeSpec.trace) and write Chrome trace-event "
+                         "JSON here (with --engine/--forever)")
+    ap.add_argument("--log-level", default="info", choices=LOG_LEVELS,
+                    help="stderr log verbosity (repro_torch.obs.log)")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
+    configure_logging(args.log_level)
     cfg = get_snn(args.snn)
+    spec = spec_from_args(args)
     if args.engine or args.forever:
-        s = serve_engine(
-            cfg, backend=args.backend, schedule=args.schedule,
-            lanes=args.lanes, batch=args.batch or 8, steps=args.steps,
-            threaded=args.threaded, forever=args.forever,
-            chunk_timesteps=args.chunk_timesteps, slo_ms=args.slo_ms,
-            slo_action=args.slo_action, max_queue=args.max_queue,
-            deadline_ms=args.deadline_ms, seed=args.seed, device=args.device)
+        s = serve_engine(cfg, spec, batch=args.batch or spec.max_batch,
+                         steps=args.steps, forever=args.forever,
+                         seed=args.seed, device=args.device,
+                         trace_out=args.trace_out)
         log.info("engine[%s] served %.0f frames in %.0f rounds (%.1f FPS, "
                  "backend=%s, lanes=%d, p50=%.1fms, p99=%.1fms, "
                  "balance=%.3f, rejected=%.0f, degraded=%.0f, "
                  "deadline_missed=%.0f, device=%s)", s["mode"], s["served"],
-                 s["rounds"], s["fps"], args.backend, args.lanes,
+                 s["rounds"], s["fps"], spec.backend, spec.num_lanes,
                  s["p50_latency_s"] * 1e3, s["p99_latency_s"] * 1e3,
                  s["request_balance"], s["rejected"], s["degraded"],
                  s["deadline_missed"], s["device"])
-        return
-    s = serve(cfg, backend=args.backend, schedule=args.schedule,
-              batch=args.batch or 256, steps=args.steps, seed=args.seed,
-              device=args.device)
+        return s
+    s = serve(cfg, spec, batch=args.batch or 256, steps=args.steps,
+              seed=args.seed, device=args.device)
     log.info("served %d frames in %.4fs (%.1f FPS, backend=%s, "
              "schedule=%s, T=%d, total_spikes/frame=%.0f, device=%s)",
              s["frames"], s["seconds"], s["fps"], s["backend"], s["schedule"],
              s["timesteps"], s["spikes_per_frame"], s["device"])
+    return s
 
 
 if __name__ == "__main__":

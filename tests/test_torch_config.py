@@ -146,6 +146,16 @@ def test_package_imports_neither_jax_nor_the_reference():
         "assert 0.0 <= sess.evaluate(x, torch.tensor([1, 2])) <= 1.0\n"
         "from repro_torch.dist import parse_mesh\n"
         "assert TrainSpec(mesh=parse_mesh('data=2')).mesh == (('data', 2),)\n"
+        "import importlib.util, logging, pathlib\n"
+        "import repro_torch.obs.log, repro_torch.obs.export\n"
+        "for name in ('quickstart', 'snn_mnist_train', 'serve_batched',\n"
+        "             'snn_accelerator_sim'):\n"
+        f"    path = pathlib.Path({str(SRC.parent / 'examples')!r})\n"
+        "    path = path / f'torch_{name}.py'\n"
+        "    spec = importlib.util.spec_from_file_location(path.stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "root = logging.getLogger('repro_torch')\n"
+        "assert root.level == logging.WARNING and not root.handlers\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith('jax.') or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"

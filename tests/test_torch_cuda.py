@@ -775,3 +775,137 @@ def test_session_on_the_card_matches_snn_apply_and_serve_forever(card):
     for i, row in enumerate(got):
         assert np.array_equal(row, out.logits[i])
     assert dataclasses.is_dataclass(sess.spec)
+
+
+# -- the entry points: SAME-pad snn-seg, the Fig. 7 ablation, the launcher -----
+
+def _seg_trains(cfg, params, x, hopper):
+    """snn-seg's five spike trains, each layer computed from its own
+    backend's previous train: by the kernels (``hopper``) or plain ops."""
+    from repro_torch.core.snn_model import (_conv_folded, _conv_plain,
+                                            layer_shapes)
+    conv, t = params["conv"], cfg.timesteps
+    shapes = layer_shapes(cfg)
+    with torch.inference_mode():
+        v0 = x.new_zeros((x.shape[0],) + shapes[0])
+        if hopper:
+            s, _ = spiking_conv_lif_hoisted(x, v0, conv[0]["w"],
+                                            conv[0]["b"], t=t, aprc=cfg.aprc)
+        else:
+            s, _, _ = _lif_scan(_conv_plain(x, conv[0], cfg.aprc), 1.0, 10.0,
+                                "fast_sigmoid", v0, const_t=t)
+        trains = [s]
+        for i in range(1, len(conv) - 1):
+            v0 = x.new_zeros((x.shape[0],) + shapes[i])
+            if hopper:
+                s, _ = spiking_conv_lif(s.contiguous(), v0, conv[i]["w"],
+                                        conv[i]["b"], aprc=cfg.aprc)
+            else:
+                s, _, _ = _lif_scan(_conv_folded(s, conv[i], cfg, False),
+                                    1.0, 10.0, "fast_sigmoid", v0)
+            trains.append(s)
+    return trains
+
+
+def _within_the_flip_bound(cfg, params, x, counts_h, counts_b):
+    """Per layer: at most 1e-5 of the sites differ between the hopper and
+    plain trains (``chip_smoke.py``'s MAX_FLIP_FRACTION), the trains give
+    the forwards' counts, and the counts differ by at most T x the
+    differing sites."""
+    t = cfg.timesteps
+    for l, (s_h, s_b) in enumerate(zip(_seg_trains(cfg, params, x, True),
+                                       _seg_trains(cfg, params, x, False))):
+        sites = (s_h != s_b).any(dim=0)
+        assert int(sites.sum()) <= 1e-5 * sites.numel(), l
+        assert torch.equal(s_h.sum(dim=(1, 2, 3)).cpu(),
+                           torch.as_tensor(counts_h[l]).float().cpu())
+        assert torch.equal(s_b.sum(dim=(1, 2, 3)).cpu(),
+                           torch.as_tensor(counts_b[l]).float().cpu())
+        diff = (torch.as_tensor(counts_h[l]).double()
+                - torch.as_tensor(counts_b[l]).double()).abs().sum()
+        assert float(diff) <= t * int(sites.sum()), l
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "examples"
+            / f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_same_pad_skewed_seg_stays_within_the_flip_bound(card):
+    """Fig. 7's 'cbws' bar: snn-seg with SAME pad (no APRC crop) on
+    lognormally skewed weights, through the kernels with a CBWS schedule,
+    against the plain path."""
+    import dataclasses
+    from repro_torch.config import get_snn
+    from repro_torch.core.scheduler import build_schedule
+    from repro_torch.core.snn_model import (init_snn, skew_channels,
+                                            snn_apply)
+    from repro_torch.data.synthetic import road_like
+    cfg = dataclasses.replace(get_snn("snn-seg"), aprc=False, timesteps=6)
+    params = skew_channels(init_snn(torch.Generator().manual_seed(0), cfg,
+                                    device=card), sigma=1.2, seed=1)
+    x = torch.from_numpy(road_like(1, seed=0)[0]).to(card)
+    n = spiking_conv.launches
+    with torch.inference_mode():
+        out_h = snn_apply(params, x, cfg, backend="hopper",
+                          schedule=build_schedule(params, cfg, "aprc+cbws"))
+        out_b = snn_apply(params, x, cfg, backend="batched")
+    assert spiking_conv.launches == n + 1            # the SAME-pad readout
+    assert out_h.logits.shape == out_b.logits.shape == (1, 80, 160, 1)
+    assert bool(torch.isfinite(out_h.logits).all())
+    _within_the_flip_bound(cfg, params, x, out_h.timestep_counts,
+                           out_b.timestep_counts)
+
+
+@pytest.mark.cuda
+def test_accelerator_sim_on_the_card(card):
+    """The Fig. 7 ablation's function at one frame and T=6: three hopper
+    forwards (hoisted 1, B 4, A's dV 1 each), and each mode's counts
+    within the flip bound of batched's."""
+    from repro_torch.config import get_snn
+    from repro_torch.core.snn_model import init_snn
+    from repro_torch.data.synthetic import road_like
+    sim = _example("snn_accelerator_sim")
+    cfg = get_snn("snn-seg")
+    n = (spiking_conv_lif_hoisted.launches, spiking_conv_lif.launches,
+         spiking_conv.launches)
+    got = sim.simulate(cfg, frames=1, timesteps=6, backend="hopper",
+                       device=card)
+    assert (spiking_conv_lif_hoisted.launches, spiking_conv_lif.launches,
+            spiking_conv.launches) == (n[0] + 3, n[1] + 12, n[2] + 3)
+    want = sim.simulate(cfg, frames=1, timesteps=6, backend="batched",
+                        device=card)
+    params = init_snn(torch.Generator().manual_seed(0), cfg, device=card)
+    x = torch.from_numpy(road_like(1, seed=0)[0]).to(card)
+    for mode in sim.MODES:
+        g, w = got["modes"][mode], want["modes"][mode]
+        vcfg, vparams, _ = sim.variant(cfg, params, mode, 6)
+        _within_the_flip_bound(vcfg, vparams, x, g["timestep_counts"],
+                               w["timestep_counts"])
+        assert 0.0 < g["balance"] <= 1.0 and g["fps"] > 0.0
+
+
+@pytest.mark.cuda
+def test_serve_launcher_spec_file_equals_session_infer(card, tmp_path):
+    import json
+    from repro_torch.api import ServeSpec, Session
+    from repro_torch.config import get_snn
+    from repro_torch.launch.serve import main
+    spec = ServeSpec(backend="hopper", schedule_mode="aprc+cbws")
+    path = tmp_path / "serve.json"
+    path.write_text(json.dumps(spec.to_dict()))
+    got = main(["--spec-file", str(path), "--batch", "4", "--steps", "1",
+                "--device", "cuda", "--log-level", "error"])
+    rng = np.random.default_rng(0)
+    frames = [rng.random((4, 28, 28, 1), dtype=np.float32)
+              for _ in range(2)][-1]
+    want = Session(get_snn("snn-mnist"), spec, device=card).infer(frames)
+    assert np.array_equal(got["logits"], want.logits)
+    assert np.array_equal(got["predictions"], want.logits.argmax(-1))
