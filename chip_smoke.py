@@ -93,6 +93,19 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           ...)`` bit for bit, 24 ``serve_forever`` requests equal ``infer``
           bit for bit, ``train_step`` (its first loss equals the raw
           step's) and ``evaluate`` (equals ``core.snn_train.accuracy``)
+  mesh    the mesh runtime (``repro_torch.dist``) at full width:
+          snn-mnist at batch 256 through ``Session`` with a data=1 mesh
+          equals the unsharded ``Session.infer`` bit for bit (logits,
+          counts, skip fractions; FPS of both); two contiguous halves
+          through the kernels give the whole batch's logits, and their
+          gradient rows the whole batch's rows, bit for bit; a mesh
+          ``train_step`` at batch 32 within the gradient tolerance (atol
+          5e-5, rtol 5e-4) of the unsharded step (ms of both); a threaded
+          engine on lanes pinned by ``DeviceMesh.lane_devices`` accounts
+          for every request through a lane crash and serves the mesh
+          infer's bits; snn-seg (batch 16, T=16) through the mesh infer
+          equals the unsharded bits; ``DeviceMesh(("data", 2))`` raises
+          on one card (with two cards, data=2 equals data=1 instead)
   entry   the user-facing entry points: (a) the serve launcher with a
           ServeSpec file (hopper, aprc+cbws), single-shot at batch 256
           (its predictions equal ``Session.infer``'s bits) and ``--engine
@@ -1973,6 +1986,208 @@ def phase_api(cfg, frames):
         fail(f"Session.evaluate {acc} != accuracy {raw_acc}")
 
 
+# -- slice 8: the mesh runtime ---------------------------------------------------
+
+MESH_TRAIN_BATCH, MESH_REPS, MESH_REQUESTS = 32, 8, 64
+GRAD_ATOL, GRAD_RTOL = 5e-5, 5e-4     # the reference's gradient tolerance
+
+
+def _outputs_equal(a, b) -> bool:
+    """Two host ``SNNOutputs``: logits and every count field bit for bit."""
+    import numpy as np
+    fields = ("spike_counts", "spike_totals", "timestep_counts",
+              "skip_fractions")
+    return bool(np.array_equal(a.logits, b.logits)) and all(
+        len(getattr(a, f)) == len(getattr(b, f)) and all(
+            np.array_equal(x, y) for x, y in zip(getattr(a, f),
+                                                 getattr(b, f)))
+        for f in fields)
+
+
+def phase_mesh(cfg, frames):
+    """The mesh runtime (``repro_torch.dist``) on the card, at full width:
+    (a) snn-mnist at batch 256 through ``Session`` with ``mesh={"data":
+    1}`` equals the unsharded ``Session.infer`` bit for bit (logits,
+    counts, skip fractions), with both FPS; (b) the shard split through
+    the kernels: two contiguous halves give the whole batch's logits, and
+    (c) the halves' gradient rows are the whole batch's rows, bit for bit;
+    (d) a mesh ``train_step`` at batch 32 against the unsharded step
+    (params within the gradient tolerance) with both step times; (e) a
+    threaded engine on ``DeviceMesh(("data", 1)).lane_devices(2)`` through
+    a lane crash: every request accounted for, served logits equal to the
+    mesh infer's bits; (f) snn-seg, batch 16, T=16, mesh infer against
+    unsharded bits; (g) ``DeviceMesh(("data", 2))`` raises on one card,
+    or, with two cards, data=2 equals data=1 bit for bit.  Returns the
+    launches of the mesh infer and the mesh train step."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.api import ServeSpec, Session, TrainSpec
+    from repro_torch.config import get_snn
+    from repro_torch.core.snn_model import snn_apply
+    from repro_torch.core.snn_train import make_grad_rows_fn
+    from repro_torch.data.synthetic import mnist_like, road_like
+    from repro_torch.dist import DeviceMesh
+    from repro_torch.runtime.faults import FaultPlan
+    t0 = time.perf_counter()
+    counted = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            counted[k] = counted.get(k, 0) + v
+
+    def fps(sess, x):
+        _, seconds, _ = _timed_counted(
+            lambda: [sess.infer(x) for _ in range(MESH_REPS)])
+        return MESH_REPS * x.shape[0] / seconds
+
+    # (a) mesh infer against the unsharded session
+    frames_np = frames.cpu().numpy()
+    flat = Session(cfg, ServeSpec(backend="hopper"), seed=SEED,
+                   device="cuda")
+    mesh = Session(cfg, ServeSpec(backend="hopper", mesh={"data": 1}),
+                   seed=SEED, device="cuda")
+    want = flat.infer(frames_np)
+    got, _, launches = _timed_counted(lambda: mesh.infer(frames_np))
+    add(launches)
+    infer_equal = _outputs_equal(got, want)
+    # in turns (mesh, unsharded, unsharded, mesh): host-clock numbers
+    # compare only within one call
+    order = [("mesh", mesh), ("unsharded", flat), ("unsharded", flat),
+             ("mesh", mesh)]
+    rates = {"mesh": [], "unsharded": []}
+    for name, sess in order:
+        rates[name].append(fps(sess, frames_np))
+    emit("mesh", part="a: mesh infer, data=1", config=cfg.name, batch=BATCH,
+         equals_unsharded=infer_equal, fps_mesh=rates["mesh"],
+         fps_unsharded=rates["unsharded"], launches=launches,
+         skip_fractions=[float(f) for f in got.skip_fractions])
+    if not infer_equal:
+        fail("mesh infer (data=1) differs from the unsharded Session.infer")
+    if launches != {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 2}:
+        fail(f"mesh infer launched {launches}")
+
+    # (b) the shard split of a forward, through the kernels
+    with torch.inference_mode():
+        whole = snn_apply(mesh.params, frames, cfg, backend="hopper",
+                          logits_only=True).logits
+        halves = torch.cat([snn_apply(mesh.params, h, cfg, backend="hopper",
+                                      logits_only=True).logits
+                            for h in frames.chunk(2)])
+    split_fwd = bool(torch.equal(whole, halves))
+    # (c) the shard split of the gradient rows
+    xs, ys = (torch.from_numpy(a).cuda()
+              for a in mnist_like(MESH_TRAIN_BATCH // 2, seed=1))
+    rows_fn = make_grad_rows_fn(cfg, spec=TrainSpec(backend="hopper"))
+    loss, grads = rows_fn(mesh.params, xs, ys)
+    parts = [rows_fn(mesh.params, xs[s], ys[s])
+             for s in (slice(0, len(xs) // 2), slice(len(xs) // 2, None))]
+    split_grad = bool(torch.equal(loss, torch.cat([p[0] for p in parts])))
+    split_grad &= all(torch.equal(g, torch.cat(hs)) for g, *hs in zip(
+        tree_leaves(grads), *(tree_leaves(p[1]) for p in parts)))
+    emit("mesh", part="b, c: shard split through the kernels",
+         forward_batch=BATCH, forward_halves_equal_whole=split_fwd,
+         grad_rows=len(xs), grad_halves_equal_whole=split_grad)
+    if not (split_fwd and split_grad):
+        fail(f"shard split: forward bits equal {split_fwd}, gradient rows "
+             f"equal {split_grad}")
+
+    # (d) a mesh train step against the unsharded step
+    x, y = mnist_like(MESH_TRAIN_BATCH, seed=0)
+    tspec = TrainSpec(backend="hopper", lr=1e-2)
+    steps = {}
+    for name, spec in (("unsharded", tspec),
+                       ("mesh", TrainSpec(backend="hopper", lr=1e-2,
+                                          mesh={"data": 1}))):
+        sess = Session(cfg, spec, seed=SEED, device="cuda")
+        loss, seconds, launches = _timed_counted(
+            lambda: sess.train_step(x, y))
+        first = sess.params                 # a new dict every step
+        # two more steps for the time (the params move; the work does not)
+        times = [seconds] + [_timed_counted(lambda: sess.train_step(x, y))[1]
+                             for _ in range(2)]
+        steps[name] = (first, loss, statistics.median(times), launches)
+    add(steps["mesh"][3])
+    pairs = list(zip(tree_leaves(steps["mesh"][0]),
+                     tree_leaves(steps["unsharded"][0])))
+    close = all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                for a, b in pairs)
+    max_err = max(float((a - b).abs().max()) for a, b in pairs)
+    emit("mesh", part="d: mesh train_step, data=1", batch=MESH_TRAIN_BATCH,
+         loss_mesh=steps["mesh"][1], loss_unsharded=steps["unsharded"][1],
+         params_within_grad_tol=close, params_max_abs_err=max_err,
+         step_ms_mesh=steps["mesh"][2] * 1e3,
+         step_ms_unsharded=steps["unsharded"][2] * 1e3,
+         launches_mesh=steps["mesh"][3],
+         launches_unsharded=steps["unsharded"][3])
+    if not close:
+        fail(f"mesh train_step params differ from the unsharded step's by "
+             f"up to {max_err}")
+    want_d = {"spiking_conv_lif_hoisted_save_u": MESH_TRAIN_BATCH,
+              "spiking_conv_lif_fwd": 2 * MESH_TRAIN_BATCH,
+              "lif_bwd": 3 * MESH_TRAIN_BATCH,
+              "conv_grad_input": 2 * MESH_TRAIN_BATCH}
+    if steps["mesh"][3] != want_d:
+        fail(f"mesh train_step launched {steps['mesh'][3]}, expected "
+             f"{want_d}")
+
+    # (e) a threaded engine on pinned lanes through a lane crash
+    eng = flat.engine(ServeSpec(backend="hopper", num_lanes=2, threaded=True,
+                                max_batch=16),
+                      lane_devices=DeviceMesh(("data", 1)).lane_devices(2),
+                      fault_plan=FaultPlan(crashes=((0, 0),)))
+    rids = [eng.submit(f, arrival=0.0) for f in frames_np[:MESH_REQUESTS]]
+    eng.run()
+    snap = eng.snapshot()
+    accounted = (snap.served + snap.rejected + snap.deadline_missed
+                 + snap.cancelled)
+    served = {r.rid: r.logits for r in eng.completed}
+    lanes_equal = all(np.array_equal(served[rid], got.logits[i])
+                      for i, rid in enumerate(rids) if rid in served)
+    emit("mesh", part="e: threaded engine, pinned lanes, lane 0 crashes",
+         requests=len(rids), served=snap.served, accounted=accounted,
+         lane_devices=list(snap.lane_devices), lanes_alive=snap.lanes_alive,
+         served_equal_mesh_infer=lanes_equal)
+    if accounted != len(rids) or not snap.served or not lanes_equal:
+        fail(f"pinned lanes: {accounted} of {len(rids)} accounted, "
+             f"{snap.served} served, bits equal {lanes_equal}")
+
+    # (f) snn-seg through the mesh infer
+    seg = get_snn("snn-seg")
+    seg_x, _ = road_like(SEG_BATCH, h=seg.input_hw[0], w=seg.input_hw[1],
+                         seed=SEED)
+    seg_flat = Session(seg, ServeSpec(backend="hopper"), seed=SEED,
+                       device="cuda").infer(seg_x)
+    seg_mesh = Session(seg, ServeSpec(backend="hopper", mesh={"data": 1}),
+                       seed=SEED, device="cuda").infer(seg_x)
+    seg_equal = _outputs_equal(seg_mesh, seg_flat)
+    emit("mesh", part="f: snn-seg mesh infer, data=1", batch=SEG_BATCH,
+         timesteps=seg.timesteps, equals_unsharded=seg_equal,
+         skip_fractions=[float(f) for f in seg_mesh.skip_fractions])
+    if not seg_equal:
+        fail("snn-seg mesh infer differs from the unsharded Session.infer")
+
+    # (g) more cards than present
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        two = Session(cfg, ServeSpec(backend="hopper", mesh={"data": 2}),
+                      seed=SEED, device="cuda").infer(frames_np)
+        ok, ran = _outputs_equal(two, got), "data=2 against data=1"
+    else:
+        try:
+            DeviceMesh(("data", 2))
+            ok = False
+        except ValueError as e:
+            ok = "CUDA devices are visible" in str(e)
+        ran = "DeviceMesh(data=2) raises on one card"
+    emit("mesh", part="g: more cards than present", cards=cards, ran=ran,
+         passed=ok)
+    if not ok:
+        fail(f"mesh check '{ran}' failed")
+    emit("mesh", part="phase", seconds=time.perf_counter() - t0)
+    return counted
+
+
 # -- slice 7: the launchers on the facade, the examples ------------------------
 
 ENTRY_ENGINE_STEPS, ENTRY_ENGINE_BATCH = 64, 8     # 512 requests
@@ -2259,6 +2474,9 @@ def main() -> int:
     for name, n in seg_launches.items():
         launches[name] = launches.get(name, 0) + n
     phase_api(cfg, frames)
+    # the mesh runtime (its own counts)
+    for name, n in phase_mesh(cfg, frames).items():
+        launches[name] = launches.get(name, 0) + n
     # the launchers on the facade and the four examples (their own counts)
     for name, n in phase_entry(cfg, train_losses).items():
         launches[name] = launches.get(name, 0) + n

@@ -18,7 +18,11 @@ layer from the resolved mode, and every entry point hands frames to a
 Session instead of threading ``backend=``/``surrogate_*`` through the
 layers.  A session runs on ``device`` (default: the card); frames and
 labels may be numpy arrays or tensors, and outputs of ``infer``/``serve``
-come back on the host, as numpy arrays.
+come back on the host, as numpy arrays.  A spec with a ``mesh`` runs
+``infer``, ``train_step`` and ``evaluate`` through a ``dist.MeshRunner``
+and pins the engines' lanes to the mesh's entries; the mesh's devices are
+of the session's kind (the cards ``cuda:0..N-1``, or N host entries on
+the CPU).
 """
 from __future__ import annotations
 
@@ -38,14 +42,6 @@ from repro_torch.serving.batcher import to_device
 __all__ = ["Session", "LiveServer"]
 
 
-def _no_mesh(spec: ExecutionSpec) -> None:
-    if spec.mesh is not None:
-        raise NotImplementedError(
-            f"spec.mesh={spec.mesh}: mesh execution needs the port of the "
-            f"mesh runtime (repro.dist, ROADMAP queue 1 item 11); leave it "
-            f"None")
-
-
 class Session:
     """Owns params and the serving engines for one Skydiver model under
     one spec.
@@ -57,7 +53,7 @@ class Session:
     execution fields).  ``params=None`` draws fresh weights from ``seed``
     (``init_snn`` on ``torch.Generator().manual_seed(seed)``); given
     params (an ``init_snn`` or ``interop.from_jax_params`` dict) are moved
-    to ``device``.  A spec with a ``mesh`` raises ``NotImplementedError``.
+    to ``device``.
     """
 
     def __init__(self, model: Union[str, SNNConfig],
@@ -70,7 +66,6 @@ class Session:
             raise TypeError(
                 f"spec must be an ExecutionSpec/TrainSpec/ServeSpec, "
                 f"got {type(self.spec).__name__}")
-        _no_mesh(self.spec)
         cfg = get_snn(model) if isinstance(model, str) else model
         if self.spec.timesteps is not None:
             cfg = dataclasses.replace(cfg, timesteps=self.spec.timesteps)
@@ -82,6 +77,42 @@ class Session:
         self._engines: Dict[int, object] = {}    # batch size -> single-shot
         self._train_step = None
         self._mom = None
+        self._device_mesh = None                 # dist.DeviceMesh
+        self._mesh_runner = None                 # dist.MeshRunner
+
+    # -- mesh plumbing -------------------------------------------------------
+    def _device_mesh_for(self, mesh_axes):
+        """Resolve a mesh description to a ``DeviceMesh`` of the session's
+        device kind (cached for the session's own spec; an override
+        ServeSpec with another mesh gets a fresh resolution)."""
+        if self._device_mesh is not None \
+                and self._device_mesh.axes == mesh_axes:
+            return self._device_mesh
+        from repro_torch.dist import DeviceMesh
+        dm = DeviceMesh(mesh_axes, device=self.device.type)
+        if self._device_mesh is None:
+            self._device_mesh = dm
+        return dm
+
+    def _runner(self):
+        """The session's ``MeshRunner`` (None when the spec has no mesh),
+        which infer, train_step and evaluate route through."""
+        if self.spec.mesh is None:
+            return None
+        if self._mesh_runner is None:
+            from repro_torch.dist import MeshRunner
+            self._mesh_runner = MeshRunner(
+                self._device_mesh_for(self.spec.mesh), self.cfg, self.spec)
+        return self._mesh_runner
+
+    def _lane_devices(self, spec: ServeSpec, num_lanes: int,
+                      overrides: Dict) -> Dict:
+        """``overrides`` with the mesh's lane pinning added, when ``spec``
+        has a mesh and the caller pinned nothing."""
+        if spec.mesh is not None and "lane_devices" not in overrides:
+            overrides = {**overrides, "lane_devices": self._device_mesh_for(
+                spec.mesh).lane_devices(num_lanes)}
+        return overrides
 
     # -- spec plumbing -------------------------------------------------------
     def _as_serve_spec(self, spec: Optional[ServeSpec] = None) -> ServeSpec:
@@ -89,7 +120,6 @@ class Session:
         wins, then the session's own spec if it is one, else a default
         ServeSpec carrying the session's execution fields."""
         if spec is not None:
-            _no_mesh(spec)
             if spec.timesteps is not None \
                     and spec.timesteps != self.cfg.timesteps:
                 raise ValueError(
@@ -126,9 +156,10 @@ class Session:
                        else DEFAULT_BUCKETS)
             if batch > max(buckets):
                 buckets = tuple(buckets) + (int(batch),)
-            ecfg = self._engine_config(
-                spec, num_lanes=1, threaded=False, buckets=tuple(buckets),
-                max_batch=bucket_for(batch, buckets))
+            ecfg = self._engine_config(spec, **self._lane_devices(
+                spec, 1, dict(num_lanes=1, threaded=False,
+                              buckets=tuple(buckets),
+                              max_batch=bucket_for(batch, buckets))))
             eng = ServingEngine(self.params, self.cfg, ecfg)
             self._engines[batch] = eng
         return eng
@@ -138,11 +169,18 @@ class Session:
         on the host (padded rows sliced off).  Bit-identical to what
         ``serve`` and ``serve_forever`` give for the same frames: a row's
         logits depend neither on its batchmates nor on the bucket.
-        ``bucket`` pins the padding bucket instead of the smallest fit."""
+        ``bucket`` pins the padding bucket instead of the smallest fit.
+
+        With a mesh in the spec, the batch is sharded over the mesh's batch
+        axes by the session's ``MeshRunner`` (``bucket`` is its pad target):
+        the logits equal the unsharded ones bit for bit."""
         frames = np.asarray(frames, dtype=np.float32)
         n = frames.shape[0]
         if bucket is not None and bucket < n:
             raise ValueError(f"bucket={bucket} cannot hold a batch of {n}")
+        runner = self._runner()
+        if runner is not None:
+            return runner.infer(self.params, frames, pad_to=bucket)
         eng = self._single_shot_engine(n if bucket is None
                                        else max(n, int(bucket)))
         return eng.infer(frames, bucket=bucket)
@@ -171,10 +209,12 @@ class Session:
     def engine(self, spec: Optional[ServeSpec] = None, **hooks):
         """A fresh continuous-batching ``ServingEngine`` for trace replay
         (``submit`` + ``run``).  ``hooks`` passes the engine's own test
-        knobs (``fault_hook``, ``service_time_fn``) through untyped."""
+        knobs (``fault_hook``, ``service_time_fn``) through untyped.  With
+        a mesh, lane i is pinned to the mesh's entry ``i % N``."""
         from repro_torch.serving.engine import ServingEngine
+        sspec = self._as_serve_spec(spec)
         return ServingEngine(self.params, self.cfg, self._engine_config(
-            self._as_serve_spec(spec), **hooks))
+            sspec, **self._lane_devices(sspec, sspec.num_lanes, hooks)))
 
     def serve_forever(self, spec: Optional[ServeSpec] = None
                       ) -> "LiveServer":
@@ -186,7 +226,8 @@ class Session:
         if not sspec.threaded:
             sspec = dataclasses.replace(sspec, threaded=True)
         from repro_torch.serving.engine import ServingEngine
-        eng = ServingEngine(self.params, self.cfg, self._engine_config(sspec))
+        eng = ServingEngine(self.params, self.cfg, self._engine_config(
+            sspec, **self._lane_devices(sspec, sspec.num_lanes, {})))
         return LiveServer(eng.serve_forever())
 
     # -- training ------------------------------------------------------------
@@ -194,16 +235,25 @@ class Session:
         """One surrogate-gradient SGD step with momentum on the session's
         params (spec-selected backend); returns the loss.  The step function
         is built once; params and momentum live on the session, and the
-        cached engines serve the new params from the next call on."""
+        cached engines serve the new params from the next call on.
+
+        With a mesh, the step runs through the session's ``MeshRunner``:
+        per-example gradient rows, combined on the host in a fixed order,
+        so the new params are bit-identical at every shard count."""
         from repro_torch.core.snn_train import make_train_step
         if self._mom is None:
             self._mom = tree_map(torch.zeros_like, self.params)
-        if self._train_step is None:
-            self._train_step = make_train_step(self.cfg,
-                                               spec=self._as_train_spec())
-        x, y = to_device((x, y), self.device)
-        self.params, self._mom, loss = self._train_step(
-            self.params, self._mom, x, y)
+        runner = self._runner()
+        if runner is not None:
+            self.params, self._mom, loss = runner.train_step(
+                self.params, self._mom, x, y)
+        else:
+            if self._train_step is None:
+                self._train_step = make_train_step(
+                    self.cfg, spec=self._as_train_spec())
+            x, y = to_device((x, y), self.device)
+            self.params, self._mom, loss = self._train_step(
+                self.params, self._mom, x, y)
         for eng in self._engines.values():
             eng.update_params(self.params)
         return float(loss)
@@ -211,8 +261,14 @@ class Session:
     def evaluate(self, x, y) -> float:
         """Classification accuracy through the spec-selected backend, on
         canonical weights (the kernel schedule, a serving-time weight
-        permutation, is stripped, as for training)."""
+        permutation, is stripped, as for training); with a mesh, sharded
+        by the session's ``MeshRunner``."""
         from repro_torch.core.snn_model import snn_apply
+        runner = self._runner()
+        if runner is not None:
+            logits = runner.infer(self.params, x, logits_only=True).logits
+            y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+            return float((logits.argmax(-1) == np.asarray(y)).mean())
         spec = ExecutionSpec(**{**self.spec.execution_fields(),
                                 "schedule_mode": None})
         x, y = to_device((x, y), self.device)

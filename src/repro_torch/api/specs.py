@@ -60,9 +60,8 @@ class ExecutionSpec:
     many steps with the membranes carried between them (``None``: whole
     T); chunked execution is bit-identical to whole T.  ``mesh`` describes
     a device mesh as ordered (axis_name, size) pairs (``{"data": 4}`` and
-    ``(("data", 4),)`` both canonicalize to the tuple form); the port
-    validates it but cannot run it yet (``Session`` raises), since the
-    mesh runtime is not ported (ROADMAP queue 1, item 11).
+    ``(("data", 4),)`` both canonicalize to the tuple form); ``Session``
+    runs it through ``repro_torch.dist`` (``MeshRunner``, pinned lanes).
     """
 
     KIND = "execution"

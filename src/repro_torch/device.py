@@ -11,7 +11,7 @@ from typing import Iterator, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "full_fp32"]
+__all__ = ["resolve_device", "full_fp32", "on_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -40,3 +40,13 @@ def full_fp32() -> Iterator[None]:
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def on_device(device) -> contextlib.AbstractContextManager:
+    """A context in which launches go to ``device``: ``torch.cuda.device``
+    for an indexed card, nothing for the CPU or the current card.  The
+    current card is per thread, so a serving lane enters it once."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()

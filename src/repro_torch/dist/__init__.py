@@ -1,7 +1,55 @@
-"""Multi-device execution (the reference's ``repro.dist``), so far only
-the pure mesh-description helpers the facade's specs validate with.
-``DeviceMesh`` and the mesh runner come with the port of the mesh runtime
-(ROADMAP queue 1, item 11)."""
-from repro_torch.dist.mesh import MeshAxes, mesh_str, normalize_mesh, parse_mesh
+"""``repro_torch.dist``: multi-device execution beneath the
+``repro_torch.api`` facade (the reference's ``repro.dist``).
 
-__all__ = ["MeshAxes", "parse_mesh", "normalize_mesh", "mesh_str"]
+The layer that turns ``ExecutionSpec.mesh`` (a validated axis description,
+e.g. ``{"data": 4}``) into execution on several devices:
+
+  * ``mesh``: spec parsing and validation (pure) and ``DeviceMesh``
+    (resolves the cards ``cuda:0..N-1``, or N host entries on the CPU,
+    and hands out lane -> device pinnings);
+  * ``runner``: ``MeshRunner``, batch-sharded ``Session.infer`` and
+    ``train_step`` with a bit-parity contract across device counts;
+  * ``placement``: CBWS device placement (Skydiver's SPE assignment at
+    mesh-device granularity) for the serving engine's pinned lanes.
+
+``MeshRunner`` and the placement helpers load lazily (PEP 562), so spec
+validation (``normalize_mesh``) stays importable without the model code.
+The reference's ``host_device_env`` and ``HOST_DEVICE_FLAG`` have no
+counterpart (torch needs no flag for host entries), and its LM pod meshes
+(``make_production_mesh``, ``make_test_mesh``) come with the LM substrate.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.dist.mesh import (DeviceMesh, MeshAxes, mesh_str,
+                                   normalize_mesh, parse_mesh)
+
+__all__ = [
+    "DeviceMesh",
+    "MeshAxes",
+    "MeshRunner",
+    "assign_groups_to_devices",
+    "assignment_balance",
+    "device_placement",
+    "fifo_placement",
+    "mesh_str",
+    "normalize_mesh",
+    "parse_mesh",
+]
+
+_LAZY = {
+    "MeshRunner": "repro_torch.dist.runner",
+    "assign_groups_to_devices": "repro_torch.dist.placement",
+    "assignment_balance": "repro_torch.dist.placement",
+    "device_placement": "repro_torch.dist.placement",
+    "fifo_placement": "repro_torch.dist.placement",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module 'repro_torch.dist' has no attribute {name!r}")
+    return getattr(importlib.import_module(mod), name)

@@ -44,8 +44,8 @@ from repro_torch.kernels.ref import (conv_grad_input_ref, conv_grad_weights,
 __all__ = ["spiking_conv", "spiking_conv_plain", "SpikingConvFn",
            "spiking_conv_lif_hoisted", "spiking_conv_lif_hoisted_plain",
            "conv_grad_input", "conv_grad_input_plain", "conv_grad_weights",
-           "conv_pads", "row_block_counts", "skip_table_fraction",
-           "plan_tiles", "MmaPlan", "plan_mma_tiles"]
+           "conv_pads", "row_block_counts", "skip_table_blocks",
+           "skip_table_fraction", "plan_tiles", "MmaPlan", "plan_mma_tiles"]
 
 _MAX_THREADS = 512        # the kernels' __launch_bounds__
 _MAX_SMEM = 227 * 1024    # bytes a block may use on sm_90
@@ -173,6 +173,15 @@ def row_block_counts(spikes_padded: torch.Tensor, r: int, block_rows: int,
     return _window_counts(row_tot, r, block_rows, n_blocks)
 
 
+def skip_table_blocks(h: int, r: int, *, aprc: bool = True,
+                      block_rows: int = BLOCK_ROWS) -> int:
+    """Row-blocks of one image and step in the skip table of a fused layer
+    whose input is ``h`` rows high: a (T, B)-batch's table has
+    T * B * this many cells."""
+    e_h = h + r - 1 if aprc else h
+    return -(-e_h // block_rows)                      # ceil
+
+
 def skip_table_fraction(spikes: torch.Tensor, r: int, *, aprc: bool = True,
                         block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     """Fraction of the fused kernel's (T, B, row-block) skip-table cells
@@ -185,8 +194,7 @@ def skip_table_fraction(spikes: torch.Tensor, r: int, *, aprc: bool = True,
     padded copy."""
     t, b, h, w, cin = spikes.shape
     pad_lo, _ = conv_pads(r, aprc)
-    e_h = h + r - 1 if aprc else h
-    n_blocks = -(-e_h // block_rows)                  # ceil
+    n_blocks = skip_table_blocks(h, r, aprc=aprc, block_rows=block_rows)
     h_pad = n_blocks * block_rows + r - 1
     row_tot = spikes.reshape(t * b, h, w * cin).count_nonzero(dim=2)
     padded = row_tot.new_zeros((t * b, h_pad))

@@ -11,11 +11,17 @@ facade.
         --engine --threaded --lanes 2 --slo-ms 50 --slo-action degrade
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
         --forever --lanes 2      # live submission + per-request futures
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh data=2 \
+        --device cpu --batch 4 --steps 2   # batch sharded over 2 entries
 
 The flags build one validated ``ServeSpec`` (backend, ``--schedule``
 kernel schedule, lanes, SLO), or ``--spec-file`` loads one from JSON
 (``api.spec_from_dict``); ``--max-queue``, ``--deadline-ms``,
-``--chunk-timesteps`` and ``--trace-out`` layer over either source.  A
+``--chunk-timesteps``, ``--mesh`` and ``--trace-out`` layer over either
+source.  ``--mesh`` (``dist.parse_mesh``: ``data=2`` or a bare ``2``)
+shards ``Session.infer``'s batch over the mesh and pins the engine's
+lanes round-robin to its entries: the cards ``cuda:0..N-1``, or with
+``--device cpu`` N host entries.  A
 ``Session`` executes it, with weights drawn from ``--seed``; frames are
 made from the same seed with numpy.
 
@@ -50,6 +56,7 @@ import torch
 from repro_torch import api
 from repro_torch.config import SNNConfig, get_snn
 from repro_torch.core.snn_model import SNN_BACKENDS
+from repro_torch.dist.mesh import parse_mesh
 from repro_torch.obs.export import write_chrome_trace
 from repro_torch.obs.log import LOG_LEVELS, configure_logging, get_logger
 
@@ -184,9 +191,12 @@ def spec_from_args(args) -> api.ServeSpec:
     if args.spec_file:
         spec = load_spec_file(args.spec_file, api.ServeSpec)
     else:
+        # a mesh serves canonical weights: "auto" then picks no schedule
+        schedule = ("none" if args.mesh and args.schedule == "auto"
+                    else args.schedule)
         spec = api.ServeSpec(
             backend=args.backend,
-            schedule_mode=api.resolve_schedule(args.schedule, args.backend),
+            schedule_mode=api.resolve_schedule(schedule, args.backend),
             num_lanes=args.lanes, max_batch=args.batch or 8,
             threaded=args.threaded,
             latency_budget_s=args.slo_ms / 1e3 if args.slo_ms else None,
@@ -199,6 +209,8 @@ def spec_from_args(args) -> api.ServeSpec:
         overrides["default_deadline_s"] = args.deadline_ms / 1e3
     if args.chunk_timesteps is not None:
         overrides["chunk_timesteps"] = args.chunk_timesteps
+    if args.mesh:
+        overrides["mesh"] = parse_mesh(args.mesh)
     return dataclasses.replace(spec, **overrides) if overrides else spec
 
 
@@ -208,9 +220,9 @@ def main(argv=None) -> Dict:
     ap.add_argument("--backend", default="hopper", choices=SNN_BACKENDS)
     ap.add_argument("--schedule", default="auto", choices=SCHEDULES,
                     help="kernel-level CBWS channel schedule (hopper "
-                         "backend only; 'auto' = aprc+cbws on hopper, none "
-                         "otherwise; a mode on another backend is a "
-                         "ServeSpec error)")
+                         "backend only; 'auto' = aprc+cbws on hopper without "
+                         "--mesh, none otherwise; a mode on another backend "
+                         "or with --mesh is a ServeSpec error)")
     ap.add_argument("--spec-file", default=None,
                     help="JSON ServeSpec (api.spec_from_dict; kind='serve'), "
                          "in place of the per-flag spec; --max-queue, "
@@ -251,6 +263,11 @@ def main(argv=None) -> Dict:
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="default per-request deadline in ms; requests "
                          "expired in queue fail with DeadlineExceeded")
+    ap.add_argument("--mesh", default="",
+                    help="repro_torch.dist mesh string, e.g. 'data=2' or "
+                         "bare '2': shards infer over the device mesh and "
+                         "pins engine lanes round-robin to its entries "
+                         "(with --device cpu, N host entries)")
     ap.add_argument("--trace-out", default=None,
                     help="record the engine's lifecycle events "
                          "(ServeSpec.trace) and write Chrome trace-event "

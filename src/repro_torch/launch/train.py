@@ -6,19 +6,25 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --steps 2 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.train --spec-file train.json
+    PYTHONPATH=src python -m repro_torch.launch.train --mesh data=2 \
+        --device cpu --steps 2 --batch 4
 
 The flags build one validated ``TrainSpec`` (backend, surrogate, lr,
 timesteps), or ``--spec-file`` loads one from JSON
-(``api.spec_from_dict``); a ``Session`` owns the params, drawn from
-``--seed``, and the step.  Step i trains on ``mnist_like(batch, seed=i)``
+(``api.spec_from_dict``), and ``--mesh`` (``dist.parse_mesh``) layers
+over either: the step then shards the batch over the mesh's entries
+(per-example gradient rows combined on the host, the same params at any
+shard count).  A ``Session`` owns the params, drawn from ``--seed``, and
+the step.  Step i trains on ``mnist_like(batch, seed=i)``
 with SGD and momentum (``Session.train_step``); then the accuracy on
 ``mnist_like(256, seed=10_000)`` is evaluated through the same backend
 (``Session.evaluate``).  A step is done when its loss is on the host.
-The reference's ``--snn`` path of ``repro.launch.train``, without its mesh.
+The reference's ``--snn`` path of ``repro.launch.train``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import time
 from typing import Dict, Optional
@@ -30,6 +36,7 @@ from repro_torch.config import SNNConfig, get_snn
 from repro_torch.core.snn_model import SNN_BACKENDS
 from repro_torch.core.surrogate import SURROGATE_KINDS
 from repro_torch.data.synthetic import mnist_like
+from repro_torch.dist.mesh import parse_mesh
 from repro_torch.launch.serve import device_name, load_spec_file
 from repro_torch.obs.log import LOG_LEVELS, configure_logging, get_logger
 
@@ -92,6 +99,10 @@ def main(argv=None) -> Dict:
     ap.add_argument("--spec-file", default=None,
                     help="JSON TrainSpec (api.spec_from_dict; kind='train'), "
                          "in place of the per-flag spec")
+    ap.add_argument("--mesh", default="",
+                    help="repro_torch.dist mesh string, e.g. 'data=2' or "
+                         "bare '2': data-sharded train step over the mesh's "
+                         "entries (with --device cpu, N host entries)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
@@ -106,6 +117,8 @@ def main(argv=None) -> Dict:
         spec = api.TrainSpec(backend=args.backend,
                              surrogate_kind=args.surrogate, lr=args.lr,
                              timesteps=args.timesteps or None)
+    if args.mesh:
+        spec = dataclasses.replace(spec, mesh=parse_mesh(args.mesh))
     r = train(get_snn(args.snn), spec, steps=args.steps, batch=args.batch,
               seed=args.seed, device=args.device)
     log.info("trained %d steps of %d frames (backend=%s, surrogate=%s, "

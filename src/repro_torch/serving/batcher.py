@@ -134,7 +134,10 @@ class ExecCache:
             params = tree_map(lambda t: t.to(self.device), params)
         self._params = freeze_params(params)
 
-    def _param_device(self) -> torch.device:
+    @property
+    def param_device(self) -> torch.device:
+        """Where the cache's tensors are (a host entry ``cpu:i`` of a mesh
+        holds them on ``cpu``)."""
         return self._params["conv"][0]["w"].device
 
     def _key(self, bucket: int, backend: str, outputs: str,
@@ -189,7 +192,7 @@ class ExecCache:
                                         schedule=sched,
                                         logits_only=logits_only)
                     return out.logits if logits_only else out
-            fn = self._entry(run, self._param_device())
+            fn = self._entry(run, self.param_device)
             self._fns[key] = fn
             self.compiles += 1
         return fn
@@ -231,7 +234,7 @@ class ExecCache:
         device = self.device if device is None else torch.device(device)
         c = ExecCache(self.params, self.cfg, schedule=self.schedule,
                       chunk_timesteps=self.chunk_timesteps, device=device)
-        if c._param_device() == self._param_device():
+        if c.param_device == self.param_device:
             c._fns = dict(self._fns)
         return c
 

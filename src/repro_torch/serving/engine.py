@@ -88,7 +88,7 @@ import torch
 from repro_torch.config import SNNConfig
 from repro_torch.core.balance import balance_ratio
 from repro_torch.core.snn_model import ChunkCarry
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device
 from repro_torch.obs import trace as trc
 from repro_torch.obs.snapshot import MetricsSnapshot
 from repro_torch.obs.trace import TraceRecorder
@@ -144,9 +144,10 @@ class EngineConfig:
     chunk_timesteps: Optional[int] = None
     # real concurrency: lanes as worker threads on the wall clock
     threaded: bool = False
-    # multi-device serving: one device per lane.  Needs the port of the
-    # reference's mesh runtime (repro.dist, ROADMAP queue 1 item 11); any
-    # value but None raises until then
+    # multi-device serving: one mesh entry per lane (threaded engine), set
+    # by Session from ExecutionSpec.mesh via DeviceMesh.lane_devices();
+    # each lane's cache fork runs on its entry, and each dispatch round
+    # deals groups onto the least-loaded entries (dist.placement)
     lane_devices: Optional[Tuple[object, ...]] = None
     # where the engine runs (its params are moved there): None = the card
     device: Optional[str] = None
@@ -242,11 +243,12 @@ class ServingEngine:
         if ecfg.trace_capacity < 1:
             raise ValueError(
                 f"trace_capacity must be >= 1, got {ecfg.trace_capacity}")
-        if ecfg.lane_devices is not None:
-            raise NotImplementedError(
-                "EngineConfig.lane_devices: one device per lane needs the "
-                "port of the mesh runtime (repro.dist, ROADMAP queue 1 item "
-                "11); leave it None")
+        if ecfg.lane_devices is not None \
+                and len(ecfg.lane_devices) != ecfg.num_lanes:
+            raise ValueError(
+                f"lane_devices has {len(ecfg.lane_devices)} entries for "
+                f"{ecfg.num_lanes} lanes (one device per lane; build it "
+                f"with repro_torch.dist.DeviceMesh.lane_devices(num_lanes))")
         self.device = resolve_device(ecfg.device)
         self.cfg = cfg
         self.ecfg = ecfg
@@ -1225,7 +1227,14 @@ class ServingEngine:
         (pad + forward + host copy, all off the scheduler thread)
         under the retry budget, and reports over the completion queue.  A
         lane that exhausts its budget reports the failure — its micro-batch
-        is never dropped — and exits."""
+        is never dropped — and exits.  Its launches go to its cache's
+        device (the current card is per thread)."""
+        with on_device(cache.device):
+            self._lane_loop(lane, cache, clock, inbox, completions)
+
+    def _lane_loop(self, lane: int, cache: ExecCache, clock,
+                   inbox: "queue_mod.Queue",
+                   completions: "queue_mod.Queue") -> None:
         while True:
             item = inbox.get()
             if item is None:
@@ -1344,7 +1353,13 @@ class ServingEngine:
         The kernels are built (``kernels._build``) and every entry run once
         here, before the WallClock epoch, so warmup never pollutes latency
         metrics; benchmarks call this via ``warmup()`` to keep build time
-        out of their own walls too."""
+        out of their own walls too.
+
+        With ``lane_devices`` (``repro_torch.dist``), each lane's fork is
+        pinned to its mesh entry.  A fork on another card shares no entries
+        with the parent (an entry moves its inputs to its own card), so it
+        is warmed here too, still before the clock epoch; host entries
+        (``cpu:i``) share the parent's entries."""
         if self._lane_caches is not None:
             return self._lane_caches
         ecfg = self.ecfg
@@ -1359,9 +1374,21 @@ class ServingEngine:
                 t_variants.append(self._degrade_t)
             for tv in t_variants:
                 self._pad_profile(tv)
-        self._lane_caches = [self.cache.fork()
-                             for _ in range(ecfg.num_lanes)]
+        self._lane_caches = [self._lane_fork(i)
+                             for i in range(ecfg.num_lanes)]
         return self._lane_caches
+
+    def _lane_fork(self, lane: int) -> ExecCache:
+        """A cache fork for ``lane``, on its mesh entry when lanes are
+        pinned, warmed when it shares no entries with the parent.  Runs on
+        the scheduler thread only."""
+        devs = self.ecfg.lane_devices
+        fork = self.cache.fork(device=None if devs is None else devs[lane])
+        if fork.param_device != self.cache.param_device:
+            with on_device(fork.param_device):
+                self._warm_cache(fork)
+            self._lane_compiles += fork.compiles
+        return fork
 
     def _run_threaded(self, live: bool = False) -> Dict[str, float]:
         ecfg = self.ecfg
@@ -1424,9 +1451,11 @@ class ServingEngine:
             new worker thread.  The dead worker already exited (it posts its
             failure and returns), so its inbox is simply abandoned; the
             fork shares every entry the warm shared cache built, so a
-            restarted lane serves its first micro-batch warm."""
+            restarted lane serves its first micro-batch warm.  A pinned
+            lane (lane_devices) restarts on its own mesh entry, re-warmed
+            on this (scheduler) thread when on another card."""
             restart_gen[0] += 1
-            caches[lane] = self.cache.fork()
+            caches[lane] = self._lane_fork(lane)
             inboxes[lane] = queue_mod.Queue()
             wkr = threading.Thread(
                 target=self._lane_worker,
@@ -1618,6 +1647,22 @@ class ServingEngine:
                         backlog_work=sum(inflight_work.values()))
                     if dispatchable:
                         order = self.dispatcher.rank(idle)
+                        if ecfg.lane_devices is not None:
+                            # CBWS device placement: heaviest group (they
+                            # arrive sorted) -> idle lane on the least
+                            # work-loaded mesh entry, ties by the
+                            # fastest-first ranking: the paper's SPE
+                            # assignment at mesh-device granularity
+                            from repro_torch.dist.placement import \
+                                assign_groups_to_devices
+                            dev_load: Dict[object, float] = {}
+                            for l, wk in inflight_work.items():
+                                d = ecfg.lane_devices[l]
+                                dev_load[d] = dev_load.get(d, 0.0) + wk
+                            order = assign_groups_to_devices(
+                                [sum(self._eff_work(r) for r in g)
+                                 for g, _ in dispatchable],
+                                order, ecfg.lane_devices, dev_load)
                         rounds[window_idx] = {
                             "depth": depth, "predicted": predicted,
                             "pending": len(dispatchable), "executed": [],

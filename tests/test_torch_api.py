@@ -287,12 +287,24 @@ def test_session_serve_and_engine(tiny):
 
 
 def test_session_rejects_a_mesh_and_a_non_spec(tiny):
+    """A mesh runs (the session's and an override ServeSpec's, on host
+    entries when the session is on the CPU); what is rejected is a mesh
+    the host cannot place, a mesh with a kernel schedule, and a non-spec."""
     cfg, np_params = tiny
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.Session(cfg, api.ExecutionSpec(mesh={"data": 2}), device="cpu")
+    frames = _frames(3, cfg)
+    mesh = _session(cfg, np_params, api.ExecutionSpec(mesh={"data": 2}))
+    np.testing.assert_array_equal(
+        mesh.infer(frames).logits,
+        _session(cfg, np_params, api.ExecutionSpec()).infer(frames).logits)
     sess = _session(cfg, np_params, api.ServeSpec(backend="batched"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        sess.engine(api.ServeSpec(backend="batched", mesh={"data": 2}))
+    eng = sess.engine(api.ServeSpec(backend="batched", mesh={"data": 2}))
+    assert eng.snapshot().lane_devices == ("cpu:0", "cpu:1")
+    with pytest.raises(ValueError, match="CUDA devices are visible"):
+        from repro_torch.dist import DeviceMesh
+        DeviceMesh({"data": torch.cuda.device_count() + 1})
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        api.ServeSpec(backend="hopper", schedule_mode="cbws",
+                      mesh={"data": 2})
     with pytest.raises(TypeError, match="ExecutionSpec"):
         api.Session(cfg, {"backend": "batched"}, device="cpu")
 

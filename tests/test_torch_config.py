@@ -146,6 +146,12 @@ def test_package_imports_neither_jax_nor_the_reference():
         "assert 0.0 <= sess.evaluate(x, torch.tensor([1, 2])) <= 1.0\n"
         "from repro_torch.dist import parse_mesh\n"
         "assert TrainSpec(mesh=parse_mesh('data=2')).mesh == (('data', 2),)\n"
+        "import repro_torch.dist.runner, repro_torch.dist.placement\n"
+        "import repro_torch.sharding, repro_torch.sharding.cbws_sharding\n"
+        "ms = Session(cfg, TrainSpec(backend='hopper', mesh={'data': 2}),\n"
+        "             device='cpu')\n"
+        "assert ms.infer(x.numpy()).logits.shape == (2, 10)\n"
+        "ms.train_step(x, torch.tensor([1, 2]))\n"
         "import importlib.util, logging, pathlib\n"
         "import repro_torch.obs.log, repro_torch.obs.export\n"
         "for name in ('quickstart', 'snn_mnist_train', 'serve_batched',\n"

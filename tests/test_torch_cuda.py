@@ -909,3 +909,54 @@ def test_serve_launcher_spec_file_equals_session_infer(card, tmp_path):
     want = Session(get_snn("snn-mnist"), spec, device=card).infer(frames)
     assert np.array_equal(got["logits"], want.logits)
     assert np.array_equal(got["predictions"], want.logits.argmax(-1))
+
+
+# -- the mesh runtime on the card ----------------------------------------------
+
+@pytest.mark.cuda
+def test_shard_split_through_the_kernels(card):
+    """The property the mesh runtime's bit parity rests on, through the
+    kernels: two contiguous halves of a batch give the whole batch's
+    logits, and the gradient rows of the halves are the whole batch's
+    rows, bit for bit; a data=1 mesh session gives the unsharded bits."""
+    from repro_torch.api import ServeSpec, Session, TrainSpec
+    from repro_torch.core.snn_model import snn_apply
+    from repro_torch.core.snn_train import make_grad_rows_fn
+    cfg, params = _tiny_model(card)
+    x = torch.rand((6, 12, 12, 1), generator=torch.Generator()
+                   .manual_seed(5)).to(card)
+    y = torch.arange(6, device=card) % 10
+    with torch.inference_mode():
+        whole = snn_apply(params, x, cfg, backend="hopper").logits
+        halves = torch.cat([snn_apply(params, h, cfg, backend="hopper")
+                            .logits for h in (x[:3], x[3:])])
+    assert torch.equal(whole, halves)
+    rows_fn = make_grad_rows_fn(cfg, spec=TrainSpec(backend="hopper"))
+    n = (spiking_conv_lif_fwd.launches, lif_bwd.launches)
+    loss, grads = rows_fn(params, x, y)
+    assert spiking_conv_lif_fwd.launches > n[0] and lif_bwd.launches > n[1]
+    parts = [rows_fn(params, x[s], y[s]) for s in (slice(0, 3), slice(3, 6))]
+    assert torch.equal(loss, torch.cat([p[0] for p in parts]))
+    from torch.utils._pytree import tree_leaves
+    for g, *hs in zip(tree_leaves(grads), *(tree_leaves(p[1])
+                                            for p in parts)):
+        assert torch.equal(g, torch.cat(hs))
+    xs = x.cpu().numpy()
+    mesh = Session(cfg, ServeSpec(backend="hopper", mesh={"data": 1}),
+                   params=params, device=card).infer(xs)
+    flat = Session(cfg, ServeSpec(backend="hopper"), params=params,
+                   device=card).infer(xs)
+    assert np.array_equal(mesh.logits, flat.logits)
+    for a, b in zip(mesh.spike_counts, flat.spike_counts):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_device_mesh_takes_only_visible_cards(card):
+    from repro_torch.dist import DeviceMesh
+    count = torch.cuda.device_count()
+    assert DeviceMesh(("data", count)).devices == tuple(
+        torch.device("cuda", i) for i in range(count))
+    with pytest.raises(ValueError, match=rf"needs {count + 1} devices but "
+                       rf"only {count} CUDA devices"):
+        DeviceMesh(("data", count + 1))

@@ -419,9 +419,24 @@ def test_exec_cache_holds_frozen_params(tiny):
 
 
 def test_lane_devices_wait_for_the_mesh_runtime(tiny3):
+    """Lanes pinned to mesh entries: one entry per lane (another count
+    raises), each lane's fork on its entry, the snapshot's per-lane
+    labels, and the served logits those of a batch-1 forward."""
     cfg, params = tiny3
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        _engine(params, cfg, lane_devices=("cpu", "cpu"))
+    with pytest.raises(ValueError, match="3 entries for 2 lanes"):
+        _engine(params, cfg, lane_devices=("cpu:0", "cpu:1", "cpu:0"))
+    lanes = (torch.device("cpu", 0), torch.device("cpu", 1))
+    eng = _engine(params, cfg, lane_devices=lanes, threaded=True,
+                  max_batch=2)
+    frames = _frames(5, cfg, seed=4)
+    rids = [eng.submit(f, arrival=0.0) for f in frames]
+    assert eng.run()["served"] == 5
+    assert [c.device for c in eng._lane_caches] == list(lanes)
+    assert eng.snapshot().lane_devices == ("cpu:0", "cpu:1")
+    got = {r.rid: r.logits for r in eng.completed}
+    want = _whole(params, cfg, frames)
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(got[rid], want[i])
 
 
 def test_launcher_engine_path_on_the_cpu():
