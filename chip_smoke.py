@@ -123,6 +123,40 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           sites) and the logits within the seg bound below, under SAME
           pad for 'none' and 'cbws'; launches counted around each run
           (the ablation: hoisted 1, B 4, A's dV mode 1 a forward)
+  lm      the LM substrate's serving path (``repro_torch.models``; plain
+          PyTorch products, no SNN kernel: every kernel's launch count
+          stays 0 around it), float32 weights from seed 0 made on the
+          card, TF32 off: (a) qwen2.5-3b at full width and depth (36
+          layers, d_model 2048, 16 heads over 2 KV heads, d_ff 11008,
+          vocab 151936: 3.09 B parameters, 12.3 GB) through the serve
+          launcher, ``--arch qwen2.5-3b --full-config --batch 4
+          --prompt-len 64 --new 32`` (bfloat16 caches); (b) gemma3-4b at
+          full width and depth (34 layers, 5 local to 1 global, window
+          1024: 3.88 B parameters, 15.5 GB), batch 1, prompt 2048, then 16
+          decode steps (both chunking branches of attention, the roll into
+          the ring, ring slots that wrap).  For each, on the launcher's
+          weights: prefill and 8 (qwen) or 16 (gemma) teacher-forced decode
+          steps with float32 caches against ``forward`` over the prompt
+          and the fed tokens (gemma's forward runs over 3072 tokens, a
+          whole number of query chunks; later tokens change nothing at the
+          compared positions); prefill ms (CUDA events, median of 3) and
+          tokens/s against its FLOPs over the float32 peak
+          (``counting.step_flops`` less the head of all tokens but the
+          last, whose logits a prefill never computes);
+          decode-step ms (median of the launcher's steps, each ended by a
+          sync) and tokens/s against the parameter bytes over the HBM
+          rate; device ms and launches of one decode step (the profiler);
+          peak memory.  Then the card against the port's own code in
+          float64 on the CPU, at full width with depth cut to 2 layers
+          (the pattern's first and its first of another kind, so one
+          sliding and one global layer of gemma3-4b) on weights from
+          seed 0, and the same card run once more with TF32 products
+          (recorded, then TF32 off again):
+          qwen2.5-3b (batch 4, prompt 64, 4 decode steps), gemma3-4b
+          (batch 1, prompt 1024: a full ring, 4 steps that wrap it), and
+          (c) hubert-xlarge's ``encode_step`` on (2, 1024, 512) frames and
+          pixtral-12b's prefill of 256 patches before 64 tokens, batch 2,
+          then 2 decode steps
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line (each kernel's times, bounds and shapes summed over
@@ -170,6 +204,24 @@ more a step (2^-23 |v_t|) and the division by T once (2^-24 |logit|), with
 to the sum of its flip and rounding bounds, and the loss sum(logits ** 2)
 to the sum over pixels of e (2 |l| + e), e that bound.
 All plain versions and yardsticks run with TF32 off.
+
+The LM bounds.  Decode against forward on the same weights, float32
+caches, within ``tests/test_decode.py``'s bounds: ``LM_PREFILL_TOL`` for
+the prefill's logits and ``LM_DECODE_TOL`` for each decode step's, times
+max(1, max|forward logit|).  Those checks use prompts at least as long as
+the sliding window: a shorter prompt leaves the reference's max_len
+buffer in place of the ring, and its decode then attends past the window
+(the reference's behaviour, which the port keeps; ``ROADMAP.md`` queue
+3).  The card's float32 logits agree with the port's code in float64 on
+the CPU to ``LM_F64_TOL`` times max(1, max|float64 logit|): a float32
+product over at most 14336 terms of unit-scale operands is good to about
+1e-6 of its scale, and two layers and float32 norms, rope and softmax on
+both sides add little (measured on an H100: 1.5e-7 to 3.2e-6).  The same
+card runs with TF32 products (a 10-bit mantissa) must exceed the
+tolerance, so that it would see them (measured: 4.0e-5 to 1.8e-3; the
+random weights keep these logits under 1, so the floor of 1 makes the
+errors absolute).  1e-5 lies between the two, 3x from the largest float32
+error and 4x from the smallest TF32 one.
 """
 from __future__ import annotations
 
@@ -197,6 +249,9 @@ GRAD_REL = 1e-4            # ||g_hopper - g_batched|| / ||g_batched||
 FLIP_GRAD_REL = 1e-2       # the same, when the forward had threshold flips
 TRAJ_TOL = 1e-3            # 10-step loss trajectories, rel and abs
 MIN_LOSS_DROP = 0.05       # the hopper run's first loss minus its last
+LM_PREFILL_TOL = 1e-3      # LM prefill against forward, x max(1, |logit|)
+LM_DECODE_TOL = 2e-3       # LM decode against forward, x max(1, |logit|)
+LM_F64_TOL = 1e-5          # LM on the card against float64 on the CPU
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores (kernels A, D, F), and the dense tensor-core
 # rates of the pipes kernels B and C (bf16) and E (TF32) use
@@ -471,8 +526,16 @@ def ptxas_entries(log: str):
 
 
 def phase_build():
+    from repro_torch.analysis import check_cuda_abi
     from repro_torch.kernels import _build
     from repro_torch.kernels.spiking_conv import plan_mma_tiles
+    # the ctypes declarations against the sources' C entry points
+    checked = []
+    findings = check_cuda_abi(checked=checked)
+    emit("build", cuda_abi_entries=sorted({e for _, _, e in checked}),
+         cuda_abi_findings=[str(f) for f in findings])
+    if findings:
+        fail("cuda-abi: " + "; ".join(str(f) for f in findings))
     t0 = time.perf_counter()
     reports = _build.build(_build.KERNELS)
     seconds = time.perf_counter() - t0
@@ -2417,6 +2480,255 @@ def phase_entry(cfg, train_losses):
     return counted
 
 
+# -- the LM serving path (phase lm) --------------------------------------------
+
+def _lm_consistency(cfg, params, tokens, prompt_len: int, steps: int,
+                    forward_len: int):
+    """Decode against forward on the same weights, float32 caches (the
+    check of ``tests/test_decode.py``): prefill ``tokens[:, :prompt_len]``,
+    then ``steps`` teacher-forced decode steps; the forward runs over
+    ``tokens[:, :forward_len]`` (causal, so positions past the compared
+    ones change nothing).  Returns the largest error of the prefill and of
+    the decode logits, each over max(1, max|forward logit|)."""
+    import torch
+    from repro_torch.models import transformer
+    with torch.inference_mode():
+        full = transformer.forward(params, cfg, tokens=tokens[:, :forward_len],
+                                   remat=False)[0]
+        last, caches = transformer.prefill(
+            params, cfg, tokens=tokens[:, :prompt_len], remat=False,
+            max_len=prompt_len + steps, cache_dtype=torch.float32)
+        outs = [last]
+        for i in range(steps):
+            pos = prompt_len + i
+            logits, caches = transformer.decode_step(
+                params, caches, cfg, token=tokens[:, pos:pos + 1], pos=pos)
+            outs.append(logits)
+        errs = []
+        for i, got in enumerate(outs):
+            want = full[:, prompt_len - 1 + i].float()
+            scale = max(1.0, float(want.abs().max()))
+            errs.append(float((got[:, 0].float() - want).abs().max()) / scale)
+    return errs[0], max(errs[1:])
+
+
+def _f64_check(cfg, seed: int, batch: int, prompt_len: int, steps: int):
+    """Full width, depth cut to 2 layers (the pattern's first, then its
+    first of another kind if it has one: gemma's sliding and global
+    layers), through the config's frontend: the card's float32 logits
+    (the encoder's ``encode_step``, or a prefill, with the patches first
+    for pixtral, and ``steps`` decode steps) against the port's own code
+    in float64 on the CPU, on the same weights and inputs; and once more
+    on the card with TF32 products, to show the tolerance would see them.
+    Returns the output's shape, its largest error over max(1, max|float64
+    logit|), and the TF32 run's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import lm, transformer
+    pattern = cfg.pattern()
+    other = next((k for k in pattern if k != pattern[0]), pattern[1])
+    cut = dataclasses.replace(cfg, num_layers=2, stages=(
+        (1, (pattern[0], other)),))
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cut)
+    rng = np.random.default_rng(seed)
+    if cut.frontend == "frames":
+        frames = torch.from_numpy(rng.standard_normal(
+            (batch, prompt_len, cut.frontend_dim)).astype(np.float32))
+    else:
+        toks = torch.from_numpy(rng.integers(
+            0, cut.vocab_size, (batch, prompt_len + steps), dtype=np.int32))
+    patches = None
+    if cut.frontend == "patches+tokens":
+        patches = torch.from_numpy(rng.standard_normal(
+            (batch, cut.num_patches, cut.frontend_dim)).astype(np.float32))
+    off = 0 if patches is None else cut.num_patches
+
+    def run(p):
+        dev, dt = p.final_norm.scale.device, p.final_norm.scale.dtype
+        if cut.frontend == "frames":
+            return lm.make_encode_step(cut)(p, {"frames": frames.to(dev, dt)})
+        last, caches = transformer.prefill(
+            p, cut, tokens=toks[:, :prompt_len].to(dev),
+            patches=None if patches is None else patches.to(dev, dt),
+            remat=False, max_len=off + prompt_len + steps, cache_dtype=dt)
+        outs = [last]
+        for i in range(steps):
+            pos = prompt_len + i
+            last, caches = lm.make_decode_step(cut)(
+                p, caches, toks[:, pos:pos + 1].to(dev), off + pos)
+            outs.append(last)
+        return torch.cat(outs, 1)
+
+    with torch.inference_mode():
+        card = run(params).double().cpu()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            card_tf32 = run(params).double().cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        params.to(device="cpu", dtype=torch.float64)
+        ref = run(params)
+    del params
+    scale = max(1.0, float(ref.abs().max()))
+    if not torch.isfinite(card).all():
+        fail(f"lm {cfg.name}: non-finite logits on the card")
+    return (list(card.shape), float((card - ref).abs().max()) / scale,
+            float((card_tf32 - ref).abs().max()) / scale)
+
+
+def _lm_measure(cfg, s, params, prompt_len: int, batch: int):
+    """The card's numbers of one LM: prefill ms (CUDA events, median of 3)
+    and tokens/s, decode-step ms (the launcher's steps, each ended by a
+    sync: median) and tokens/s, device ms and launches of one decode step
+    (the profiler), each beside its bound: the parameter bytes over the
+    HBM rate for a decode step, the prefill's FLOPs over the float32 peak
+    for the prefill.  The prefill's FLOPs are ``counting.step_flops``
+    less the head of every token but the last: it counts the logits of
+    every token, and a prefill computes the last token's only."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import counting, transformer
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, prompt_len), dtype=np.int32)).cuda()
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: transformer.prefill(
+            params, cfg, tokens=toks, remat=False, max_len=prompt_len + 1),
+            reps=3, warmup=1)
+        _, caches = transformer.prefill(params, cfg, tokens=toks,
+                                        remat=False, max_len=prompt_len + 1)
+        tok = toks[:, :1]
+        by_kernel, launches = device_time(lambda: transformer.decode_step(
+            params, caches, cfg, token=tok, pos=prompt_len), reps=3)
+    step_ms = statistics.median(s["decode_step_seconds"]) * 1e3
+    n_params = counting.count_params(cfg)
+    step_flops = counting.step_flops(cfg, ShapeConfig(
+        "prefill", prompt_len, batch, "prefill"))["fwd"]
+    flops = step_flops - (batch * prompt_len - batch) * 2.0 * cfg.d_model \
+        * cfg.vocab_size
+    decode_device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "params": n_params, "param_bytes": 4 * n_params,
+        "prefill_tokens": batch * prompt_len,
+        "prefill_ms": prefill_ms,
+        "prefill_ms_first_call": s["prefill_seconds"] * 1e3,
+        "prefill_tokens_per_s": batch * prompt_len / prefill_ms * 1e3,
+        "prefill_flops": flops,
+        "prefill_step_flops": step_flops,
+        "prefill_bound_ms": flops / PEAK_FP32 * 1e3,
+        "decode_step_ms": step_ms,
+        "decode_step_ms_all": [x * 1e3 for x in s["decode_step_seconds"]],
+        "decode_tokens_per_s": batch / step_ms * 1e3,
+        "decode_bound_ms": 4 * n_params / PEAK_BYTES * 1e3,
+        "decode_device_ms": decode_device_ms,
+        "decode_device_idle_share": max(0.0, 1 - decode_device_ms / step_ms),
+        "decode_launches_per_step": launches / 3,
+        "decode_top_device_ms": [[k[:80], v] for k, v in top],
+    }
+
+
+def phase_lm():
+    """The LM substrate's serving path on the card (module doc, phase
+    ``lm``).  Returns nothing: it launches none of the SNN kernels."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch import serve as serve_launcher
+    t_phase = time.perf_counter()
+    emit("lm", tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+         float32_matmul_precision=torch.get_float32_matmul_precision())
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm: TF32 matmuls are on; the LM runs in full float32")
+    runs = {"qwen2.5-3b": dict(batch=4, prompt=64, new=32, check_steps=8,
+                                forward_len=72),
+            "gemma3-4b": dict(batch=1, prompt=2048, new=17, check_steps=16,
+                              forward_len=3072)}
+    for arch, r in runs.items():
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = serve_launcher.main([
+            "--arch", arch, "--full-config", "--batch", str(r["batch"]),
+            "--prompt-len", str(r["prompt"]), "--new", str(r["new"]),
+            "--log-level", "error"])
+        torch.cuda.synchronize()
+        launcher_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: v for k, v in read_counts().items() if v}
+        params = s.pop("params")
+        if counts:
+            fail(f"lm {arch}: the LM path launched SNN kernels {counts}")
+        if not np.isfinite(s["logits"]).all():
+            fail(f"lm {arch}: non-finite logits")
+        # the consistency check: prompts at least the window long (a
+        # shorter one leaves the reference's max_len buffer, whose decode
+        # attends past the window; ROADMAP queue 3)
+        window = cfg.attn.window
+        if window and r["prompt"] < window:
+            fail(f"lm {arch}: prompt {r['prompt']} < window {window}")
+        toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab_size, (r["batch"], r["forward_len"]),
+            dtype=np.int32)).cuda()
+        prefill_err, decode_err = _lm_consistency(
+            cfg, params, toks, r["prompt"], r["check_steps"],
+            r["forward_len"])
+        numbers = _lm_measure(cfg, s, params, r["prompt"], r["batch"])
+        emit("lm", part=f"{arch} full width and depth, serve launcher",
+             layers=cfg.num_layers, d_model=cfg.d_model,
+             batch=r["batch"], prompt_len=r["prompt"], new=r["new"],
+             generated=s["tokens"].shape, sample=s["tokens"][0, :8].tolist(),
+             launcher_seconds=launcher_s, peak_memory_bytes=peak,
+             decode_vs_forward={"prefill_err": prefill_err,
+                                "decode_err": decode_err,
+                                "prefill_tol": LM_PREFILL_TOL,
+                                "decode_tol": LM_DECODE_TOL,
+                                "decode_steps": r["check_steps"],
+                                "cache_dtype": "float32"},
+             snn_kernel_launches=counts, device=s["device"], **numbers)
+        if prefill_err > LM_PREFILL_TOL or decode_err > LM_DECODE_TOL:
+            fail(f"lm {arch}: decode against forward: prefill {prefill_err}"
+                 f" (bound {LM_PREFILL_TOL}), decode {decode_err} (bound "
+                 f"{LM_DECODE_TOL})")
+        del params, s
+    # the card against float64 on the CPU, full width, depth 2, each
+    # through its frontend: (c) hubert's encode_step on frames, pixtral's
+    # prefill with its 256 patches before the tokens
+    checks = {"qwen2.5-3b": dict(batch=4, prompt_len=64, steps=4),
+              "gemma3-4b": dict(batch=1, prompt_len=1024, steps=4),
+              "hubert-xlarge": dict(batch=2, prompt_len=1024, steps=0),
+              "pixtral-12b": dict(batch=2, prompt_len=64, steps=2)}
+    for arch, c in checks.items():
+        cfg = get_arch(arch)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        shape, err, tf32_err = _f64_check(cfg, SEED, **c)
+        emit("lm", part=f"{arch}: card float32 against CPU float64, full "
+             f"width, 2 layers, frontend {cfg.frontend}", shape=shape,
+             max_err_over_scale=err, tol=LM_F64_TOL,
+             tf32_max_err_over_scale=tf32_err,
+             tf32_after=torch.backends.cuda.matmul.allow_tf32,
+             seconds=time.perf_counter() - t0, **c)
+        want_len = (c["prompt_len"] if cfg.is_encoder_only
+                    else 1 + c["steps"])
+        if shape != [c["batch"], want_len, cfg.vocab_size]:
+            fail(f"lm {arch}: output shape {shape}")
+        if err > LM_F64_TOL:
+            fail(f"lm {arch}: card against float64 {err} > {LM_F64_TOL}")
+        if tf32_err <= LM_F64_TOL:
+            fail(f"lm {arch}: with TF32 products the error {tf32_err} is "
+                 f"within {LM_F64_TOL}: the check would not see them")
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"lm {arch}: TF32 was left on after the TF32 run")
+    torch.cuda.empty_cache()
+    emit("lm", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -2480,6 +2792,8 @@ def main() -> int:
     # the launchers on the facade and the four examples (their own counts)
     for name, n in phase_entry(cfg, train_losses).items():
         launches[name] = launches.get(name, 0) + n
+    # the LM substrate's serving path (no SNN kernel)
+    phase_lm()
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     # each TPU kernel's pl.pallas_call site

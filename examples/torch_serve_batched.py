@@ -1,7 +1,8 @@
-"""Batched SNN frame inference through the selectable backend, on the
-PyTorch port (the SNN path of the reference's
-``examples/serve_batched.py``; its LM path waits for the port of the LM
-substrate).
+"""Batched serving on the PyTorch port: batched SNN frame inference
+through the selectable backend, or an LM's prefill of a batch of prompts
+followed by greedy decoding with the production cache machinery (ring
+buffers for sliding layers); the port of the reference's
+``examples/serve_batched.py``.
 
     PYTHONPATH=src python examples/torch_serve_batched.py --snn snn-mnist \
         --batch 8
@@ -9,12 +10,17 @@ substrate).
         --threaded --lanes 2        # worker-thread lanes vs single thread
     PYTHONPATH=src python examples/torch_serve_batched.py --device cpu \
         --backend batched --batch 2
+    PYTHONPATH=src python examples/torch_serve_batched.py --arch gemma3-4b \
+        --new 32 --device cpu       # reduced config
 
 The default A/B serves one batch through the timestep-outer ``ref``
 backend and through ``--backend`` (``hopper``, the default: the kernels on
 the card), both through ``Session.serve``; ``--threaded`` A/Bs the
 worker-thread engine against the single-thread virtual-clock engine on a
-skewed burst.
+skewed burst.  ``--arch`` serves the arch's ``reduced`` config: weights
+and prompts from seed 0, one prefill, ``--new - 1`` decode steps
+(``launch.serve.serve_lm``), with the prefill's time, the decode rate and
+a sample of the generated ids.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch import api
-from repro_torch.config import SNNConfig, get_snn
+from repro_torch.config import ArchConfig, SNNConfig, get_arch, get_snn, \
+    reduced
 from repro_torch.core import SNN_BACKENDS
+from repro_torch.launch.serve import serve_lm
 from repro_torch.obs.log import configure_logging, get_logger
 
 log = get_logger("examples")
@@ -102,9 +110,35 @@ def serve_snn_threaded(cfg: SNNConfig, *, params: Optional[Dict] = None,
             "request_balance": balance, "speedup": speedup}
 
 
+def serve_lm_batched(cfg: ArchConfig, *, params=None, prompts=None,
+                     batch: int = 4, prompt_len: int = 64, new: int = 32,
+                     device=None) -> Dict:
+    """Prefill ``batch`` prompts (or ``prompts``), then decode ``new - 1``
+    greedy steps (``launch.serve.serve_lm``, seed 0), logging the
+    prefill's ms, the decode rate and the first sequence's first 16
+    generated ids.  Returns serve_lm's numbers."""
+    s = serve_lm(cfg, batch=batch, prompt_len=prompt_len, new=new,
+                 device=device, params=params, prompts=prompts)
+    log.info("prefill: %dx%d in %.0fms", s["batch"], s["prompt_len"],
+             s["prefill_seconds"] * 1e3)
+    log.info("decode: %d tokens in %.0fms (%.1f tok/s on %s, %s)",
+             s["decode_tokens"], s["decode_seconds"] * 1e3,
+             s["decode_tokens_per_s"], s["device"], cfg.name)
+    log.info("sample generation (token ids): %s",
+             s["tokens"][0, :16].tolist())
+    if not np.isfinite(s["logits"]).all():
+        raise AssertionError(f"{cfg.name} gave non-finite logits")
+    return s
+
+
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--snn", default="snn-mnist")
+    ap.add_argument("--arch", default=None,
+                    help="serve a registered LM's reduced config instead "
+                         "of an SNN (e.g. gemma3-4b)")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new", type=int, default=32)
     ap.add_argument("--backend", default="hopper", choices=SNN_BACKENDS,
                     help="SNN execution backend (see core.snn_model)")
     ap.add_argument("--batch", type=int, default=4)
@@ -118,6 +152,10 @@ def main(argv=None) -> Dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     configure_logging("info")
+    if args.arch:
+        return serve_lm_batched(reduced(get_arch(args.arch)),
+                                batch=args.batch, prompt_len=args.prompt_len,
+                                new=args.new, device=args.device)
     cfg = get_snn(args.snn)
     if args.threaded:
         return serve_snn_threaded(cfg, backend=args.backend,

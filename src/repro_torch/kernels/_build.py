@@ -10,25 +10,29 @@ wrapper call builds what it needs, and ``build`` builds several kernels at
 once, one ``nvcc`` process each, all started together.  A wrapper binds its
 entry point once (``entry``) and launches it on the current stream
 (``launch``), so a call costs the checks, a dictionary lookup and the
-ctypes call.  ``build`` and
-``load`` hold one process-wide lock, and each build writes a temporary
-file named by process and thread, so serving lanes on several threads may
-make their first calls at once.
+ctypes call.  The ctypes argument types of a launch function are read from
+its ``extern "C"`` signature in the source (``argtypes``), so they cannot
+drift from the C function, and ``launch`` refuses a call that passes
+another number of arguments.  ``build`` and ``load`` hold one process-wide
+lock, and each build writes a temporary file named by process and thread,
+so serving lanes on several threads may make their first calls at once.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "entry", "launch",
+           "argtypes", "c_signatures", "extern_functions", "CTYPES",
            "check_cuda_args", "check_launch"]
 
 # one library per source; spiking_conv_lif.cu holds kernels B and C
@@ -39,9 +43,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the ctypes type of each kind of parameter a launch function takes; the
+# last parameter of every launch function is ``void* stream``
+CTYPES = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
+          "long long": ctypes.c_longlong, "float": ctypes.c_float,
+          "stream": ctypes.c_void_p}
+_EXTERN = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# (source, entry point) -> (library, bound launch function)
-_ENTRIES: Dict[Tuple[str, str], Tuple[ctypes.CDLL, object]] = {}
+# (source, entry point) -> (library, bound launch function, its argument
+# count before the stream)
+_ENTRIES: Dict[Tuple[str, str], Tuple[ctypes.CDLL, object, int]] = {}
 # guards _LIBS, the build directory and the argtypes of the entry points
 _LOCK = threading.RLock()
 
@@ -95,10 +107,57 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
         return reports
 
 
-def load(name: str, argtypes: Sequence, entry: str = "") -> ctypes.CDLL:
+def _c_kind(param: str) -> str:
+    decl = " ".join(param.split())
+    if "*" in decl:
+        return "pointer"
+    base = decl.rsplit(" ", 1)[0].replace("const ", "").strip()
+    return base if base in CTYPES else f"unknown ({base})"
+
+
+def extern_functions(path: Path) -> Iterator[Tuple[str, List[str], int]]:
+    """(name, parameter kinds, line) of every ``extern "C" int`` function
+    of the source ``path``; a last ``void* stream`` parameter is of kind
+    stream."""
+    text = re.sub(r"//[^\n]*", "", path.read_text())
+    for m in _EXTERN.finditer(text):
+        params = [p for p in m.group(2).split(",") if p.strip()]
+        kinds = [_c_kind(p) for p in params]
+        if params and re.search(r"void\s*\*\s*stream\s*$",
+                                params[-1].strip()):
+            kinds[-1] = "stream"
+        yield m.group(1), kinds, text.count("\n", 0, m.start()) + 1
+
+
+def c_signatures(csrc: Path = CSRC) -> Dict[str, Dict[str, List[str]]]:
+    """{source stem: {entry: [kinds]}} of every ``extern "C"`` function in
+    ``csrc/*.cu``."""
+    return {path.stem: {name: kinds
+                        for name, kinds, _ in extern_functions(path)}
+            for path in sorted(csrc.glob("*.cu"))}
+
+
+def argtypes(name: str, entry: str = "") -> List:
+    """The ctypes argument types of launch function ``entry`` (default
+    ``<name>_launch``) of source ``name``, read from its C signature."""
+    entry = entry or f"{name}_launch"
+    kinds = {n: k for n, k, _ in extern_functions(CSRC / f"{name}.cu")
+             }.get(entry)
+    if kinds is None:
+        raise ValueError(f"{entry} is not an extern \"C\" function of "
+                         f"csrc/{name}.cu")
+    if not kinds or kinds[-1] != "stream" \
+            or any(k not in CTYPES for k in kinds):
+        raise ValueError(f"{entry} takes parameters {kinds}: each must be "
+                         f"one of {sorted(CTYPES)}, the last void* stream")
+    return [CTYPES[k] for k in kinds]
+
+
+def load(name: str, entry: str = "") -> ctypes.CDLL:
     """The loaded library of source ``name``, built first if need be, with
     its launch function ``entry`` (default ``<name>_launch``) declared to
-    take ``argtypes`` and return a CUDA error code."""
+    take the ``argtypes`` of its C signature and return a CUDA error
+    code."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -111,31 +170,38 @@ def load(name: str, argtypes: Sequence, entry: str = "") -> ctypes.CDLL:
             _LIBS[name] = lib
         launch = getattr(lib, entry or f"{name}_launch")
         if launch.argtypes is None:
-            launch.argtypes = list(argtypes)
+            launch.argtypes = argtypes(name, entry)
             launch.restype = ctypes.c_int
         return lib
 
 
-def entry(name: str, argtypes: Sequence, entry: str = ""
-          ) -> Tuple[ctypes.CDLL, object]:
-    """(library, launch function) of entry point ``entry`` (default
-    ``<name>_launch``) of source ``name``: ``load``ed and bound at the first
-    call, a dictionary lookup after it."""
+def entry(name: str, entry: str = "") -> Tuple[ctypes.CDLL, object, int]:
+    """(library, launch function, its argument count before the stream) of
+    entry point ``entry`` (default ``<name>_launch``) of source ``name``:
+    ``load``ed and bound at the first call, a dictionary lookup after it.
+    Name both with string literals: ``analysis.cuda_abi`` checks them."""
     key = (name, entry or f"{name}_launch")
     found = _ENTRIES.get(key)
     if found is None:
         with _LOCK:
-            lib = load(name, argtypes, key[1])
-            found = _ENTRIES.setdefault(key, (lib, getattr(lib, key[1])))
+            lib = load(name, key[1])
+            func = getattr(lib, key[1])
+            found = _ENTRIES.setdefault(key, (lib, func,
+                                              len(func.argtypes) - 1))
     return found
 
 
-def launch(dev: torch.device, fn: str, bound: Tuple[ctypes.CDLL, object],
-           *args) -> None:
+def launch(dev: torch.device, fn: str,
+           bound: Tuple[ctypes.CDLL, object, int], *args) -> None:
     """Call the launch function of ``bound`` (an ``entry``) with ``args``
     and the current stream of ``dev``, on ``dev`` (made the current device
-    only when it is not), and raise if the launch failed."""
-    lib, func = bound
+    only when it is not), and raise if the launch failed.  ``args`` must
+    be as many as the C function's parameters before the stream (ctypes
+    would pass extra ones on unchecked)."""
+    lib, func, n = bound
+    if len(args) != n:
+        raise TypeError(f"{fn}: {len(args)} arguments before the stream, "
+                        f"its launch function takes {n}")
     if dev.index == torch.cuda.current_device():
         rc = func(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:

@@ -14,7 +14,6 @@ CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -26,9 +25,6 @@ __all__ = ["lif_fused", "lif_fused_plain", "DTYPES"]
 
 # storage types the kernel takes, in the order of its dtype argument
 DTYPES = (torch.float32, torch.bfloat16)
-# lif_fused_launch(v, z, v_out, s_out, n, dtype, v_th, stream)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p]
 
 lif_fused_plain = lif_fused_ref
 
@@ -48,7 +44,7 @@ def lif_fused(v: torch.Tensor, z: torch.Tensor, v_th: float
     v_new, s = torch.empty_like(v), torch.empty_like(v)
     if v.numel() == 0:
         return v_new, s
-    _build.launch(dev, fn, _build.entry(fn, _ARGTYPES), v.data_ptr(),
+    _build.launch(dev, fn, _build.entry("lif_fused"), v.data_ptr(),
                   z.data_ptr(), v_new.data_ptr(), s.data_ptr(), v.numel(),
                   DTYPES.index(v.dtype), float(v_th))
     lif_fused.launches += 1

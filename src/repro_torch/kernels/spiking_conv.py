@@ -30,7 +30,6 @@ block must not be skipped.  The kernel takes its skip per thread block
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Tuple
 
@@ -52,19 +51,6 @@ _MAX_SMEM = 227 * 1024    # bytes a block may use on sm_90
 BLOCK_ROWS = 8            # output rows per thread block (and per skip cell)
 MMA_WARPS = 8             # warps of a tensor-core kernel block (mma_tile.cuh)
 MMA_TILES = 2             # m16 tiles one warp holds
-# spiking_conv_launch(x, w, b, out, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
-#                     block_rows, cout_tile, stream)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-# spiking_conv_lif_hoisted_launch(x, v0, w, b, s, v, u, T, N, H, W, Cin, Cout,
-#                                 R, pad_lo, E_h, E_w, block_rows, cout_tile,
-#                                 v_th, stream); u is null without SAVE_U
-_HOISTED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
-    + [ctypes.c_float, ctypes.c_void_p]
-# conv_grad_input_launch(g, w, dx, N, H, W, Cin, Cout, R, pad_lo, E_h, E_w,
-#                        block_rows, cout_tile, stream), in the backward's
-# terms (see csrc/conv_grad_input.cu)
-_GRAD_INPUT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
-    + [ctypes.c_void_p]
 
 # The plain versions are the oracles themselves.
 spiking_conv_plain = spiking_conv_ref
@@ -234,7 +220,7 @@ def _spiking_conv_primal(spikes: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n, e_h, e_w, cout), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    _build.launch(dev, fn, _build.entry("spiking_conv", _ARGTYPES),
+    _build.launch(dev, fn, _build.entry("spiking_conv"),
                   spikes.data_ptr(), w.data_ptr(), bias.data_ptr(),
                   out.data_ptr(), n, h, wd, cin, cout, r, pad_lo, e_h, e_w,
                   block_rows, cout_tile)
@@ -320,8 +306,8 @@ def spiking_conv_lif_hoisted(frames: torch.Tensor, v0: torch.Tensor,
     if t == 0 or v.numel() == 0:
         v.copy_(v0)
         return outs
-    _build.launch(dev, fn, _build.entry("spiking_conv", _HOISTED_ARGTYPES,
-                                        f"{fn}_launch"),
+    _build.launch(dev, fn, _build.entry(
+                      "spiking_conv", "spiking_conv_lif_hoisted_launch"),
                   frames.data_ptr(), v0.data_ptr(), w.data_ptr(),
                   bias.data_ptr(), s.data_ptr(), v.data_ptr(),
                   outs[2].data_ptr() if save_u else None, t, n, h, wd, cin,
@@ -364,7 +350,7 @@ def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((n, h, wd, cin), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    _build.launch(dev, fn, _build.entry(fn, _GRAD_INPUT_ARGTYPES),
+    _build.launch(dev, fn, _build.entry("conv_grad_input"),
                   dz.data_ptr(), w.data_ptr(), out.data_ptr(), n, e_h, e_w,
                   cout, cin, r, r - 1 - lo, h, wd, plan.block_rows,
                   plan.cout_tile)

@@ -28,7 +28,6 @@ CUDA tensors it launches its kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -46,17 +45,6 @@ __all__ = ["spiking_conv_lif", "spiking_conv_lif_plain",
            "spiking_conv_lif_fwd", "lif_bwd", "lif_bwd_plain",
            "SpikingConvLIFFn", "HoistedConvLIFFn"]
 
-# spiking_conv_lif_launch(x, v0, w, b, s, v, T, N, H, W, Cin, Cout, R, pad_lo,
-#                         E_h, E_w, block_rows, cout_tile, v_th, stream);
-# spiking_conv_lif_fwd_launch takes u after v
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 \
-    + [ctypes.c_float, ctypes.c_void_p]
-_FWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
-    + [ctypes.c_float, ctypes.c_void_p]
-# lif_bwd_launch(u, g_s, g_v, lam, dv0, T, M, kind, v_th, alpha, stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                                         ctypes.c_int, ctypes.c_float,
-                                         ctypes.c_float, ctypes.c_void_p]
 
 # The plain versions are the oracles themselves (per-t conv plus LIF; the
 # reverse-time scan).
@@ -89,8 +77,8 @@ def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
     if v.numel() == 0:
         return outs
     _build.launch(dev, fn, _build.entry(
-        "spiking_conv_lif", _FWD_ARGTYPES if save_u else _ARGTYPES,
-        f"{fn}_launch"),
+        "spiking_conv_lif", "spiking_conv_lif_fwd_launch" if save_u
+        else "spiking_conv_lif_launch"),
         spikes.data_ptr(), v0.data_ptr(), w.data_ptr(), bias.data_ptr(),
         *(o.data_ptr() for o in outs), t, n, h, wd, cin, cout, r, pad_lo,
         e_h, e_w, plan.block_rows, plan.cout_tile, float(v_th))
@@ -137,7 +125,7 @@ def lif_bwd(u: torch.Tensor, g_s: torch.Tensor, g_v: torch.Tensor, *,
         return lam, dv0.copy_(g_v)
     if dv0.numel() == 0:
         return lam, dv0
-    _build.launch(dev, fn, _build.entry(fn, _BWD_ARGTYPES),
+    _build.launch(dev, fn, _build.entry("lif_bwd"),
                   u.data_ptr(), g_s.data_ptr(), g_v.data_ptr(),
                   lam.data_ptr(), dv0.data_ptr(), u.shape[0], g_v.numel(),
                   # the kernel's Kind enum numbers the surrogates in this

@@ -1,5 +1,5 @@
 """Serving launcher: SNN frame inference through the ``repro_torch.api``
-facade.
+facade, and LM decoding against prefix caches (``--arch``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --snn snn-mnist \
         --backend hopper --schedule aprc+cbws --batch 256 --steps 8
@@ -13,6 +13,10 @@ facade.
         --forever --lanes 2      # live submission + per-request futures
     PYTHONPATH=src python -m repro_torch.launch.serve --mesh data=2 \
         --device cpu --batch 4 --steps 2   # batch sharded over 2 entries
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --full-config --batch 4 --prompt-len 64 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+        --device cpu --batch 2 --prompt-len 16 --new 8   # reduced config
 
 The flags build one validated ``ServeSpec`` (backend, ``--schedule``
 kernel schedule, lanes, SLO), or ``--spec-file`` loads one from JSON
@@ -41,6 +45,15 @@ submission (``Session.serve_forever`` + per-request futures, threaded
 lanes, ``--max-queue`` backpressure).  ``--trace-out`` records the
 engine's lifecycle events and writes them as Chrome trace-event JSON
 (``obs.export``; load it in Perfetto).
+
+``--arch`` serves a registered LM instead (``reduced`` unless
+``--full-config``), the reference's loop: weights from ``--seed`` (made
+on the device by a generator there), ``--batch`` prompts of
+``--prompt-len`` int32 tokens from numpy, one prefill into bfloat16
+caches of ``--prompt-len + --new`` positions, then ``--new - 1`` greedy
+decode steps, under ``torch.inference_mode``.  An encoder-only arch
+(hubert) has no decode path and exits; an arch with a kind this port has
+not reached raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,9 +67,12 @@ import numpy as np
 import torch
 
 from repro_torch import api
-from repro_torch.config import SNNConfig, get_snn
+from repro_torch.config import ArchConfig, SNNConfig, get_arch, get_snn, \
+    reduced
 from repro_torch.core.snn_model import SNN_BACKENDS
+from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import parse_mesh
+from repro_torch.models import transformer
 from repro_torch.obs.export import write_chrome_trace
 from repro_torch.obs.log import LOG_LEVELS, configure_logging, get_logger
 
@@ -214,9 +230,82 @@ def spec_from_args(args) -> api.ServeSpec:
     return dataclasses.replace(spec, **overrides) if overrides else spec
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 64,
+             new: int = 32, seed: int = 0, device=None,
+             params: Optional[transformer.Transformer] = None,
+             prompts: Optional[np.ndarray] = None) -> Dict:
+    """Prefill ``batch`` prompts of ``prompt_len`` tokens, then decode
+    ``new - 1`` greedy steps.  ``params`` default to weights drawn from
+    ``seed`` on ``device`` (default: the card), ``prompts`` to int32 ids
+    from numpy ``seed`` (given ones set the batch and the prompt length).
+    Returns the generated ids (batch, new), the last
+    step's logits, the prefill's and each decode step's seconds (each
+    ended by a device sync), and the weights (``params``)."""
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode path")
+    dev = resolve_device(device)
+    if params is None:
+        params = transformer.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    if prompts is None:
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, prompt_len), dtype=np.int32)
+    prompts = np.asarray(prompts, dtype=np.int32)
+    batch, prompt_len = prompts.shape
+    tokens = torch.from_numpy(prompts).to(dev)
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(
+            params, cfg, tokens=tokens, remat=False,
+            max_len=prompt_len + new, cache_dtype=torch.bfloat16)
+        token = logits[:, -1:].argmax(-1).to(torch.int32)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        generated, step_s = [token], []
+        for i in range(new - 1):
+            t0 = time.perf_counter()
+            logits, caches = transformer.decode_step(
+                params, caches, cfg, token=token, pos=prompt_len + i)
+            token = logits.argmax(-1).to(torch.int32)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            generated.append(token)
+    decode_s = sum(step_s)
+    n = batch * len(step_s)
+    return {
+        "arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+        "new": new, "tokens": torch.cat(generated, 1).cpu().numpy(),
+        "logits": logits.float().cpu().numpy(),
+        "prefill_seconds": prefill_s,
+        "prefill_tokens_per_s": batch * prompt_len / prefill_s,
+        "decode_step_seconds": step_s, "decode_seconds": decode_s,
+        "decode_tokens": n,
+        "decode_tokens_per_s": n / decode_s if decode_s > 0 else 0.0,
+        "params": params,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
+
+
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--snn", default="snn-mnist")
+    ap.add_argument("--arch", default=None,
+                    help="serve a registered LM (repro_torch.config."
+                         "list_archs) instead of an SNN")
+    ap.add_argument("--full-config", action="store_true",
+                    help="--arch at its published widths and depth "
+                         "(default: config.reduced)")
+    ap.add_argument("--prompt-len", type=int, default=64,
+                    help="--arch: prompt tokens per sequence")
+    ap.add_argument("--new", type=int, default=32,
+                    help="--arch: tokens generated per sequence")
     ap.add_argument("--backend", default="hopper", choices=SNN_BACKENDS)
     ap.add_argument("--schedule", default="auto", choices=SCHEDULES,
                     help="kernel-level CBWS channel schedule (hopper "
@@ -231,7 +320,8 @@ def main(argv=None) -> Dict:
     ap.add_argument("--batch", type=int, default=None,
                     help="frames per request (default 256), or the engine's "
                          "largest micro-batch (default 8, or the spec "
-                         "file's max_batch)")
+                         "file's max_batch), or with --arch the prompts "
+                         "(default 4)")
     ap.add_argument("--steps", type=int, default=8,
                     help="timed requests (after one untimed warm-up), or "
                          "x --batch single-frame engine requests")
@@ -276,6 +366,17 @@ def main(argv=None) -> Dict:
                     help="stderr log verbosity (repro_torch.obs.log)")
     args = ap.parse_args(argv)
     configure_logging(args.log_level)
+    if args.arch:
+        cfg = get_arch(args.arch)
+        cfg = cfg if args.full_config else reduced(cfg)
+        s = serve_lm(cfg, batch=args.batch or 4, prompt_len=args.prompt_len,
+                     new=args.new, seed=args.seed, device=args.device)
+        log.info("served %d tokens in %.4fs (%.1f tokens/s decode, prefill "
+                 "%dx%d in %.4fs, arch=%s, device=%s)", s["decode_tokens"],
+                 s["decode_seconds"], s["decode_tokens_per_s"], s["batch"],
+                 s["prompt_len"], s["prefill_seconds"], cfg.name,
+                 s["device"])
+        return s
     cfg = get_snn(args.snn)
     spec = spec_from_args(args)
     if args.engine or args.forever:

@@ -5,9 +5,10 @@ reference's ``repro.sharding``).
 mesh axes; ``cbws_sharding`` carries the CBWS load-balanced placement
 helpers.  The live consumer is ``repro_torch.dist.MeshRunner``, which
 drives the ``batch`` -> ``data`` rule for sharded inference and training.
-The reference's ``partitioning`` (param, optimizer and batch shardings of
-the LM) and ``shard_logical`` (called only by LM layers) come with the LM
-substrate (ROADMAP queue 1, item 14).  ``cbws_sharding`` loads lazily
+``shard_logical`` (called only by LM layers) returns its input when no
+context is active and raises under one; the reference's ``partitioning``
+(param, optimizer and batch shardings of the LM) and ``shard_logical`` on
+a mesh are the LM half of ROADMAP item 11.  ``cbws_sharding`` loads lazily
 (PEP 562), as in the reference.
 """
 from __future__ import annotations
@@ -16,7 +17,8 @@ import importlib
 
 from repro_torch.sharding.context import (DEFAULT_RULES, RULE_PROFILES,
                                           ShardingCtx, current_ctx,
-                                          make_rules, use_sharding)
+                                          make_rules, shard_logical,
+                                          use_sharding)
 
 __all__ = [
     "DEFAULT_RULES",
@@ -27,6 +29,7 @@ __all__ = [
     "expert_placement",
     "make_rules",
     "placement_balance",
+    "shard_logical",
     "snn_channel_permutation",
     "use_sharding",
 ]

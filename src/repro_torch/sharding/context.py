@@ -11,6 +11,13 @@ live consumer is ``dist.MeshRunner``, which shards the batch axis over
 what ``axes_for("batch")`` resolves to.  ``use_sharding`` and
 ``current_ctx`` thread a context to code below without plumbing it
 through every signature (thread-local, as in the reference).
+
+``shard_logical`` is what the LM layers call on their activations.  With
+no active context it returns its input, as the reference does.  Under an
+active context the reference applies a GSPMD constraint; torch has none to
+apply, and ignoring the context would hide that the model is not sharded,
+so it raises until the LM half of ROADMAP item 11 (``partitioning``,
+``shard_logical`` on a mesh) is ported.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 from repro_torch.dist.mesh import DeviceMesh, normalize_mesh
 
 __all__ = ["DEFAULT_RULES", "RULE_PROFILES", "make_rules", "ShardingCtx",
-           "current_ctx", "use_sharding"]
+           "current_ctx", "use_sharding", "shard_logical"]
 
 _state = threading.local()
 
@@ -178,3 +185,16 @@ def use_sharding(ctx: Optional[ShardingCtx]):
         yield ctx
     finally:
         _state.ctx = prev
+
+
+def shard_logical(x, logical: Sequence[Optional[str]]):
+    """``x`` itself when no sharding context is active; under one, raises
+    ``NotImplementedError`` (the LM layers' sharding is not ported)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    raise NotImplementedError(
+        f"shard_logical{tuple(logical)} under an active ShardingCtx over "
+        f"{ctx.axis_sizes}: the LM half of ROADMAP item 11 (partitioning, "
+        f"shard_logical on a mesh) is not ported; run the LM layers with no "
+        f"sharding context")

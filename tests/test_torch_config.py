@@ -154,6 +154,17 @@ def test_package_imports_neither_jax_nor_the_reference():
         "ms.train_step(x, torch.tensor([1, 2]))\n"
         "import importlib.util, logging, pathlib\n"
         "import repro_torch.obs.log, repro_torch.obs.export\n"
+        "import repro_torch.models.transformer, repro_torch.models.lm\n"
+        "import repro_torch.models.counting, repro_torch.analysis\n"
+        "from repro_torch.config import get_arch, reduced\n"
+        "lm_cfg = reduced(get_arch('gemma3-4b'))\n"
+        "lm = repro_torch.models.transformer.init_params(\n"
+        "    torch.Generator().manual_seed(0), lm_cfg, device='cpu')\n"
+        "with torch.inference_mode():\n"
+        "    out = repro_torch.models.lm.make_prefill_step(lm_cfg)(\n"
+        "        lm, {'tokens': torch.zeros((1, 4), dtype=torch.int32)})\n"
+        "assert out[0].shape == (1, 1, lm_cfg.vocab_size)\n"
+        "assert not repro_torch.analysis.check_cuda_abi()\n"
         "for name in ('quickstart', 'snn_mnist_train', 'serve_batched',\n"
         "             'snn_accelerator_sim'):\n"
         f"    path = pathlib.Path({str(SRC.parent / 'examples')!r})\n"

@@ -960,3 +960,106 @@ def test_device_mesh_takes_only_visible_cards(card):
     with pytest.raises(ValueError, match=rf"needs {count + 1} devices but "
                        rf"only {count} CUDA devices"):
         DeviceMesh(("data", count + 1))
+
+
+# -- the LM serving path on the card -------------------------------------------
+
+def _lm(card, arch, window=0):
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer
+    cfg = reduced(get_arch(arch))
+    if window:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, window=window))
+    return cfg, transformer.init_params(
+        torch.Generator(device=card).manual_seed(0), cfg, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", [("qwen2.5-3b", 0),
+                                         ("gemma3-4b", 8)])
+def test_lm_decode_matches_forward_on_the_card(card, arch, window):
+    """A reduced dense and a reduced sliding config (window 8, so the ring
+    wraps): prefill and 12 teacher-forced decode steps against the forward,
+    float32 caches, within tests/test_decode.py's 1e-3 and 2e-3 of
+    max(1, max|logit|)."""
+    from repro_torch.models import transformer
+    cfg, params = _lm(card, arch, window)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 44), dtype=np.int32)).to(card)
+    with torch.inference_mode():
+        full = transformer.forward(params, cfg, tokens=toks, remat=False)[0]
+        logits, caches = transformer.prefill(
+            params, cfg, tokens=toks[:, :32], remat=False, max_len=44,
+            cache_dtype=torch.float32)
+        scale = max(1.0, float(full[:, 31].abs().max()))
+        assert float((logits[:, 0] - full[:, 31]).abs().max()) < 1e-3 * scale
+        for pos in range(32, 44):
+            logits, caches = transformer.decode_step(
+                params, caches, cfg, token=toks[:, pos:pos + 1], pos=pos)
+            scale = max(1.0, float(full[:, pos].abs().max()))
+            assert float((logits[:, 0] - full[:, pos]).abs().max()) \
+                < 2e-3 * scale, pos
+    assert all(c["mixer"]["k"].device.type == "cuda" for c in caches)
+
+
+@pytest.mark.cuda
+def test_lm_weights_are_made_on_the_card(card, monkeypatch):
+    """Every weight is drawn on the card by a generator there: no host
+    tensor is made and none is copied, and the card's allocated bytes grow
+    by at least the parameters' bytes (measured after a collection, so no
+    tensor of an earlier test is freed in between)."""
+    import gc
+
+    from repro_torch.models.layers import leaves
+    drawn, copies = [], []
+    randn = torch.randn
+
+    def recording_randn(*args, **kw):
+        out = randn(*args, **kw)
+        drawn.append((out.device.type, kw["generator"].device.type))
+        return out
+
+    monkeypatch.setattr(leaves.torch, "randn", recording_randn)
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda self, *a, **k: copies.append(self))
+    gc.collect()
+    torch.cuda.synchronize(card)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(card)
+    cfg, params = _lm(card, "gemma3-4b")
+    torch.cuda.synchronize(card)
+    grown = torch.cuda.memory_allocated(card) - before
+    want = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"memory_allocated grew by {grown} bytes; the parameters hold "
+          f"{want} bytes")
+    assert grown >= want, (grown, want)
+    assert drawn, "no weight was drawn"
+    assert set(drawn) == {("cuda", "cuda")}, set(drawn)
+    assert not copies, f"{len(copies)} host copies"
+    assert {p.device.type for p in params.parameters()} == {"cuda"}
+    from repro_torch.models import transformer
+    with pytest.raises(ValueError, match="generator lives on"):
+        transformer.init_params(torch.Generator(), cfg, device=card)
+
+
+@pytest.mark.cuda
+def test_lm_keeps_tf32_off(card):
+    """The LM's float32 products stay float32: TF32 is off after a forward
+    on the card, and a product of the model's widths agrees with float64
+    to far better than TF32's 10-bit mantissa would give."""
+    from repro_torch.models import transformer
+    cfg, params = _lm(card, "qwen2.5-3b")
+    with torch.inference_mode():
+        transformer.forward(params, cfg, tokens=torch.zeros(
+            (1, 8), dtype=torch.int32, device=card))
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    gen = torch.Generator(device=card).manual_seed(1)
+    a = torch.randn((64, 4096), generator=gen, device=card)
+    b = torch.randn((4096, 64), generator=gen, device=card)
+    exact = a.double() @ b.double()
+    err = float(((a @ b).double() - exact).abs().max())
+    assert err < 1e-4 * float(exact.abs().max())
