@@ -156,7 +156,27 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           (batch 1, prompt 1024: a full ring, 4 steps that wrap it), and
           (c) hubert-xlarge's ``encode_step`` on (2, 1024, 512) frames and
           pixtral-12b's prefill of 256 patches before 64 tokens, batch 2,
-          then 2 decode steps
+          then 2 decode steps.  (d) The DeepSeek layers: deepseek-moe-16b
+          at full width and depth (28 layers, a dense one then 27 of 64
+          routed experts top-6 and 2 shared: 16.38 B parameters, 65.5 GB)
+          through the serve launcher as (a) does, and deepseek-v3-671b at
+          full width cut to depth 2 (an MLA + dense layer, then an MLA +
+          MoE layer of 256 experts top-8 and 1 shared: 13.94 B
+          parameters, 55.8 GB) through ``serve_lm`` at batch 1, prompt
+          2048 (both query-chunk branches of MLA), 16 decode steps; the
+          MoE runs at its configured capacity factor 1.25, and the
+          decode-against-forward check (prompt 64, 8 steps) at 2 x E / k
+          on the same weights, so no token drops (the routed tokens
+          whose experts differ between the forward and the prefill or a
+          decode step are counted, with the near-tie margin); beside the
+          decode step's bound on all parameter bytes (the dense dispatch
+          reads every expert) the bound on the active ones
+          (``count_params(active_only=True)``); the prefill's dropped
+          (token, choice) pairs (``moe.recorded_routes``).  Their float64
+          checks: deepseek-moe-16b at depth 2 (its dense layer and a MoE
+          layer; the card's routing must equal float64's choice for
+          choice), deepseek-v3-671b at depth 1 (an MLA + dense layer: its
+          depth-2 cut would need 112 GB in float64 on the host)
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line (each kernel's times, bounds and shapes summed over
@@ -214,7 +234,7 @@ buffer in place of the ring, and its decode then attends past the window
 (the reference's behaviour, which the port keeps; ``ROADMAP.md`` queue
 3).  The card's float32 logits agree with the port's code in float64 on
 the CPU to ``LM_F64_TOL`` times max(1, max|float64 logit|): a float32
-product over at most 14336 terms of unit-scale operands is good to about
+product over at most 18432 terms of unit-scale operands is good to about
 1e-6 of its scale, and two layers and float32 norms, rope and softmax on
 both sides add little (measured on an H100: 1.5e-7 to 3.2e-6).  The same
 card runs with TF32 products (a 10-bit mantissa) must exceed the
@@ -2489,10 +2509,13 @@ def _lm_consistency(cfg, params, tokens, prompt_len: int, steps: int,
     then ``steps`` teacher-forced decode steps; the forward runs over
     ``tokens[:, :forward_len]`` (causal, so positions past the compared
     ones change nothing).  Returns the largest error of the prefill and of
-    the decode logits, each over max(1, max|forward logit|)."""
+    the decode logits, each over max(1, max|forward logit|), and for a MoE
+    the routing of both sides compared token for token
+    (``_route_flips``)."""
     import torch
     from repro_torch.models import transformer
-    with torch.inference_mode():
+    from repro_torch.models.layers.moe import recorded_routes
+    with torch.inference_mode(), recorded_routes(params) as routes:
         full = transformer.forward(params, cfg, tokens=tokens[:, :forward_len],
                                    remat=False)[0]
         last, caches = transformer.prefill(
@@ -2509,28 +2532,94 @@ def _lm_consistency(cfg, params, tokens, prompt_len: int, steps: int,
             want = full[:, prompt_len - 1 + i].float()
             scale = max(1.0, float(want.abs().max()))
             errs.append(float((got[:, 0].float() - want).abs().max()) / scale)
-    return errs[0], max(errs[1:])
+    return errs[0], max(errs[1:]), _route_flips(routes, tokens.shape[0],
+                                                forward_len)
 
 
-def _f64_check(cfg, seed: int, batch: int, prompt_len: int, steps: int):
-    """Full width, depth cut to 2 layers (the pattern's first, then its
-    first of another kind if it has one: gemma's sliding and global
-    layers), through the config's frontend: the card's float32 logits
-    (the encoder's ``encode_step``, or a prefill, with the patches first
-    for pixtral, and ``steps`` decode steps) against the port's own code
-    in float64 on the CPU, on the same weights and inputs; and once more
-    on the card with TF32 products, to show the tolerance would see them.
-    Returns the output's shape, its largest error over max(1, max|float64
-    logit|), and the TF32 run's."""
+def _route_flips(routes, batch: int, forward_len: int):
+    """The recorded routes of ``_lm_consistency`` (each MoE layer's
+    forward, prefill, then each decode step): the tokens whose set of
+    experts differs between the forward and the prefill or a decode step
+    at the same position, over the tokens compared, and the smallest k-th
+    gate margin of the forward in the layers where one differs (a flip
+    needs a near tie); None without a MoE."""
+    import torch
+    if not routes:
+        return None
+    by_layer = {}
+    for r in routes:
+        by_layer.setdefault(r["layer"], []).append(r)
+    flips, compared, margins = 0, 0, []
+    for fwd, *later in by_layer.values():
+        got = torch.cat([r["top_idx"].reshape(batch, -1, r["top_idx"]
+                                               .shape[-1]) for r in later],
+                        dim=1)
+        want = fwd["top_idx"].reshape(batch, forward_len, -1)[
+            :, :got.shape[1]]
+        differ = (got.sort(-1).values != want.sort(-1).values).any(-1)
+        flips += int(differ.sum())
+        compared += differ.numel()
+        if differ.any():
+            margins.append(fwd["margin"])
+    return {"flipped_tokens": flips, "tokens_compared": compared,
+            "forward_min_gate_margin_where_flipped": min(margins,
+                                                         default=None)}
+
+
+def _no_drop(cfg):
+    """``cfg`` with the MoE's capacity factor at 2 x E / k: every expert
+    has a slot for every token (C >= T; an expert takes a token at most
+    once), so no token drops and decode equals forward.  The weights do
+    not change: the routing reads the factor from the config handed to
+    ``forward``, ``prefill`` and ``decode_step``."""
     import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=2 * cfg.moe.num_experts / cfg.moe.top_k))
 
+
+def _cut(cfg, kinds):
+    """``cfg`` at full width with one layer of each (mixer, ffn) in
+    ``kinds``, in that order."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=len(kinds),
+                               stages=tuple((1, (k,)) for k in kinds))
+
+
+def _route_diff(card, ref):
+    """(choices whose expert, position or keep differ, the smallest k-th
+    gate margin of the reference run) between two runs' recorded
+    routes."""
+    diff = abs(len(card) - len(ref))
+    for a, b in zip(card, ref):
+        for key in ("top_idx", "pos", "keep"):
+            diff += int((a[key].cpu() != b[key].cpu()).sum())
+    margin = min((r["margin"] for r in ref), default=None)
+    return diff, margin
+
+
+def _f64_check(cfg, seed: int, batch: int, prompt_len: int, steps: int,
+               layers: int = 2):
+    """Full width, depth cut to ``layers`` (2: the pattern's first, then
+    its first of another kind if it has one: gemma's sliding and global
+    layers, a DeepSeek's dense and MoE layers; 1: the first), through the
+    config's frontend: the card's float32 logits (the encoder's
+    ``encode_step``, or a prefill, with the patches first for pixtral, and
+    ``steps`` decode steps) against the port's own code in float64 on the
+    CPU, on the same weights and inputs; and once more on the card with
+    TF32 products, to show the tolerance would see them.  The MoE layers'
+    routing of the card's and the float64 run (``moe.recorded_routes``)
+    is compared choice for choice.  Returns the output's shape, its
+    largest error over max(1, max|float64 logit|), the TF32 run's, and the
+    routing's differences and smallest k-th gate margin."""
     import numpy as np
     import torch
     from repro_torch.models import lm, transformer
+    from repro_torch.models.layers.moe import recorded_routes
     pattern = cfg.pattern()
     other = next((k for k in pattern if k != pattern[0]), pattern[1])
-    cut = dataclasses.replace(cfg, num_layers=2, stages=(
-        (1, (pattern[0], other)),))
+    cut = _cut(cfg, (pattern[0], other)[:layers])
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(seed), cut)
     rng = np.random.default_rng(seed)
@@ -2563,31 +2652,39 @@ def _f64_check(cfg, seed: int, batch: int, prompt_len: int, steps: int):
         return torch.cat(outs, 1)
 
     with torch.inference_mode():
-        card = run(params).double().cpu()
+        with recorded_routes(params) as card_routes:
+            card = run(params).double().cpu()
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
             card_tf32 = run(params).double().cpu()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         params.to(device="cpu", dtype=torch.float64)
-        ref = run(params)
+        with recorded_routes(params) as ref_routes:
+            ref = run(params)
     del params
     scale = max(1.0, float(ref.abs().max()))
     if not torch.isfinite(card).all():
         fail(f"lm {cfg.name}: non-finite logits on the card")
+    diff, margin = _route_diff(card_routes, ref_routes)
     return (list(card.shape), float((card - ref).abs().max()) / scale,
-            float((card_tf32 - ref).abs().max()) / scale)
+            float((card_tf32 - ref).abs().max()) / scale,
+            {"moe_calls": len(ref_routes), "route_differences": diff,
+             "min_gate_margin": margin})
 
 
 def _lm_measure(cfg, s, params, prompt_len: int, batch: int):
     """The card's numbers of one LM: prefill ms (CUDA events, median of 3)
     and tokens/s, decode-step ms (the launcher's steps, each ended by a
     sync: median) and tokens/s, device ms and launches of one decode step
-    (the profiler), each beside its bound: the parameter bytes over the
-    HBM rate for a decode step, the prefill's FLOPs over the float32 peak
-    for the prefill.  The prefill's FLOPs are ``counting.step_flops``
-    less the head of every token but the last: it counts the logits of
-    every token, and a prefill computes the last token's only."""
+    (the profiler), each beside its bound: for a decode step the
+    parameter bytes over the HBM rate (what the dense MoE dispatch reads:
+    every expert's weights), and beside it the active parameters' bytes
+    (``count_params(active_only=True)``: the routed top-k experts only;
+    all of a dense LM's); for the prefill its FLOPs over the float32
+    peak.  The prefill's FLOPs are ``counting.step_flops`` less the head of
+    every token but the last: it counts the logits of every token, and a
+    prefill computes the last token's only."""
     import numpy as np
     import torch
     from repro_torch.config import ShapeConfig
@@ -2605,6 +2702,7 @@ def _lm_measure(cfg, s, params, prompt_len: int, batch: int):
             params, caches, cfg, token=tok, pos=prompt_len), reps=3)
     step_ms = statistics.median(s["decode_step_seconds"]) * 1e3
     n_params = counting.count_params(cfg)
+    n_active = counting.count_params(cfg, active_only=True)
     step_flops = counting.step_flops(cfg, ShapeConfig(
         "prefill", prompt_len, batch, "prefill"))["fwd"]
     flops = step_flops - (batch * prompt_len - batch) * 2.0 * cfg.d_model \
@@ -2613,6 +2711,7 @@ def _lm_measure(cfg, s, params, prompt_len: int, batch: int):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {
         "params": n_params, "param_bytes": 4 * n_params,
+        "active_params": n_active,
         "prefill_tokens": batch * prompt_len,
         "prefill_ms": prefill_ms,
         "prefill_ms_first_call": s["prefill_seconds"] * 1e3,
@@ -2624,6 +2723,7 @@ def _lm_measure(cfg, s, params, prompt_len: int, batch: int):
         "decode_step_ms_all": [x * 1e3 for x in s["decode_step_seconds"]],
         "decode_tokens_per_s": batch / step_ms * 1e3,
         "decode_bound_ms": 4 * n_params / PEAK_BYTES * 1e3,
+        "decode_bound_active_ms": 4 * n_active / PEAK_BYTES * 1e3,
         "decode_device_ms": decode_device_ms,
         "decode_device_idle_share": max(0.0, 1 - decode_device_ms / step_ms),
         "decode_launches_per_step": launches / 3,
@@ -2631,10 +2731,89 @@ def _lm_measure(cfg, s, params, prompt_len: int, batch: int):
     }
 
 
+def _lm_dropped(cfg, params, batch: int, prompt_len: int, seed: int):
+    """The MoE's dropped (token, choice) pairs in the prefill of the
+    launcher's prompts (numpy ``seed``), at the configured capacity factor:
+    a recorded prefill (``moe.recorded_routes``), untimed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import recorded_routes
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt_len), dtype=np.int32)).cuda()
+    with torch.inference_mode(), recorded_routes(params) as routes:
+        transformer.prefill(params, cfg, tokens=toks, remat=False,
+                            max_len=prompt_len + 1)
+    dropped = [int((~r["keep"]).sum()) for r in routes]
+    return {"moe_layers": len(routes), "capacity": routes[0]["capacity"],
+            "choices_per_layer": batch * prompt_len * cfg.moe.top_k,
+            "dropped_choices": sum(dropped),
+            "dropped_choices_per_layer": dropped,
+            "min_gate_margin": min(r["margin"] for r in routes)}
+
+
+def _lm_serve(name, cfg, r, serve):
+    """One LM served on the card by ``serve()`` (``serve_lm``'s dict): its
+    launches (no SNN kernel), peak memory, decode against forward on the
+    same weights (``_no_drop`` for a MoE), its dropped tokens at the
+    configured capacity factor, and ``_lm_measure``'s numbers."""
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = serve()
+    torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: v for k, v in read_counts().items() if v}
+    params = s.pop("params")
+    if counts:
+        fail(f"lm {name}: the LM path launched SNN kernels {counts}")
+    if not np.isfinite(s["logits"]).all():
+        fail(f"lm {name}: non-finite logits")
+    # the consistency check: prompts at least the window long (a shorter
+    # one leaves the reference's max_len buffer, whose decode attends past
+    # the window; ROADMAP queue 3)
+    window = cfg.attn.window
+    check_prompt = r.get("check_prompt", r["prompt"])
+    if window and check_prompt < window:
+        fail(f"lm {name}: prompt {check_prompt} < window {window}")
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (r["batch"], r["forward_len"]),
+        dtype=np.int32)).cuda()
+    check_cfg = _no_drop(cfg)
+    prefill_err, decode_err, flips = _lm_consistency(
+        check_cfg, params, toks, check_prompt, r["check_steps"],
+        r["forward_len"])
+    extra = {}
+    if cfg.moe is not None:
+        extra["moe_prefill"] = _lm_dropped(cfg, params, r["batch"],
+                                           r["prompt"], 0)
+    numbers = _lm_measure(cfg, s, params, r["prompt"], r["batch"])
+    emit("lm", part=name, layers=cfg.num_layers, d_model=cfg.d_model,
+         batch=r["batch"], prompt_len=r["prompt"], new=r["new"],
+         generated=s["tokens"].shape, sample=s["tokens"][0, :8].tolist(),
+         launcher_seconds=launcher_s, peak_memory_bytes=peak,
+         decode_vs_forward={
+             "prefill_err": prefill_err, "decode_err": decode_err,
+             "prefill_tol": LM_PREFILL_TOL, "decode_tol": LM_DECODE_TOL,
+             "prompt_len": check_prompt, "decode_steps": r["check_steps"],
+             "capacity_factor": (check_cfg.moe.capacity_factor
+                                 if cfg.moe else None),
+             "route_flips": flips, "cache_dtype": "float32"},
+         snn_kernel_launches=counts, device=s["device"], **extra,
+         **numbers)
+    if prefill_err > LM_PREFILL_TOL or decode_err > LM_DECODE_TOL:
+        fail(f"lm {name}: decode against forward: prefill {prefill_err} "
+             f"(bound {LM_PREFILL_TOL}), decode {decode_err} (bound "
+             f"{LM_DECODE_TOL})")
+
+
 def phase_lm():
     """The LM substrate's serving path on the card (module doc, phase
     ``lm``).  Returns nothing: it launches none of the SNN kernels."""
-    import numpy as np
     import torch
     from repro_torch.config import get_arch
     from repro_torch.launch import serve as serve_launcher
@@ -2643,83 +2822,69 @@ def phase_lm():
          float32_matmul_precision=torch.get_float32_matmul_precision())
     if torch.backends.cuda.matmul.allow_tf32:
         fail("lm: TF32 matmuls are on; the LM runs in full float32")
-    runs = {"qwen2.5-3b": dict(batch=4, prompt=64, new=32, check_steps=8,
-                                forward_len=72),
-            "gemma3-4b": dict(batch=1, prompt=2048, new=17, check_steps=16,
-                              forward_len=3072)}
-    for arch, r in runs.items():
-        cfg = get_arch(arch)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        s = serve_launcher.main([
+
+    def launcher(arch, r):
+        return lambda: serve_launcher.main([
             "--arch", arch, "--full-config", "--batch", str(r["batch"]),
             "--prompt-len", str(r["prompt"]), "--new", str(r["new"]),
             "--log-level", "error"])
-        torch.cuda.synchronize()
-        launcher_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        counts = {k: v for k, v in read_counts().items() if v}
-        params = s.pop("params")
-        if counts:
-            fail(f"lm {arch}: the LM path launched SNN kernels {counts}")
-        if not np.isfinite(s["logits"]).all():
-            fail(f"lm {arch}: non-finite logits")
-        # the consistency check: prompts at least the window long (a
-        # shorter one leaves the reference's max_len buffer, whose decode
-        # attends past the window; ROADMAP queue 3)
-        window = cfg.attn.window
-        if window and r["prompt"] < window:
-            fail(f"lm {arch}: prompt {r['prompt']} < window {window}")
-        toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
-            0, cfg.vocab_size, (r["batch"], r["forward_len"]),
-            dtype=np.int32)).cuda()
-        prefill_err, decode_err = _lm_consistency(
-            cfg, params, toks, r["prompt"], r["check_steps"],
-            r["forward_len"])
-        numbers = _lm_measure(cfg, s, params, r["prompt"], r["batch"])
-        emit("lm", part=f"{arch} full width and depth, serve launcher",
-             layers=cfg.num_layers, d_model=cfg.d_model,
-             batch=r["batch"], prompt_len=r["prompt"], new=r["new"],
-             generated=s["tokens"].shape, sample=s["tokens"][0, :8].tolist(),
-             launcher_seconds=launcher_s, peak_memory_bytes=peak,
-             decode_vs_forward={"prefill_err": prefill_err,
-                                "decode_err": decode_err,
-                                "prefill_tol": LM_PREFILL_TOL,
-                                "decode_tol": LM_DECODE_TOL,
-                                "decode_steps": r["check_steps"],
-                                "cache_dtype": "float32"},
-             snn_kernel_launches=counts, device=s["device"], **numbers)
-        if prefill_err > LM_PREFILL_TOL or decode_err > LM_DECODE_TOL:
-            fail(f"lm {arch}: decode against forward: prefill {prefill_err}"
-                 f" (bound {LM_PREFILL_TOL}), decode {decode_err} (bound "
-                 f"{LM_DECODE_TOL})")
-        del params, s
-    # the card against float64 on the CPU, full width, depth 2, each
-    # through its frontend: (c) hubert's encode_step on frames, pixtral's
-    # prefill with its 256 patches before the tokens
+
+    runs = {"qwen2.5-3b": dict(batch=4, prompt=64, new=32, check_steps=8,
+                                forward_len=72),
+            "gemma3-4b": dict(batch=1, prompt=2048, new=17, check_steps=16,
+                              forward_len=3072),
+            "deepseek-moe-16b": dict(batch=4, prompt=64, new=32,
+                                     check_steps=8, forward_len=72)}
+    for arch, r in runs.items():
+        t0 = time.perf_counter()
+        _lm_serve(f"{arch} full width and depth, serve launcher",
+                  get_arch(arch), r, launcher(arch, r))
+        emit("lm", part=f"{arch}: seconds", seconds=time.perf_counter() - t0)
+    # deepseek-v3-671b at full width, depth 2 (an MLA + dense layer, then
+    # an MLA + MoE layer, the config's order) through serve_lm, the
+    # launcher's loop, on the cut config
+    v3 = get_arch("deepseek-v3-671b")
+    v3_cut = _cut(v3, (v3.pattern()[0], v3.pattern()[-1]))
+    r = dict(batch=1, prompt=2048, new=17, check_prompt=64, check_steps=8,
+             forward_len=72)
+    t0 = time.perf_counter()
+    _lm_serve("deepseek-v3-671b full width, depth 2 (MLA + dense, MLA + "
+              "MoE), serve_lm", v3_cut, r, lambda: serve_launcher.serve_lm(
+                  v3_cut, batch=r["batch"], prompt_len=r["prompt"],
+                  new=r["new"], device="cuda"))
+    emit("lm", part="deepseek-v3-671b: seconds",
+         seconds=time.perf_counter() - t0)
+    # the card against float64 on the CPU, full width, depth 2 (v3: 1),
+    # each through its frontend: (c) hubert's encode_step on frames,
+    # pixtral's prefill with its 256 patches before the tokens
     checks = {"qwen2.5-3b": dict(batch=4, prompt_len=64, steps=4),
               "gemma3-4b": dict(batch=1, prompt_len=1024, steps=4),
               "hubert-xlarge": dict(batch=2, prompt_len=1024, steps=0),
-              "pixtral-12b": dict(batch=2, prompt_len=64, steps=2)}
+              "pixtral-12b": dict(batch=2, prompt_len=64, steps=2),
+              "deepseek-moe-16b": dict(batch=4, prompt_len=64, steps=4),
+              "deepseek-v3-671b": dict(batch=1, prompt_len=64, steps=4,
+                                       layers=1)}
     for arch, c in checks.items():
         cfg = get_arch(arch)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        shape, err, tf32_err = _f64_check(cfg, SEED, **c)
+        shape, err, tf32_err, routes = _f64_check(cfg, SEED, **c)
         emit("lm", part=f"{arch}: card float32 against CPU float64, full "
-             f"width, 2 layers, frontend {cfg.frontend}", shape=shape,
-             max_err_over_scale=err, tol=LM_F64_TOL,
+             f"width, {c.get('layers', 2)} layers, frontend {cfg.frontend}",
+             shape=shape, max_err_over_scale=err, tol=LM_F64_TOL,
              tf32_max_err_over_scale=tf32_err,
              tf32_after=torch.backends.cuda.matmul.allow_tf32,
-             seconds=time.perf_counter() - t0, **c)
+             seconds=time.perf_counter() - t0, **routes, **c)
         want_len = (c["prompt_len"] if cfg.is_encoder_only
                     else 1 + c["steps"])
         if shape != [c["batch"], want_len, cfg.vocab_size]:
             fail(f"lm {arch}: output shape {shape}")
         if err > LM_F64_TOL:
             fail(f"lm {arch}: card against float64 {err} > {LM_F64_TOL}")
+        if routes["route_differences"]:
+            fail(f"lm {arch}: the card's routing differs from float64's in "
+                 f"{routes['route_differences']} choices (smallest k-th "
+                 f"gate margin {routes['min_gate_margin']})")
         if tf32_err <= LM_F64_TOL:
             fail(f"lm {arch}: with TF32 products the error {tf32_err} is "
                  f"within {LM_F64_TOL}: the check would not see them")

@@ -10,7 +10,8 @@ The LM's parameters are the reference's pytree ``{"embed", "stages":
 [{"sub": [{"norm1", "mixer", "norm2", "ffn"}]}], "final_norm"}``, every
 stage leaf with a leading repeats axis; the port's are a
 ``models.transformer.Transformer`` with one sublayer per layer, under the
-same leaf names.  ``from_jax_lm_params`` and ``to_numpy_lm_params``
+same leaf names (a nested group of leaves, MoE's ``shared`` or MLA's
+``q_norm``, is a submodule of the same name).  ``from_jax_lm_params`` and ``to_numpy_lm_params``
 convert between the two, bit for bit, and ``*_lm_caches`` do the same for
 the decode caches (the reference's stacked per-stage caches, the port's
 per-layer list).  None of these imports JAX: the caller hands over numpy
@@ -96,9 +97,34 @@ def from_jax_lm_params(np_params: Dict, cfg: ArchConfig, device=None):
             src = np_params["stages"][si]["sub"][i]
             for part, leaves in src.items():
                 mod = getattr(model.layers[layer], part)
-                for name, a in leaves.items():
-                    getattr(mod, name).data = _tensor(np.asarray(a)[r], dev)
+                for name, a in _flat(leaves).items():
+                    mod.get_parameter(name).data = _tensor(
+                        np.asarray(a)[r], dev)
     return model
+
+
+def _flat(tree: Dict, prefix: str = "") -> Dict:
+    """A nested dict of leaves (MoE's ``shared``, MLA's ``q_norm``) ->
+    {dotted name: leaf}, the names of ``named_parameters``."""
+    out = {}
+    for name, a in tree.items():
+        if isinstance(a, dict):
+            out.update(_flat(a, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = a
+    return out
+
+
+def _nested(flat: Dict) -> Dict:
+    """The inverse of ``_flat``."""
+    out: Dict = {}
+    for name, a in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return out
 
 
 def _pytree_names(np_params: Dict, cfg: ArchConfig) -> set:
@@ -109,18 +135,20 @@ def _pytree_names(np_params: Dict, cfg: ArchConfig) -> set:
     stages = np_params["stages"]
     shape = [(len(st["sub"]), {np.shape(a)[0] for sub in st["sub"]
                                for leaves in sub.values()
-                               for a in leaves.values()}) for st in stages]
+                               for a in _flat(leaves).values()})
+             for st in stages]
     if shape != [(len(sub), {r}) for r, sub in cfg.stage_list()]:
         return names | {f"stages {shape}"}
     for layer, si, _, i in _layer_slots(cfg):
         for part, leaves in stages[si]["sub"][i].items():
-            names |= {f"layers.{layer}.{part}.{n}" for n in leaves}
+            names |= {f"layers.{layer}.{part}.{n}" for n in _flat(leaves)}
     return names
 
 
 def _stacked(cfg: ArchConfig, per_layer: List[Dict]) -> List[Dict]:
-    """Per-layer ``{part: {name: array}}`` -> the reference's stages, each
-    leaf stacked over the stage's repeats."""
+    """Per-layer ``{part: {dotted name: array}}`` -> the reference's
+    stages, each leaf stacked over the stage's repeats, the dotted names
+    nested again."""
     stages: List[Dict] = [{"sub": [None] * len(sub)}
                           for _, sub in cfg.stage_list()]
     rows: Dict[Tuple[int, int], List[Dict]] = {}
@@ -128,8 +156,8 @@ def _stacked(cfg: ArchConfig, per_layer: List[Dict]) -> List[Dict]:
         rows.setdefault((si, i), []).append(per_layer[layer])
     for (si, i), items in rows.items():
         stages[si]["sub"][i] = {
-            part: {name: np.stack([it[part][name] for it in items])
-                   for name in leaves}
+            part: _nested({name: np.stack([it[part][name] for it in items])
+                           for name in leaves})
             for part, leaves in items[0].items()}
     return stages
 

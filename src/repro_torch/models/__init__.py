@@ -1,6 +1,6 @@
 """The LM substrate (the reference's ``repro.models``): the layer modules,
 the stacked model ``transformer`` and the step functions of ``lm``, for
-the dense family's serving path (``ATTN_FULL``, ``ATTN_SLIDING`` and
-``FFN_DENSE``; prefill and decode), and the closed-form ``counting``.
-The other mixer and FFN kinds raise ``NotImplementedError`` when a model
-is built (ROADMAP queue 1, item 14)."""
+the serving path (prefill and decode) of ``ATTN_FULL``, ``ATTN_SLIDING``,
+``ATTN_MLA``, ``FFN_DENSE`` and ``FFN_MOE``, and the closed-form
+``counting``.  ``MAMBA`` and ``RWKV6`` raise ``NotImplementedError`` when a
+model is built (ROADMAP queue 1, items 14c and 14d)."""

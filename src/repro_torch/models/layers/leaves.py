@@ -3,7 +3,9 @@
 The layer functions take their parameters as a mapping of the reference's
 leaf names (``params["wq"]``, ``"bq" in params``), so they work on a plain
 dict of tensors and on the layer modules alike; a module's own
-``forward`` calls the same function on itself.
+``forward`` calls the same function on itself.  A nested leaf group of the
+reference (MoE's ``shared``, MLA's ``q_norm``) is a submodule, read by its
+name the same way.
 """
 from __future__ import annotations
 
@@ -16,13 +18,16 @@ __all__ = ["Leaves", "normal"]
 
 
 class Leaves(nn.Module):
-    """A module whose direct parameters are also its items."""
+    """A module whose direct parameters and submodules are also its
+    items."""
 
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return self._parameters[name]
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
 
 
 def normal(shape: Sequence[int], scale: float,

@@ -9,10 +9,17 @@ layouts).  Three execution modes share the same parameters:
                per-layer decode caches
   decode       one-token step against the caches
 
-This slice ports the dense family's kinds: ``ATTN_FULL``, ``ATTN_SLIDING``
-and ``FFN_DENSE`` (SwiGLU, or the RWKV channel-mix when the config carries
-``rwkv``).  Building a model with any other kind raises
+Ported kinds: ``ATTN_FULL``, ``ATTN_SLIDING``, ``ATTN_MLA`` (DeepSeek's
+latent attention, its decode absorbed), ``FFN_DENSE`` (SwiGLU, or the RWKV
+channel-mix when the config carries ``rwkv``) and ``FFN_MOE`` (routed
+experts with shared ones).  Building a model with any other kind raises
 ``NotImplementedError`` naming its ROADMAP item; nothing stands in for it.
+
+``forward`` returns the sum of the MoE layers' router aux losses, in layer
+order; ``prefill`` and ``decode_step`` drop it, as the reference's do.
+The ``cfg`` handed to these functions reaches the MoE layers, whose
+routing reads its capacity factor; the other layers read the config they
+were built with.
 
 Parameters are float32 by default, made where ``generator`` lives (the
 card by default: ``device=None`` means ``"cuda"``).  Caches are bfloat16
@@ -30,7 +37,8 @@ from repro_torch.config import (ATTN_FULL, ATTN_MLA, ATTN_SLIDING,
                                 FFN_DENSE, FFN_MOE, MAMBA, RWKV6,
                                 ArchConfig)
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import attention, embedding, ffn, norms
+from repro_torch.models.layers import attention, embedding, ffn, mla, \
+    moe, norms
 from repro_torch.sharding.context import shard_logical
 
 __all__ = ["NOT_PORTED", "Sublayer", "Transformer", "init_params",
@@ -38,13 +46,11 @@ __all__ = ["NOT_PORTED", "Sublayer", "Transformer", "init_params",
 
 # the kinds still to port, each with its ROADMAP item
 NOT_PORTED = {
-    FFN_MOE: "ROADMAP queue 1, item 14a (MoE)",
-    ATTN_MLA: "ROADMAP queue 1, item 14b (MLA)",
     MAMBA: "ROADMAP queue 1, item 14c (Mamba, jamba)",
     RWKV6: "ROADMAP queue 1, item 14d (RWKV6)",
 }
-_MIXERS = (ATTN_FULL, ATTN_SLIDING)
-_FFNS = (FFN_DENSE,)
+_MIXERS = (ATTN_FULL, ATTN_SLIDING, ATTN_MLA)
+_FFNS = (FFN_DENSE, FFN_MOE)
 
 
 def _check_kinds(cfg: ArchConfig, mixer_kind: str, ffn_kind: str) -> None:
@@ -59,56 +65,71 @@ def _check_kinds(cfg: ArchConfig, mixer_kind: str, ffn_kind: str) -> None:
 
 
 class Sublayer(nn.Module):
-    """norm1, mixer, norm2, ffn: one (mixer, ffn) entry of the pattern."""
+    """norm1, mixer, norm2, ffn: one (mixer, ffn) entry of the pattern.
+    Its steps take the model's ``cfg`` for the MoE's routing and return
+    the MoE's aux loss where ``forward`` needs it (None for other FFNs)."""
 
     def __init__(self, cfg: ArchConfig, mixer_kind: str, ffn_kind: str, *,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
         _check_kinds(cfg, mixer_kind, ffn_kind)
-        self.cfg = cfg
+        self.is_moe = ffn_kind == FFN_MOE
+        # the channel-mix's token shift is the FFN's cache (dense FFNs only)
+        self.has_shift = cfg.rwkv is not None and not self.is_moe
         kw = dict(generator=generator, dtype=dtype, device=device)
         self.norm1 = norms.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype,
                                    device=device)
-        self.mixer = attention.Attention(
-            cfg, sliding=mixer_kind == ATTN_SLIDING, **kw)
+        self.mixer = (mla.MLA(cfg, **kw) if mixer_kind == ATTN_MLA
+                      else attention.Attention(
+                          cfg, sliding=mixer_kind == ATTN_SLIDING, **kw))
         self.norm2 = norms.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype,
                                    device=device)
-        self.ffn = (ffn.RWKVChannelMix if cfg.rwkv is not None
-                    else ffn.SwiGLU)(cfg.d_model, cfg.d_ff, **kw)
+        if self.is_moe:
+            self.ffn = moe.MoE(cfg, **kw)
+        else:
+            self.ffn = (ffn.RWKVChannelMix if self.has_shift
+                        else ffn.SwiGLU)(cfg.d_model, cfg.d_ff, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, cfg: ArchConfig):
+        """(out, aux): the MoE's aux, None for a dense FFN."""
+        if self.is_moe:
+            return self.ffn(h, cfg)
+        return self.ffn(h), None
+
+    def forward(self, x: torch.Tensor, cfg: ArchConfig):
         x = x + self.mixer(self.norm1(x))
-        x = x + self.ffn(self.norm2(x))
-        return shard_logical(x, ("batch", "act_seq", None))
+        h, aux = self._ffn(self.norm2(x), cfg)
+        x = x + h
+        return shard_logical(x, ("batch", "act_seq", None)), aux
 
-    def prefill(self, x: torch.Tensor, cache_len: int, cache_dtype
-                ) -> Tuple[torch.Tensor, Dict]:
+    def prefill(self, x: torch.Tensor, cfg: ArchConfig, cache_len: int,
+                cache_dtype) -> Tuple[torch.Tensor, Dict]:
         h, mixer_cache = self.mixer.prefill(self.norm1(x),
                                             cache_len=cache_len,
                                             cache_dtype=cache_dtype)
         x = x + h
         h = self.norm2(x)
         ffn_cache = {}
-        if self.cfg.rwkv is not None:
+        if self.has_shift:
             ffn_cache = {"shift": h[:, -1:].to(cache_dtype)}
-        x = x + self.ffn(h)
+        x = x + self._ffn(h, cfg)[0]
         x = shard_logical(x, ("batch", None, None))
         return x, {"mixer": mixer_cache, "ffn": ffn_cache}
 
-    def decode(self, x: torch.Tensor, cache: Dict, pos
+    def decode(self, x: torch.Tensor, cfg: ArchConfig, cache: Dict, pos
                ) -> Tuple[torch.Tensor, Dict]:
         h, mixer_cache = self.mixer.decode(self.norm1(x), cache["mixer"],
                                            pos)
         x = x + h
         h = self.norm2(x)
         ffn_cache = cache["ffn"]
-        if self.cfg.rwkv is not None:
+        if self.has_shift:
             shift = ffn_cache["shift"]
             ffn_cache = {"shift": h.to(shift.dtype)}
             h = self.ffn(h, shift.to(h.dtype))
         else:
-            h = self.ffn(h)
+            h = self._ffn(h, cfg)[0]
         return x + h, {"mixer": mixer_cache, "ffn": ffn_cache}
 
 
@@ -155,44 +176,54 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     return Transformer(cfg, generator=generator, dtype=dtype, device=dev)
 
 
-def _run_group(model: Transformer, group: range, x: torch.Tensor):
+def _run_group(model: Transformer, group: range, x: torch.Tensor,
+               aux: torch.Tensor, cfg: ArchConfig):
     for i in group:
-        x = model.layers[i](x)
-    return x
+        x, a = model.layers[i](x, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(params: Transformer, cfg: ArchConfig, *, tokens=None,
             frames=None, patches=None, remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss).  With ``remat`` and autograd
+    """Returns (logits (B, S, V), aux_loss): the MoE layers' aux losses
+    summed in layer order (0 without MoE).  With ``remat`` and autograd
     recording, each repeat's activations are recomputed in the backward
     (``torch.utils.checkpoint``); under ``torch.inference_mode`` it has no
     effect."""
     x = embedding.embed(params.embed, cfg, tokens=tokens, frames=frames,
                         patches=patches)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = remat and torch.is_grad_enabled()
     for group in params.groups:
         if remat:
-            x = checkpoint(_run_group, params, group, x, use_reentrant=False)
+            x, aux = checkpoint(_run_group, params, group, x, aux, cfg,
+                                use_reentrant=False)
         else:
-            x = _run_group(params, group, x)
+            x, aux = _run_group(params, group, x, aux, cfg)
     x = params.final_norm(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return embedding.logits(params.embed, cfg, x), aux
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> List[Dict]:
-    """Per-layer caches, in pattern order: {"mixer": {"k", "v"}, "ffn": {}
-    or {"shift"}}."""
+    """Per-layer caches, in pattern order: {"mixer": {"k", "v"} (MLA:
+    {"ckv", "k_rope"}), "ffn": {} or {"shift"}}."""
     dev = resolve_device(device)
     caches = []
     for m, f in cfg.pattern():
         _check_kinds(cfg, m, f)
-        c = {"mixer": attention.init_cache(
-            cfg, batch, max_len, sliding=m == ATTN_SLIDING, dtype=dtype,
-            device=dev), "ffn": {}}
-        if cfg.rwkv is not None:
+        if m == ATTN_MLA:
+            mixer = mla.init_cache(cfg, batch, max_len, dtype=dtype,
+                                   device=dev)
+        else:
+            mixer = attention.init_cache(cfg, batch, max_len,
+                                         sliding=m == ATTN_SLIDING,
+                                         dtype=dtype, device=dev)
+        c = {"mixer": mixer, "ffn": {}}
+        if cfg.rwkv is not None and f == FFN_DENSE:
             c["ffn"] = {"shift": torch.zeros((batch, 1, cfg.d_model),
                                              dtype=dtype, device=dev)}
         caches.append(c)
@@ -207,13 +238,14 @@ def decode_step(params: Transformer, caches: List[Dict], cfg: ArchConfig, *,
     x = embedding.embed(params.embed, cfg, tokens=token)
     if isinstance(pos, int):
         for (m, _), c in zip(cfg.pattern(), caches):
-            if m == ATTN_FULL:
-                attention.check_position(pos, c["mixer"]["k"].shape[1])
+            if m in (ATTN_FULL, ATTN_MLA):
+                size = c["mixer"]["ckv" if m == ATTN_MLA else "k"].shape[1]
+                attention.check_position(pos, size)
     # one position tensor for every layer
     pos = torch.as_tensor(pos, device=x.device)
     new = []
     for layer, cache in zip(params.layers, caches):
-        x, c = layer.decode(x, cache, pos)
+        x, c = layer.decode(x, cfg, cache, pos)
         new.append(c)
     x = params.final_norm(x)
     return embedding.logits(params.embed, cfg, x), new
@@ -232,7 +264,7 @@ def prefill(params: Transformer, cfg: ArchConfig, *, tokens=None,
     cache_len = max(max_len, x.shape[1])
     caches = []
     for layer in params.layers:
-        x, c = layer.prefill(x, cache_len, cache_dtype)
+        x, c = layer.prefill(x, cfg, cache_len, cache_dtype)
         caches.append(c)
     x = params.final_norm(x[:, -1:])
     return embedding.logits(params.embed, cfg, x), caches

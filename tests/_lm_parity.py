@@ -1,12 +1,16 @@
 """Shared helpers of the LM parity tests (``test_torch_lm*.py``): the
-tolerance check, the reduced configs of both packages, weights carried
-from the reference to the port, and inputs of each frontend."""
+tolerance check, the reduced configs of both packages (and their no-drop
+MoE variant), weights carried from the reference to the port (a whole
+model, or one layer's leaves), inputs of each frontend, the MoE aux-loss
+check and the launcher tests' logging fixture."""
 import dataclasses
 import functools
+import logging
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.config import get_arch as jx_get_arch
@@ -14,10 +18,24 @@ from repro.config import reduced as jx_reduced
 from repro.models import transformer as jx_transformer
 from repro_torch.config import get_arch, reduced
 from repro_torch.interop import from_jax_lm_params, to_numpy_lm_caches
+from repro_torch.models import lm, transformer
 
 TOL = 1e-5          # logits, layer outputs, float32 caches
+AUX_RTOL = 1e-6     # the MoE's router aux loss, relative
 BF16_TOL = 2 ** -8  # one bfloat16 ulp, relative to the largest value
 B = 2
+
+
+@pytest.fixture
+def quiet_logging():
+    """Restore the ``repro_torch`` root logger after a launcher's
+    ``main`` configured it."""
+    root = logging.getLogger("repro_torch")
+    state = (root.level, list(root.handlers), root.propagate)
+    yield
+    root.setLevel(state[0])
+    root.handlers[:] = state[1]
+    root.propagate = state[2]
 
 
 def close(got, want, tol=TOL):
@@ -57,6 +75,30 @@ def cfgs(arch, **attn):
     return jcfg, cfg
 
 
+def no_drop(jcfg, cfg):
+    """Both configs with the MoE's capacity factor at 2 x E / k, so every
+    expert has a slot for every token (C >= T) and none drops: decode then
+    equals forward.  Configs without MoE come back as they are."""
+    if cfg.moe is None:
+        return jcfg, cfg
+    cf = 2 * cfg.moe.num_experts / cfg.moe.top_k
+    return tuple(dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=cf)) for c in (jcfg, cfg))
+
+
+def load_leaves(module, jparams):
+    """Copy the reference's leaves (a nested dict of one layer) into the
+    port's layer ``module``, by its parameters' dotted names."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            node = jparams
+            for part in name.split("."):
+                node = node[part]
+            assert p.shape == node.shape, (name, p.shape, node.shape)
+            p.copy_(t(node))
+    return module
+
+
 @functools.lru_cache(maxsize=None)
 def carried(jcfg, cfg, seed=0):
     """The reference's weights of ``jcfg`` from ``seed`` and the port's
@@ -83,3 +125,34 @@ def inputs(cfg, rng, n_tokens):
         add("patches", rng.standard_normal(
             (B, cfg.num_patches, cfg.frontend_dim)).astype(np.float32))
     return jkw, kw
+
+
+def aux_sums_match(arch):
+    """``forward``'s aux is the sum of its MoE layers' (two at reduced
+    depth), with remat on and off and under autograd; the loss adds
+    ``router_aux_weight`` x aux (``test_torch_lm_moe.py``,
+    ``test_torch_lm_mla.py``)."""
+    jcfg, cfg = cfgs(arch)
+    # the reference's weights drawn under jit (faster to build here than
+    # the eager draw of ``carried``; other bits, the same distribution)
+    jp = jax.jit(jx_transformer.init_params, static_argnums=1)(
+        jax.random.PRNGKey(7), jcfg)
+    tp = from_jax_lm_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    jkw, kw = inputs(cfg, np.random.default_rng(5), 24)
+    want = float(jax.jit(lambda p, a: jx_transformer.forward(
+        p, jcfg, remat=False, **a)[1])(jp, jkw))
+    labels = kw["tokens"].long().roll(-1, 1)
+    for remat in (False, True):
+        _, aux = transformer.forward(tp, cfg, remat=remat, **kw)
+        assert aux.requires_grad
+        assert abs(float(aux.detach()) - want) <= AUX_RTOL * abs(want), remat
+        loss, parts = lm.loss_fn(tp, cfg, {"tokens": kw["tokens"],
+                                           "labels": labels}, remat=remat)
+        assert torch.equal(parts["aux"], aux)
+        close(loss.detach(), float((parts["ce"] + cfg.moe.router_aux_weight
+                                    * parts["aux"]).detach()))
+        loss.backward()
+        router = tp.layers[-1].ffn.router
+        assert router.grad is not None and router.grad.abs().sum() > 0
+        tp.zero_grad()
+    assert want > 0

@@ -1063,3 +1063,51 @@ def test_lm_keeps_tf32_off(card):
     exact = a.double() @ b.double()
     err = float(((a @ b).double() - exact).abs().max())
     assert err < 1e-4 * float(exact.abs().max())
+
+
+@pytest.mark.cuda
+def test_deepseek_v3_on_the_card_matches_the_cpu(card):
+    """A reduced deepseek-v3-671b (MLA, a dense layer and MoE layers with a
+    shared expert, capacity factor 1.25) on the card against the same
+    weights on the CPU: forward logits and aux, prefill and 6 absorbed
+    decode steps within 1e-5 of max(1, max|logit|), and every MoE call
+    routed identically (experts, positions, drops; the smallest k-th gate
+    margin is printed)."""
+    import copy
+
+    from repro_torch.models import transformer
+    from repro_torch.models.layers.moe import recorded_routes
+    cfg, params = _lm(card, "deepseek-v3-671b")
+    host = copy.deepcopy(params).to("cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 46), dtype=np.int32))
+
+    def run(p, dev):
+        t = toks.to(dev)
+        with torch.inference_mode(), recorded_routes(p) as routes:
+            logits, aux = transformer.forward(p, cfg, tokens=t, remat=False)
+            outs = [logits, aux.reshape(1)]
+            last, caches = transformer.prefill(
+                p, cfg, tokens=t[:, :40], remat=False, max_len=46,
+                cache_dtype=torch.float32)
+            outs.append(last)
+            for pos in range(40, 46):
+                last, caches = transformer.decode_step(
+                    p, caches, cfg, token=t[:, pos:pos + 1], pos=pos)
+                outs.append(last)
+        return [o.cpu() for o in outs], routes
+
+    got, card_routes = run(params, card)
+    want, host_routes = run(host, torch.device("cpu"))
+    margin = min(r["margin"] for r in host_routes)
+    print(f"{len(host_routes)} MoE calls; smallest k-th gate margin "
+          f"{margin:.3e}; dropped choices "
+          f"{[int((~r['keep']).sum()) for r in host_routes]}")
+    assert len(card_routes) == len(host_routes) == 2 * (1 + 1 + 6)
+    for a, b in zip(card_routes, host_routes):
+        for key in ("top_idx", "pos", "keep"):
+            assert torch.equal(a[key].cpu(), b[key]), (a["layer"], key,
+                                                       margin)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-5 * scale

@@ -1,7 +1,7 @@
 """The port's LM serving path against the JAX reference, on the CPU.
 
-Every in-scope config (the dense family's kinds: ``ATTN_FULL``,
-``ATTN_SLIDING``, ``FFN_DENSE``) at ``reduced()`` size, with the
+Every in-scope config (the kinds ported: ``ATTN_FULL``, ``ATTN_SLIDING``,
+``ATTN_MLA``, ``FFN_DENSE``, ``FFN_MOE``) at ``reduced()`` size, with the
 reference's weights carried across by ``interop.from_jax_lm_params`` and
 inputs made from a seed with numpy: ``forward``, ``prefill`` and
 teacher-forced ``decode_step``s, the step makers, the loss, interop, the
@@ -13,11 +13,12 @@ neighbour moves by one bfloat16 ulp, so those caches, and the logits of a
 decode that reads them, agree to ``BF16_TOL`` (2^-8) x max(1, max|ref|),
 and the greedy tokens exactly.  The port's decode against its own forward
 is held to ``tests/test_decode.py``'s 2e-3.  Interop round trips are bit
-for bit.
+for bit.  The MoE configs run at capacity factor 2 x E / k where decode
+must equal forward (no token drops), and at their configured 1.25 through
+the launcher, on both sides.
 """
 import dataclasses
 import importlib.util
-import logging
 from pathlib import Path
 
 import jax
@@ -27,7 +28,7 @@ import pytest
 import torch
 
 from _lm_parity import (B, BF16_TOL, caches_close, carried, cfgs, close,
-                        inputs, t)
+                        inputs, no_drop, quiet_logging, t)
 from repro.models import lm as jx_lm
 from repro.models import transformer as jx_transformer
 from repro_torch.config import RWKVConfig, get_arch, reduced
@@ -37,7 +38,8 @@ from repro_torch.launch import serve as serve_launcher
 from repro_torch.models import lm, transformer
 
 DECODERS = ["qwen2.5-3b", "gemma3-4b", "gemma3-27b", "command-r-35b",
-            "pixtral-12b", "qwen2.5-3b+rwkv-ffn"]
+            "pixtral-12b", "qwen2.5-3b+rwkv-ffn", "deepseek-moe-16b",
+            "deepseek-v3-671b"]
 IN_SCOPE = DECODERS + ["hubert-xlarge"]
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 S, F = 40, 44                # prompt, prompt plus fed tokens
@@ -48,11 +50,12 @@ _RUNS = {}
 # -- the model -----------------------------------------------------------------
 
 def _cfgs_of(arch):
-    """The configs of ``arch``; "+rwkv-ffn": attention mixers with the
+    """The configs of ``arch``, with no MoE token dropped (``no_drop``:
+    decode must equal forward); "+rwkv-ffn": attention mixers with the
     RWKV channel-mix FFN (a config carrying ``rwkv``), whose shift cache
     goes through prefill and decode."""
     if not arch.endswith("+rwkv-ffn"):
-        return cfgs(arch)
+        return no_drop(*cfgs(arch))
     from repro.config import RWKVConfig as JxRWKVConfig
     jcfg, cfg = cfgs(arch.split("+")[0])
     return (dataclasses.replace(jcfg, rwkv=JxRWKVConfig(head_dim=16)),
@@ -278,7 +281,8 @@ def test_remat_keeps_values_and_gradients():
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "pixtral-12b",
-                                  "hubert-xlarge"])
+                                  "hubert-xlarge", "deepseek-moe-16b",
+                                  "deepseek-v3-671b"])
 def test_interop_round_trips_bit_for_bit(arch):
     jcfg, cfg = cfgs(arch)
     jp = jax.tree.map(np.asarray,
@@ -294,8 +298,8 @@ def test_interop_round_trips_bit_for_bit(arch):
         jc = jax.tree.map(lambda a: np.asarray(a) + np.asarray(
             np.arange(a.size).reshape(a.shape) % 7, a.dtype), jc)
         tc = from_jax_lm_caches(jc, cfg, device="cpu")
-        assert tc[0]["mixer"]["k"].dtype == (
-            torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+        assert {a.dtype for c in tc for a in c["mixer"].values()} == {
+            torch.float32 if dtype == jnp.float32 else torch.bfloat16}
         back = to_numpy_lm_caches(tc, cfg)
         assert jax.tree.structure(back) == jax.tree.structure(jc)
         for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jc)):
@@ -333,16 +337,6 @@ def test_decode_position_past_a_full_cache_raises():
 
 # -- the launcher and the example ----------------------------------------------
 
-@pytest.fixture
-def quiet_logging():
-    root = logging.getLogger("repro_torch")
-    state = (root.level, list(root.handlers), root.propagate)
-    yield
-    root.setLevel(state[0])
-    root.handlers[:] = state[1]
-    root.propagate = state[2]
-
-
 def _reference_loop(jcfg, jp, prompts, new):
     """The reference launcher's loop: prefill, then new - 1 greedy steps."""
     logits, caches = jx_transformer.prefill(
@@ -360,7 +354,8 @@ def _reference_loop(jcfg, jp, prompts, new):
     return np.asarray(jnp.concatenate(generated, 1)), np.asarray(logits)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b",
+                                  "deepseek-moe-16b", "deepseek-v3-671b"])
 def test_serve_lm_gives_the_reference_loops_tokens(arch):
     """The launcher's loop on carried weights, bfloat16 caches (the
     default on both sides): the same greedy tokens, logits to BF16_TOL."""

@@ -22,11 +22,11 @@ from repro_torch.models.layers import embedding
 from repro_torch.sharding import ShardingCtx, shard_logical, use_sharding
 
 ARCHS = sorted(jx_config.list_archs())
-IN_SCOPE = ["command-r-35b", "gemma3-27b", "gemma3-4b", "hubert-xlarge",
-            "pixtral-12b", "qwen2.5-3b"]
+IN_SCOPE = ["command-r-35b", "deepseek-moe-16b", "deepseek-v3-671b",
+            "gemma3-27b", "gemma3-4b", "hubert-xlarge", "pixtral-12b",
+            "qwen2.5-3b"]
 # an arch of each kind still to port, and the ROADMAP item it names
-UNPORTED = {"deepseek-moe-16b": "14a", "deepseek-v3-671b": "14b",
-            "jamba-v0.1-52b": "14c", "rwkv6-7b": "14d"}
+UNPORTED = {"jamba-v0.1-52b": "14c", "rwkv6-7b": "14d"}
 
 
 def _as_dict(cfg):
@@ -114,12 +114,11 @@ def test_unported_kinds_raise_at_build(arch):
 
 def test_each_unported_kind_names_its_item():
     base = config.reduced(config.get_arch("qwen2.5-3b"))
-    items = {config.FFN_MOE: "14a", config.ATTN_MLA: "14b",
-             config.MAMBA: "14c", config.RWKV6: "14d"}
+    items = {config.MAMBA: "14c", config.RWKV6: "14d"}
+    assert set(transformer.NOT_PORTED) == set(items)
     for kind, item in items.items():
-        pair = ((config.ATTN_FULL, kind) if kind == config.FFN_MOE
-                else (kind, config.FFN_DENSE))
-        cfg = dataclasses.replace(base, stages=((1, (pair,)),),
+        cfg = dataclasses.replace(base, stages=((1, ((kind,
+                                                     config.FFN_DENSE),)),),
                                   num_layers=1)
         with pytest.raises(NotImplementedError, match=rf"item {item} "):
             transformer.Transformer(cfg, device="meta")
