@@ -176,7 +176,20 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           checks: deepseek-moe-16b at depth 2 (its dense layer and a MoE
           layer; the card's routing must equal float64's choice for
           choice), deepseek-v3-671b at depth 1 (an MLA + dense layer: its
-          depth-2 cut would need 112 GB in float64 on the host)
+          depth-2 cut would need 112 GB in float64 on the host).  (e) The
+          state mixers: rwkv6-7b at full width and depth (32 time-mix
+          layers with the channel-mix FFN: 7.00 B parameters, 28.0 GB)
+          through the serve launcher, ``--batch 4 --prompt-len 256 --new
+          32`` (two chunks of 128), and jamba-v0.1-52b at full width cut
+          to its first period of 8 layers (7 Mamba, 1 attention; 4 dense
+          and 4 MoE FFNs of 16 experts top-2: 13.30 B parameters, 53.2 GB)
+          through ``serve_lm`` at batch 1, prompt 2048 (16 Mamba chunks),
+          16 decode steps, its MoE at 1.25; decode against forward on a
+          prompt of 128 and 128 steps (a forward of 256: a chunked scan
+          takes a length shorter than its chunk or a multiple of it), at
+          2 x E / k for jamba; their float64 checks at depth 2 (rwkv6: two
+          time-mix layers; jamba: its first layer, Mamba + dense, and its
+          attention layer)
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line (each kernel's times, bounds and shapes summed over
@@ -2600,10 +2613,11 @@ def _route_diff(card, ref):
 
 
 def _f64_check(cfg, seed: int, batch: int, prompt_len: int, steps: int,
-               layers: int = 2):
+               layers: int = 2, kinds=None):
     """Full width, depth cut to ``layers`` (2: the pattern's first, then
     its first of another kind if it has one: gemma's sliding and global
-    layers, a DeepSeek's dense and MoE layers; 1: the first), through the
+    layers, a DeepSeek's dense and MoE layers; 1: the first), or to the
+    pattern's entries at the indices ``kinds``, through the
     config's frontend: the card's float32 logits (the encoder's
     ``encode_step``, or a prefill, with the patches first for pixtral, and
     ``steps`` decode steps) against the port's own code in float64 on the
@@ -2619,7 +2633,8 @@ def _f64_check(cfg, seed: int, batch: int, prompt_len: int, steps: int,
     from repro_torch.models.layers.moe import recorded_routes
     pattern = cfg.pattern()
     other = next((k for k in pattern if k != pattern[0]), pattern[1])
-    cut = _cut(cfg, (pattern[0], other)[:layers])
+    cut = _cut(cfg, [pattern[i] for i in kinds] if kinds
+               else (pattern[0], other)[:layers])
     params = transformer.init_params(
         torch.Generator(device="cuda").manual_seed(seed), cut)
     rng = np.random.default_rng(seed)
@@ -2776,7 +2791,7 @@ def _lm_serve(name, cfg, r, serve):
     # the consistency check: prompts at least the window long (a shorter
     # one leaves the reference's max_len buffer, whose decode attends past
     # the window; ROADMAP queue 3)
-    window = cfg.attn.window
+    window = cfg.attn.window if cfg.attn else 0
     check_prompt = r.get("check_prompt", r["prompt"])
     if window and check_prompt < window:
         fail(f"lm {name}: prompt {check_prompt} < window {window}")
@@ -2834,7 +2849,11 @@ def phase_lm():
             "gemma3-4b": dict(batch=1, prompt=2048, new=17, check_steps=16,
                               forward_len=3072),
             "deepseek-moe-16b": dict(batch=4, prompt=64, new=32,
-                                     check_steps=8, forward_len=72)}
+                                     check_steps=8, forward_len=72),
+            # attention-free, its prompt two chunks of the time-mix; the
+            # check's prompt plus steps a whole number of chunks
+            "rwkv6-7b": dict(batch=4, prompt=256, new=32, check_prompt=128,
+                             check_steps=128, forward_len=256)}
     for arch, r in runs.items():
         t0 = time.perf_counter()
         _lm_serve(f"{arch} full width and depth, serve launcher",
@@ -2854,6 +2873,20 @@ def phase_lm():
                   new=r["new"], device="cuda"))
     emit("lm", part="deepseek-v3-671b: seconds",
          seconds=time.perf_counter() - t0)
+    # jamba-v0.1-52b at full width, its first period of 8 layers (7 Mamba,
+    # 1 attention; 4 dense and 4 MoE FFNs): a long prompt, 16 Mamba chunks
+    jamba = get_arch("jamba-v0.1-52b")
+    jamba_cut = _cut(jamba, jamba.pattern()[:8])
+    r = dict(batch=1, prompt=2048, new=17, check_prompt=128, check_steps=128,
+             forward_len=256)
+    t0 = time.perf_counter()
+    _lm_serve("jamba-v0.1-52b full width, its first 8 layers (7 Mamba, "
+              "1 attention, 4 MoE), serve_lm", jamba_cut, r,
+              lambda: serve_launcher.serve_lm(
+                  jamba_cut, batch=r["batch"], prompt_len=r["prompt"],
+                  new=r["new"], device="cuda"))
+    emit("lm", part="jamba-v0.1-52b: seconds",
+         seconds=time.perf_counter() - t0)
     # the card against float64 on the CPU, full width, depth 2 (v3: 1),
     # each through its frontend: (c) hubert's encode_step on frames,
     # pixtral's prefill with its 256 patches before the tokens
@@ -2863,7 +2896,11 @@ def phase_lm():
               "pixtral-12b": dict(batch=2, prompt_len=64, steps=2),
               "deepseek-moe-16b": dict(batch=4, prompt_len=64, steps=4),
               "deepseek-v3-671b": dict(batch=1, prompt_len=64, steps=4,
-                                       layers=1)}
+                                       layers=1),
+              "rwkv6-7b": dict(batch=2, prompt_len=64, steps=4),
+              # its first layer (Mamba + dense) and its attention layer
+              "jamba-v0.1-52b": dict(batch=2, prompt_len=64, steps=4,
+                                     kinds=(0, 4))}
     for arch, c in checks.items():
         cfg = get_arch(arch)
         torch.cuda.empty_cache()

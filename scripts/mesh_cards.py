@@ -11,7 +11,11 @@ has cards for (``DeviceMesh(("data", N))`` = ``cuda:0..N-1``):
           through a data=N mesh equals data=1 bit for bit (logits, counts,
           skip fractions); FPS of each N, measured in turns (1, N, N, 1)
   train   one ``MeshRunner.train_step`` at batch 32 from the same params:
-          the new params are bit-identical at every N; step ms of each N
+          the new params are bit-identical at every N; step ms of each N,
+          measured in turns (1, N, N, 1)
+  gate    at the largest N (4, or 2 on a host of two or three cards) the
+          median infer FPS is above data=1's and the median train step is
+          faster than data=1's: shards on several cards run at once
   seg     snn-seg (batch 16, T=16) through a data=N mesh equals data=1
   lanes   a threaded engine with 2N lanes pinned round-robin to the N
           cards (``DeviceMesh.lane_devices``) through a lane-0 crash:
@@ -20,8 +24,8 @@ has cards for (``DeviceMesh(("data", N))`` = ``cuda:0..N-1``):
 
 Each check prints one JSON line; then the cards' names and power limits
 as nvidia-smi gives them, and last ``{"ok": ...}``.  Exits nonzero when a
-check fails or when fewer than two cards are visible.  Imports neither
-JAX nor the JAX package.
+check or the gate fails, or when fewer than two cards are visible.
+Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 BATCH, TRAIN_BATCH, SEG_BATCH, REPS, REQUESTS, SEED = 256, 32, 16, 8, 128, 0
+TRAIN_REPS = 3
 
 
 def emit(check: str, **rec) -> None:
@@ -74,7 +79,7 @@ def main() -> int:
     from repro_torch.api import ServeSpec, Session, TrainSpec
     from repro_torch.config import get_snn
     from repro_torch.data.synthetic import mnist_like, road_like
-    from repro_torch.dist import DeviceMesh
+    from repro_torch.dist import DeviceMesh, workers
     from repro_torch.kernels import _build
     from repro_torch.runtime.faults import FaultPlan
     _build.build()
@@ -92,6 +97,7 @@ def main() -> int:
     # infer: bits and FPS, in turns against data=1
     sess = {n: session(cfg, n) for n in sizes}
     out = {n: s.infer(frames) for n, s in sess.items()}      # warm
+    infer_fps = {}
     for n in sizes[1:]:
         fps = {1: [], n: []}
         for m in (1, n, n, 1):
@@ -100,27 +106,44 @@ def main() -> int:
             fps[m].append(REPS * BATCH / sec)
         same = equal_outputs(out[n], out[1])
         ok &= same
+        infer_fps[n] = fps
         emit("infer", data=n, batch=BATCH, equals_data1=same,
              fps=fps[n], fps_data1=fps[1],
              shard_devices=[str(d) for d in
                             sess[n]._runner().shard_devices])
 
-    # train: params bit-identical at every N, step ms
+    # train: params bit-identical at every N, step ms in turns
     x, y = mnist_like(TRAIN_BATCH, seed=0)
-    params, step_ms = {}, {}
-    for n in sizes:
-        s = session(cfg, n, lambda **k: TrainSpec(lr=1e-2, **k))
-        s.train_step(x, y)                                   # warm
+    train = {n: session(cfg, n, lambda **k: TrainSpec(lr=1e-2, **k))
+             for n in sizes}
+    params = {}
+    for n, s in train.items():
+        s.train_step(x, y)                   # from the same params: warm
         params[n] = s.params
-        times = [synced_seconds(lambda: s.train_step(x, y))
-                 for _ in range(3)]
-        step_ms[n] = statistics.median(times) * 1e3
+    step_ms = {}
     for n in sizes[1:]:
         same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
             tree_leaves(params[n]), tree_leaves(params[1])))
         ok &= same
+        ms = {1: [], n: []}
+        for m in (1, n, n, 1):
+            ms[m] += [synced_seconds(lambda: train[m].train_step(x, y)) * 1e3
+                      for _ in range(TRAIN_REPS)]
+        step_ms[n] = ms
         emit("train", data=n, batch=TRAIN_BATCH, params_equal_data1=same,
-             step_ms=step_ms[n], step_ms_data1=step_ms[1])
+             step_ms=ms[n], step_ms_data1=ms[1])
+
+    # the gate: more cards give more frames and faster steps
+    n = sizes[-1]
+    fps_n = statistics.median(infer_fps[n][n])
+    fps_1 = statistics.median(infer_fps[n][1])
+    ms_n = statistics.median(step_ms[n][n])
+    ms_1 = statistics.median(step_ms[n][1])
+    gate = fps_n > fps_1 and ms_n < ms_1
+    ok &= gate
+    emit("gate", data=n, fps=fps_n, fps_data1=fps_1,
+         fps_ratio=fps_n / fps_1, step_ms=ms_n, step_ms_data1=ms_1,
+         step_speedup=ms_1 / ms_n, passed=gate)
 
     # seg through the mesh
     seg = get_snn("snn-seg")
@@ -158,6 +181,7 @@ def main() -> int:
          served_equal_mesh_infer=same, fps=s["fps"],
          p50_ms=s["p50_latency_s"] * 1e3, p99_ms=s["p99_latency_s"] * 1e3)
 
+    workers.shutdown()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

@@ -8,8 +8,12 @@ logical ``batch`` axis resolves to (``sharding.ShardingCtx``:
 mesh order, one per entry of those axes (an axis the batch is not sharded
 over, such as ``model``, replicates and computes nothing twice), and each
 shard runs on its own entry with its own copy of the params, made once
-for each params version.  Every shard is launched before any is read back,
-so shards on different cards overlap.
+for each params version.  With more than one shard, each shard runs in a
+worker process of its own entry (``dist.workers``), every shard's call
+sent before any result is read back, so the shards' host work and their
+cards run at once, and a worker replays each ``hopper`` forward from a
+CUDA graph (``_infer_shard``); one shard runs eagerly in the calling
+thread.
 
 **Bit-parity contract** (tests/test_torch_dist.py):
 
@@ -29,13 +33,14 @@ so shards on different cards overlap.
     reduction order, by construction.
 
 The runner is used by one thread at a time (one ``Session`` verb at a
-time); it holds no locks and mutates only its own replica cache.  Serving
+time); it holds no locks and mutates only its own replica cache (the
+worker processes are shared, one mesh call at a time).  Serving
 lanes are pinned separately (``DeviceMesh.lane_devices`` and
 ``serving.engine.EngineConfig.lane_devices``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ from repro_torch.core.snn_model import (SNNOutputs, freeze_params,
                                         layer_shapes, snn_apply)
 from repro_torch.core.snn_train import make_grad_rows_fn
 from repro_torch.device import on_device
+from repro_torch.dist import workers
 from repro_torch.dist.mesh import DeviceMesh
 from repro_torch.kernels.spiking_conv import skip_table_blocks
 from repro_torch.serving.batcher import to_device, to_host
@@ -65,6 +71,75 @@ def _pad_rows(a: np.ndarray, m: int) -> np.ndarray:
     if m == n:
         return a
     return np.concatenate([a, np.zeros((m - n,) + a.shape[1:], a.dtype)])
+
+
+def _infer_shard(dev: torch.device, params: Dict, graphs: Optional[Dict],
+                 cfg: SNNConfig, kw: Dict, logits_only: bool,
+                 frames: np.ndarray) -> SNNOutputs:
+    """One shard's forward, read back to the host.  Given ``graphs`` (a
+    worker's dict, kept as long as its params version), a ``hopper``
+    forward on a card is captured once per shape in a CUDA graph with its
+    outputs packed into one byte buffer, and replayed: the same kernels on
+    the same inputs, so the same bits, for one launch of host work
+    instead of 127 and one copy back instead of one an output.  A replay
+    moves no launch counter."""
+    with on_device(dev), torch.inference_mode():
+        if graphs is None or dev.type != "cuda" \
+                or kw.get("backend") != "hopper":
+            return to_host(snn_apply(params, to_device(frames, dev), cfg,
+                                     logits_only=logits_only, **kw))
+        key = (frames.shape, logits_only, tuple(sorted(kw.items())))
+        if key not in graphs:
+            graphs[key] = _capture(lambda x: snn_apply(
+                params, x, cfg, logits_only=logits_only, **kw),
+                to_device(frames, dev))
+        x, graph, packed, layout = graphs[key]
+        x.copy_(torch.from_numpy(frames))
+        graph.replay()
+        return _unpack(packed.cpu().numpy(), layout)
+
+
+def _capture(fn: Callable, x: torch.Tensor):
+    """(x, graph, packed, layout): ``_pack(fn(x))`` captured in a CUDA
+    graph on x's card, after one run on a side stream (plans, kernel
+    loads)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        layout = _pack(fn(x))[1]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        packed = _pack(fn(x))[0]
+    return x, graph, packed, layout
+
+
+def _pack(out) -> Tuple[torch.Tensor, Tuple]:
+    """(one byte tensor holding every tensor of the tree ``out``, its
+    layout: the tree, each leaf's shape and dtype)."""
+    leaves, tree = tree_flatten(out)
+    return (torch.cat([t.reshape(-1).view(torch.uint8) for t in leaves]),
+            (tree, [(tuple(t.shape), t.dtype) for t in leaves]))
+
+
+def _unpack(buf: np.ndarray, layout) -> object:
+    """The tree of numpy arrays that ``_pack`` packed into ``buf``."""
+    tree, leaves = layout
+    out, at = [], 0
+    for shape, dtype in leaves:
+        dt = torch.empty((), dtype=dtype).numpy().dtype
+        n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        out.append(buf[at:at + n].view(dt).reshape(shape))
+        at += n
+    return tree_unflatten(out, tree)
+
+
+def _rows_shard(dev: torch.device, params: Dict, scratch: Optional[Dict],
+                cfg: SNNConfig, spec, x: np.ndarray, y: np.ndarray):
+    """One shard's per-example loss and gradient rows, on the host."""
+    with on_device(dev):
+        return to_host(make_grad_rows_fn(cfg, spec=spec)(
+            params, *to_device((x, y), dev)))
 
 
 def _int_sum(parts) -> np.ndarray:
@@ -105,8 +180,8 @@ class MeshRunner:
         self.shard_devices: Tuple[torch.device, ...] = self._shard_entries(
             axes)
         self._version: Optional[Dict] = None    # params the replicas copy
+        self._version_no = -1
         self._replicas: Dict[Tuple[torch.device, bool], Dict] = {}
-        self._rows_fn = None
 
     def _shard_entries(self, batch_axes) -> Tuple[torch.device, ...]:
         """The mesh entry of each batch shard: index 0 along every axis
@@ -138,15 +213,29 @@ class MeshRunner:
         dict object a ``Session`` holds between train steps); ``frozen``
         adds the dense layers' exact-grid weights, as the serving cache
         holds them."""
-        if params is not self._version:
-            self._version, self._replicas = params, {}
         rep = self._replicas.get((dev, frozen))
         if rep is None:
-            rep = tree_map(lambda t: t.detach().to(dev), params)
-            if frozen:
-                rep = freeze_params(rep)
+            with on_device(dev), torch.no_grad():
+                rep = tree_map(lambda t: t.detach().to(dev), params)
+                if frozen:
+                    rep = freeze_params(rep)
             self._replicas[(dev, frozen)] = rep
         return rep
+
+    def _each_shard(self, fn: Callable, params: Dict, frozen: bool,
+                    args: Sequence[Tuple]) -> List:
+        """``fn(dev, replica, scratch, *a)`` for every shard: one shard in
+        this thread (no scratch: it runs eagerly), several in the entries'
+        worker processes, all at once; the results in mesh order."""
+        if params is not self._version:
+            self._version, self._replicas = params, {}
+            self._version_no = workers.new_version()
+        if len(self.shard_devices) == 1:
+            dev = self.shard_devices[0]
+            return [fn(dev, self._replica(params, dev, frozen), None,
+                       *args[0])]
+        return workers.run_shards(fn, self.shard_devices, args,
+                                  self._version_no, params, frozen)
 
     # -- inference -----------------------------------------------------------
     def infer(self, params: Dict, frames, *, pad_to: Optional[int] = None,
@@ -163,13 +252,9 @@ class MeshRunner:
         m = self._padded(n if pad_to is None else int(pad_to))
         shards = np.split(_pad_rows(frames, m), len(self.shard_devices))
         kw = self._exec_kwargs()
-        outs = []
-        for dev, xs in zip(self.shard_devices, shards):
-            with on_device(dev), torch.inference_mode():
-                p = self._replica(params, dev, frozen=True)
-                outs.append(snn_apply(p, to_device(xs, dev), self.cfg,
-                                      logits_only=logits_only, **kw))
-        host = [to_host(o) for o in outs]           # after every launch
+        host = self._each_shard(_infer_shard, params, True,
+                                [(self.cfg, kw, logits_only, xs)
+                                 for xs in shards])
         logits = np.concatenate([h.logits for h in host])[:n]
         if logits_only:
             return SNNOutputs(logits=logits, spike_counts=(),
@@ -223,22 +308,14 @@ class MeshRunner:
         sharding); the batch reduction and the optimizer update run on the
         host in a fixed order, so the result does not depend on the shard
         count."""
-        if self._rows_fn is None:
-            self._rows_fn = make_grad_rows_fn(self.cfg, spec=self.spec)
         x = _as_numpy(x, np.float32)
         y = _as_numpy(y, np.int64)
         n = x.shape[0]
         m = self._padded(n)
         k = len(self.shard_devices)
-        rows = []
-        for dev, xs, ys in zip(self.shard_devices,
-                               np.split(_pad_rows(x, m), k),
-                               np.split(_pad_rows(y, m), k)):
-            with on_device(dev):
-                rows.append(self._rows_fn(
-                    self._replica(params, dev, frozen=False),
-                    *to_device((xs, ys), dev)))
-        host = [to_host(r) for r in rows]           # after every launch
+        host = self._each_shard(_rows_shard, params, False, [
+            (self.cfg, self.spec, xs, ys) for xs, ys in
+            zip(np.split(_pad_rows(x, m), k), np.split(_pad_rows(y, m), k))])
         loss_rows = np.concatenate([l for l, _ in host])[:n]
         loss = float(loss_rows.mean(dtype=np.float32))
         lr = np.float32(getattr(self.spec, "lr", 1e-3))

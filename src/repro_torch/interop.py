@@ -15,7 +15,10 @@ same leaf names (a nested group of leaves, MoE's ``shared`` or MLA's
 convert between the two, bit for bit, and ``*_lm_caches`` do the same for
 the decode caches (the reference's stacked per-stage caches, the port's
 per-layer list).  None of these imports JAX: the caller hands over numpy
-arrays (``np.asarray`` of each JAX leaf; a bfloat16 leaf keeps its bits).
+arrays (``np.asarray`` of each JAX leaf; a bfloat16 leaf keeps its bits),
+and float32 leaves of a bfloat16 model (Mamba's ``A_log`` and ``D``,
+RWKV6's ``w0`` and ``u``; the Mamba and RWKV6 states of bfloat16 caches)
+stay float32, as in the reference.
 """
 from __future__ import annotations
 
@@ -53,11 +56,11 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     """A numpy array as a torch tensor on ``dev``, its bits kept; a
     bfloat16 array (numpy has no such type of its own) by its 16-bit
     pattern."""
-    a = np.asarray(a)
+    a = np.array(a)             # a copy: the tensor may be written in place
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)) \
-            .view(torch.bfloat16).to(dev)
-    return torch.from_numpy(np.array(a)).to(dev)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:

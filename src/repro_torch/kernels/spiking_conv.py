@@ -187,8 +187,9 @@ def skip_table_fraction(spikes: torch.Tensor, r: int, *, aprc: bool = True,
     padded[:, pad_lo:pad_lo + h] = row_tot
     counts = _window_counts(padded, r, block_rows, n_blocks)
     # the reference's mean: the float32 sum times the float32 reciprocal
+    # (a 0-d host tensor: a launch argument, no copy to the card)
     inv = torch.tensor(1.0 / counts.numel(), dtype=torch.float32)
-    return (counts == 0).float().sum() * inv.to(counts.device)
+    return (counts == 0).float().sum() * inv
 
 
 def _conv_dims(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -52,8 +52,9 @@ on the device by a generator there), ``--batch`` prompts of
 ``--prompt-len`` int32 tokens from numpy, one prefill into bfloat16
 caches of ``--prompt-len + --new`` positions, then ``--new - 1`` greedy
 decode steps, under ``torch.inference_mode``.  An encoder-only arch
-(hubert) has no decode path and exits; an arch with a kind this port has
-not reached raises ``NotImplementedError``.
+(hubert) has no decode path and exits.  jamba's and rwkv6's chunked
+scans take a prompt shorter than their chunk or a multiple of it (128;
+16 at ``reduced`` size) and raise ``ValueError`` otherwise.
 """
 from __future__ import annotations
 

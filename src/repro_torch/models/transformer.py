@@ -9,11 +9,13 @@ layouts).  Three execution modes share the same parameters:
                per-layer decode caches
   decode       one-token step against the caches
 
-Ported kinds: ``ATTN_FULL``, ``ATTN_SLIDING``, ``ATTN_MLA`` (DeepSeek's
-latent attention, its decode absorbed), ``FFN_DENSE`` (SwiGLU, or the RWKV
-channel-mix when the config carries ``rwkv``) and ``FFN_MOE`` (routed
-experts with shared ones).  Building a model with any other kind raises
-``NotImplementedError`` naming its ROADMAP item; nothing stands in for it.
+Every kind of the reference: the mixers ``ATTN_FULL``, ``ATTN_SLIDING``,
+``ATTN_MLA`` (DeepSeek's latent attention, its decode absorbed), ``MAMBA``
+(Jamba's selective SSM) and ``RWKV6`` (the RWKV-6 time-mix), each a module
+with ``forward``, ``prefill`` and ``decode``; the FFNs ``FFN_DENSE``
+(SwiGLU, or the RWKV channel-mix when the config carries ``rwkv``) and
+``FFN_MOE`` (routed experts with shared ones).  Any other kind raises
+``ValueError``.
 
 ``forward`` returns the sum of the MoE layers' router aux losses, in layer
 order; ``prefill`` and ``decode_step`` drop it, as the reference's do.
@@ -37,31 +39,33 @@ from repro_torch.config import (ATTN_FULL, ATTN_MLA, ATTN_SLIDING,
                                 FFN_DENSE, FFN_MOE, MAMBA, RWKV6,
                                 ArchConfig)
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import attention, embedding, ffn, mla, \
-    moe, norms
+from repro_torch.models.layers import attention, embedding, ffn, mamba, \
+    mla, moe, norms, rwkv
 from repro_torch.sharding.context import shard_logical
 
-__all__ = ["NOT_PORTED", "Sublayer", "Transformer", "init_params",
-           "forward", "init_caches", "prefill", "decode_step"]
+__all__ = ["Sublayer", "Transformer", "init_params", "forward",
+           "init_caches", "prefill", "decode_step"]
 
-# the kinds still to port, each with its ROADMAP item
-NOT_PORTED = {
-    MAMBA: "ROADMAP queue 1, item 14c (Mamba, jamba)",
-    RWKV6: "ROADMAP queue 1, item 14d (RWKV6)",
-}
-_MIXERS = (ATTN_FULL, ATTN_SLIDING, ATTN_MLA)
+# each mixer kind's module, whose ``init_cache`` makes its decode cache
+_MIXERS = {ATTN_FULL: attention, ATTN_SLIDING: attention, ATTN_MLA: mla,
+           MAMBA: mamba, RWKV6: rwkv}
 _FFNS = (FFN_DENSE, FFN_MOE)
 
 
 def _check_kinds(cfg: ArchConfig, mixer_kind: str, ffn_kind: str) -> None:
-    for kind, ported in ((mixer_kind, _MIXERS), (ffn_kind, _FFNS)):
-        if kind in ported:
-            continue
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} is not ported yet "
-                f"({NOT_PORTED[kind]})")
-        raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
+    for kind, known in ((mixer_kind, _MIXERS), (ffn_kind, _FFNS)):
+        if kind not in known:
+            raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
+
+
+def _mixer(cfg: ArchConfig, kind: str, **kw) -> nn.Module:
+    if kind == ATTN_MLA:
+        return mla.MLA(cfg, **kw)
+    if kind == MAMBA:
+        return mamba.Mamba(cfg, **kw)
+    if kind == RWKV6:
+        return rwkv.RWKV6(cfg, **kw)
+    return attention.Attention(cfg, sliding=kind == ATTN_SLIDING, **kw)
 
 
 class Sublayer(nn.Module):
@@ -80,9 +84,7 @@ class Sublayer(nn.Module):
         kw = dict(generator=generator, dtype=dtype, device=device)
         self.norm1 = norms.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype,
                                    device=device)
-        self.mixer = (mla.MLA(cfg, **kw) if mixer_kind == ATTN_MLA
-                      else attention.Attention(
-                          cfg, sliding=mixer_kind == ATTN_SLIDING, **kw))
+        self.mixer = _mixer(cfg, mixer_kind, **kw)
         self.norm2 = norms.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dtype,
                                    device=device)
         if self.is_moe:
@@ -210,18 +212,20 @@ def forward(params: Transformer, cfg: ArchConfig, *, tokens=None,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> List[Dict]:
     """Per-layer caches, in pattern order: {"mixer": {"k", "v"} (MLA:
-    {"ckv", "k_rope"}), "ffn": {} or {"shift"}}."""
+    {"ckv", "k_rope"}; Mamba: {"conv", "ssm"}; RWKV6: {"state",
+    "shift"}), "ffn": {} or {"shift"}}.  The Mamba and RWKV6 states are
+    float32 whatever ``dtype``."""
     dev = resolve_device(device)
     caches = []
     for m, f in cfg.pattern():
         _check_kinds(cfg, m, f)
-        if m == ATTN_MLA:
-            mixer = mla.init_cache(cfg, batch, max_len, dtype=dtype,
-                                   device=dev)
-        else:
+        if m in (ATTN_FULL, ATTN_SLIDING):
             mixer = attention.init_cache(cfg, batch, max_len,
                                          sliding=m == ATTN_SLIDING,
                                          dtype=dtype, device=dev)
+        else:
+            mixer = _MIXERS[m].init_cache(cfg, batch, max_len, dtype=dtype,
+                                          device=dev)
         c = {"mixer": mixer, "ffn": {}}
         if cfg.rwkv is not None and f == FFN_DENSE:
             c["ffn"] = {"shift": torch.zeros((batch, 1, cfg.d_model),

@@ -2,7 +2,8 @@
 tolerance check, the reduced configs of both packages (and their no-drop
 MoE variant), weights carried from the reference to the port (a whole
 model, or one layer's leaves), inputs of each frontend, the MoE aux-loss
-check and the launcher tests' logging fixture."""
+check, the reference launcher's greedy loop and the launcher tests'
+logging fixture."""
 import dataclasses
 import functools
 import logging
@@ -156,3 +157,20 @@ def aux_sums_match(arch):
         assert router.grad is not None and router.grad.abs().sum() > 0
         tp.zero_grad()
     assert want > 0
+
+
+def reference_loop(jcfg, jp, prompts, new):
+    """The reference launcher's loop: prefill, then new - 1 greedy steps."""
+    logits, caches = jx_transformer.prefill(
+        jp, jcfg, tokens=jnp.asarray(prompts), remat=False,
+        max_len=prompts.shape[1] + new)
+    dec = jax.jit(lambda p, c, tok, pos: jx_transformer.decode_step(
+        p, c, jcfg, token=tok, pos=pos))
+    token = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    generated = [token]
+    for i in range(new - 1):
+        logits, caches = dec(jp, caches, token,
+                             jnp.asarray(prompts.shape[1] + i))
+        token = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        generated.append(token)
+    return np.asarray(jnp.concatenate(generated, 1)), np.asarray(logits)

@@ -1111,3 +1111,81 @@ def test_deepseek_v3_on_the_card_matches_the_cpu(card):
     for g, w in zip(got, want):
         scale = max(1.0, float(w.abs().max()))
         assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+def _state_lm(card, arch):
+    """A reduced Mamba or RWKV6 config on the card; jamba's MoE at
+    capacity factor 2E/k, so no token drops and decode equals forward."""
+    import dataclasses
+    cfg, params = _lm(card, arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=2 * cfg.moe.num_experts
+            / cfg.moe.top_k))
+    return cfg, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b"])
+def test_state_lm_decode_matches_forward_on_the_card(card, arch):
+    """Reduced jamba (Mamba, attention, MoE) and rwkv6 (the time-mix, the
+    channel-mix): a prompt of 32 (two chunks of 16) and 16 teacher-forced
+    decode steps against the forward over 48, float32 caches, within
+    tests/test_decode.py's 1e-3 and 2e-3 of max(1, max|logit|); the
+    states stay float32 on the card."""
+    from repro_torch.models import transformer
+    cfg, params = _state_lm(card, arch)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 48), dtype=np.int32)).to(card)
+    with torch.inference_mode():
+        full = transformer.forward(params, cfg, tokens=toks, remat=False)[0]
+        logits, caches = transformer.prefill(
+            params, cfg, tokens=toks[:, :32], remat=False, max_len=48,
+            cache_dtype=torch.float32)
+        scale = max(1.0, float(full[:, 31].abs().max()))
+        assert float((logits[:, 0] - full[:, 31]).abs().max()) < 1e-3 * scale
+        for pos in range(32, 48):
+            logits, caches = transformer.decode_step(
+                params, caches, cfg, token=toks[:, pos:pos + 1], pos=pos)
+            scale = max(1.0, float(full[:, pos].abs().max()))
+            assert float((logits[:, 0] - full[:, pos]).abs().max()) \
+                < 2e-3 * scale, pos
+    state = caches[0]["mixer"]["ssm" if cfg.mamba else "state"]
+    assert state.device.type == "cuda" and state.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b"])
+def test_state_lm_on_the_card_matches_the_cpu_in_float64(card, arch):
+    """The card's float32 forward, prefill of 32 and 4 decode steps
+    against the same weights in float64 on the CPU, within 1e-5 of
+    max(1, max|logit|)."""
+    import copy
+
+    from repro_torch.models import transformer
+    cfg, params = _state_lm(card, arch)
+    host = copy.deepcopy(params).to(device="cpu", dtype=torch.float64)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 48), dtype=np.int32))
+
+    def run(p, dev, dt):
+        t = toks.to(dev)
+        with torch.inference_mode():
+            outs = [transformer.forward(p, cfg, tokens=t, remat=False)[0]]
+            last, caches = transformer.prefill(
+                p, cfg, tokens=t[:, :32], remat=False, max_len=36,
+                cache_dtype=dt)
+            outs.append(last)
+            for pos in range(32, 36):
+                last, caches = transformer.decode_step(
+                    p, caches, cfg, token=t[:, pos:pos + 1], pos=pos)
+                outs.append(last)
+        return [o.double().cpu() for o in outs]
+
+    got = run(params, card, torch.float32)
+    want = run(host, torch.device("cpu"), torch.float64)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        err = float((g - w).abs().max())
+        print(f"{arch}: {err / scale:.3e} of max(1, max|logit|)")
+        assert err <= 1e-5 * scale

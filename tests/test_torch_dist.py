@@ -31,6 +31,8 @@ import torch
 from jax.sharding import AbstractMesh
 from torch.utils._pytree import tree_leaves
 
+from _rendezvous import AtOnce
+
 import repro.api as jx_api
 import repro.dist as jx_dist
 import repro.sharding.cbws_sharding as jx_cbws
@@ -41,6 +43,7 @@ import repro_torch.sharding as sharding
 from repro.config import get_snn
 from repro.core import init_snn as jx_init_snn
 from repro_torch.dist import DeviceMesh, MeshRunner
+from repro_torch.dist import runner as runner_mod
 from repro_torch.interop import from_jax_params, to_numpy_params
 from repro_torch.runtime.faults import FaultPlan
 
@@ -265,6 +268,77 @@ def test_train_params_bit_identical_at_every_shard_count(tiny, backend):
         assert losses[n] == losses[1]
         for a, b in zip(tree_leaves(params[n]), tree_leaves(params[1])):
             assert torch.equal(a, b)
+
+
+def test_shards_are_in_flight_at_once(tiny, monkeypatch, tmp_path):
+    """On a host mesh of 4, every shard's call waits at a barrier of four
+    parties (``_rendezvous.AtOnce``): it passes only if the four shards
+    run at the same time, each in a process of its own (one thread
+    launching them in turn times out at the first), for the infer and for
+    the train step, with the bits of data=1."""
+    cfg, np_params, frames, labels = tiny
+    want = _session(cfg, np_params, api.ServeSpec(
+        backend="hopper", mesh={"data": 1})).infer(frames)
+    trained = _session(cfg, np_params, api.TrainSpec(
+        backend="hopper", lr=1e-2, mesh={"data": 1}))
+    want_loss = trained.train_step(frames, labels)
+    calls = {}
+    for name in ("_infer_shard", "_rows_shard"):
+        (tmp_path / name).mkdir()
+        calls[name] = AtOnce(tmp_path / name, 4, runner_mod.__name__, name)
+        monkeypatch.setattr(runner_mod, name, calls[name])
+    got = _session(cfg, np_params, api.ServeSpec(
+        backend="hopper", mesh={"data": 4})).infer(frames)
+    np.testing.assert_array_equal(got.logits, want.logits)
+    _assert_counts_equal(got, want)
+    s = _session(cfg, np_params, api.TrainSpec(backend="hopper", lr=1e-2,
+                                               mesh={"data": 4}))
+    assert s.train_step(frames, labels) == want_loss
+    for a, b in zip(tree_leaves(s.params), tree_leaves(trained.params)):
+        assert torch.equal(a, b)
+    for at_once in calls.values():
+        pids = at_once.pids()
+        assert len(pids) == 4 and os.getpid() not in pids
+
+
+def test_workers_hold_recent_params_versions_and_raise_errors(tiny):
+    """Two sessions on the same host entries alternate without re-sending
+    their params (each worker holds the last ``VERSIONS``); a shard that
+    raises in its worker raises in the caller, and the next call works."""
+    from repro_torch.dist import workers
+    cfg, np_params, frames, _ = tiny
+    a, b = (_session(cfg, np_params, api.ServeSpec(
+        backend="batched", mesh={"data": 2})) for _ in range(2))
+    want = a.infer(frames)
+    b.infer(frames)
+    held = workers._POOL["cpu:0"].held
+    versions = list(held)
+    np.testing.assert_array_equal(a.infer(frames).logits, want.logits)
+    assert list(held)[-2:] == versions[-2:][::-1]        # no new version
+    assert len(held) <= workers.VERSIONS
+    with pytest.raises(ValueError, match="0 channels"):
+        a.infer(frames[..., :0])            # raised in the workers
+    assert not held
+    np.testing.assert_array_equal(a.infer(frames).logits, want.logits)
+
+
+def test_packed_outputs_unpack_to_the_same_bits(tiny):
+    """A worker's graph reads its outputs back as one byte buffer
+    (``runner._pack``): unpacked, they equal the plain read-back, field by
+    field and dtype by dtype."""
+    from repro_torch.core.snn_model import snn_apply
+    from repro_torch.serving.batcher import to_host
+    cfg, np_params, frames, _ = tiny
+    params = from_jax_params(np_params, device="cpu")
+    with torch.inference_mode():
+        out = snn_apply(params, torch.from_numpy(frames), cfg,
+                        backend="hopper")
+        packed, layout = runner_mod._pack(out)
+    got, want = runner_mod._unpack(packed.numpy(), layout), to_host(out)
+    assert type(got) is type(want) and packed.dtype == torch.uint8
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
 
 
 def test_mesh_pads_to_the_shard_divisor(tiny):

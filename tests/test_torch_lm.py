@@ -1,7 +1,8 @@
 """The port's LM serving path against the JAX reference, on the CPU.
 
-Every in-scope config (the kinds ported: ``ATTN_FULL``, ``ATTN_SLIDING``,
-``ATTN_MLA``, ``FFN_DENSE``, ``FFN_MOE``) at ``reduced()`` size, with the
+Every config (all the reference's kinds: ``ATTN_FULL``, ``ATTN_SLIDING``,
+``ATTN_MLA``, ``MAMBA``, ``RWKV6``, ``FFN_DENSE``, ``FFN_MOE``) at
+``reduced()`` size, with the
 reference's weights carried across by ``interop.from_jax_lm_params`` and
 inputs made from a seed with numpy: ``forward``, ``prefill`` and
 teacher-forced ``decode_step``s, the step makers, the loss, interop, the
@@ -12,8 +13,10 @@ launchers), where a k/v element that rounds to the other bfloat16
 neighbour moves by one bfloat16 ulp, so those caches, and the logits of a
 decode that reads them, agree to ``BF16_TOL`` (2^-8) x max(1, max|ref|),
 and the greedy tokens exactly.  The port's decode against its own forward
-is held to ``tests/test_decode.py``'s 2e-3.  Interop round trips are bit
-for bit.  The MoE configs run at capacity factor 2 x E / k where decode
+is held to ``tests/test_decode.py``'s 2e-3.  The Mamba and RWKV6 configs
+take a prompt of 32 and a forward of 48 (their chunked scans need a length
+shorter than the chunk, 16, or a multiple of it); the others 40 and 44.
+Interop round trips are bit for bit.  The MoE configs run at capacity factor 2 x E / k where decode
 must equal forward (no token drops), and at their configured 1.25 through
 the launcher, on both sides.
 """
@@ -28,10 +31,10 @@ import pytest
 import torch
 
 from _lm_parity import (B, BF16_TOL, caches_close, carried, cfgs, close,
-                        inputs, no_drop, quiet_logging, t)
+                        inputs, no_drop, quiet_logging, reference_loop, t)
 from repro.models import lm as jx_lm
 from repro.models import transformer as jx_transformer
-from repro_torch.config import RWKVConfig, get_arch, reduced
+from repro_torch.config import MAMBA, RWKV6, RWKVConfig, get_arch, reduced
 from repro_torch.interop import (from_jax_lm_caches, from_jax_lm_params,
                                  to_numpy_lm_caches, to_numpy_lm_params)
 from repro_torch.launch import serve as serve_launcher
@@ -39,10 +42,9 @@ from repro_torch.models import lm, transformer
 
 DECODERS = ["qwen2.5-3b", "gemma3-4b", "gemma3-27b", "command-r-35b",
             "pixtral-12b", "qwen2.5-3b+rwkv-ffn", "deepseek-moe-16b",
-            "deepseek-v3-671b"]
+            "deepseek-v3-671b", "jamba-v0.1-52b", "rwkv6-7b"]
 IN_SCOPE = DECODERS + ["hubert-xlarge"]
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
-S, F = 40, 44                # prompt, prompt plus fed tokens
 DECODE_STEPS = 3
 _RUNS = {}
 
@@ -62,6 +64,14 @@ def _cfgs_of(arch):
             dataclasses.replace(cfg, rwkv=RWKVConfig(head_dim=16)))
 
 
+def _lengths(cfg):
+    """(prompt, forward length): a chunked scan takes a length shorter
+    than its chunk (16 here) or a multiple of it."""
+    if any(m in (MAMBA, RWKV6) for m, _ in cfg.pattern()):
+        return 32, 48
+    return 40, 44
+
+
 def _run(arch):
     """Both packages through forward, prefill and DECODE_STEPS teacher-
     forced decode steps on one config, float32 caches, each step's caches
@@ -71,8 +81,9 @@ def _run(arch):
         return _RUNS[arch]
     jcfg, cfg = _cfgs_of(arch)
     jp, tp = carried(jcfg, cfg)
+    S, F = _lengths(cfg)
     jkw, kw = inputs(cfg, np.random.default_rng(8), F)
-    out = {"cfg": cfg, "tp": tp, "kw": kw}
+    out = {"cfg": cfg, "tp": tp, "kw": kw, "prompt": S}
     out["ref_forward"] = np.asarray(jax.jit(lambda p, a: jx_transformer
                                             .forward(p, jcfg, remat=False,
                                                      **a)[0])(jp, jkw))
@@ -143,7 +154,8 @@ def test_decode_agrees_with_forward(arch):
     decode logits equal the forward's at the same positions."""
     run = _run(arch)
     for i, (_, tl, _, _) in enumerate(run["steps"]):
-        close(tl[:, 0], run["forward"][:, run["offset"] + S - 1 + i], 2e-3)
+        close(tl[:, 0], run["forward"][:, run["offset"] + run["prompt"] - 1
+                                       + i], 2e-3)
 
 
 def test_sliding_ring_wraps_many_times():
@@ -282,11 +294,13 @@ def test_remat_keeps_values_and_gradients():
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "pixtral-12b",
                                   "hubert-xlarge", "deepseek-moe-16b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "jamba-v0.1-52b",
+                                  "rwkv6-7b"])
 def test_interop_round_trips_bit_for_bit(arch):
     jcfg, cfg = cfgs(arch)
-    jp = jax.tree.map(np.asarray,
-                      jx_transformer.init_params(jax.random.PRNGKey(3), jcfg))
+    jp = jax.tree.map(np.asarray, jax.jit(
+        jx_transformer.init_params, static_argnums=1)(
+            jax.random.PRNGKey(3), jcfg))
     back = to_numpy_lm_params(from_jax_lm_params(jp, cfg, device="cpu"))
     assert jax.tree.structure(back) == jax.tree.structure(jp)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
@@ -298,8 +312,11 @@ def test_interop_round_trips_bit_for_bit(arch):
         jc = jax.tree.map(lambda a: np.asarray(a) + np.asarray(
             np.arange(a.size).reshape(a.shape) % 7, a.dtype), jc)
         tc = from_jax_lm_caches(jc, cfg, device="cpu")
-        assert {a.dtype for c in tc for a in c["mixer"].values()} == {
-            torch.float32 if dtype == jnp.float32 else torch.bfloat16}
+        # the cache dtype, but float32 for the Mamba and RWKV6 states
+        assert [str(a.dtype).split(".")[1] for c in tc
+                for part in c.values() for a in part.values()] == [
+            a.dtype.name for a in jax.tree.leaves(
+                from_stacked(jc, jcfg))]
         back = to_numpy_lm_caches(tc, cfg)
         assert jax.tree.structure(back) == jax.tree.structure(jc)
         for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jc)):
@@ -312,6 +329,36 @@ def test_interop_round_trips_bit_for_bit(arch):
         for a, b in zip(jax.tree.leaves(to_numpy_lm_caches(fresh, cfg)),
                         jax.tree.leaves(want)):
             assert a.shape == b.shape and not a.any()
+
+
+def from_stacked(stacked, jcfg):
+    """The reference's stacked caches as a per-layer list of {part: {name:
+    leaf}}, in the port's order."""
+    return [{part: {n: np.asarray(a)[r] for n, a in leaves.items()}
+             for part, leaves in stacked[si]["sub"][i].items()}
+            for si, (repeats, sub) in enumerate(jcfg.stage_list())
+            for r in range(repeats) for i in range(len(sub))]
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b"])
+def test_a_bfloat16_model_keeps_its_float32_leaves(arch):
+    """A bfloat16 model: ``A_log`` and ``D`` (Mamba), ``w0`` and ``u``
+    (RWKV6) stay float32, as in the reference, through interop and when
+    the port builds the model itself."""
+    jcfg, cfg = cfgs(arch)
+    jp = jax.tree.map(np.asarray, jax.jit(
+        jx_transformer.init_params, static_argnums=(1, 2))(
+            jax.random.PRNGKey(4), jcfg, jnp.bfloat16))
+    tp = from_jax_lm_params(jp, cfg, device="cpu")
+    f32 = {n for n, p in tp.named_parameters() if p.dtype == torch.float32}
+    want = {"A_log", "D"} if cfg.mamba else {"w0", "u"}
+    assert {n.split(".")[-1] for n in f32 if ".mixer." in n} == want
+    built = transformer.Transformer(cfg, dtype=torch.bfloat16, device="meta")
+    assert {n: p.dtype for n, p in built.named_parameters()} == \
+        {n: p.dtype for n, p in tp.named_parameters()}
+    back = to_numpy_lm_params(tp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        assert np.array_equal(a, np.asarray(b, np.float32))
 
 
 def test_interop_rejects_a_pytree_of_another_config():
@@ -337,23 +384,6 @@ def test_decode_position_past_a_full_cache_raises():
 
 # -- the launcher and the example ----------------------------------------------
 
-def _reference_loop(jcfg, jp, prompts, new):
-    """The reference launcher's loop: prefill, then new - 1 greedy steps."""
-    logits, caches = jx_transformer.prefill(
-        jp, jcfg, tokens=jnp.asarray(prompts), remat=False,
-        max_len=prompts.shape[1] + new)
-    dec = jax.jit(lambda p, c, tok, pos: jx_transformer.decode_step(
-        p, c, jcfg, token=tok, pos=pos))
-    token = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
-    generated = [token]
-    for i in range(new - 1):
-        logits, caches = dec(jp, caches, token,
-                             jnp.asarray(prompts.shape[1] + i))
-        token = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-        generated.append(token)
-    return np.asarray(jnp.concatenate(generated, 1)), np.asarray(logits)
-
-
 @pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma3-4b",
                                   "deepseek-moe-16b", "deepseek-v3-671b"])
 def test_serve_lm_gives_the_reference_loops_tokens(arch):
@@ -365,7 +395,7 @@ def test_serve_lm_gives_the_reference_loops_tokens(arch):
                                                  dtype=np.int32)
     s = serve_launcher.serve_lm(cfg, params=tp, prompts=prompts, new=6,
                                 device="cpu")
-    tokens, logits = _reference_loop(jcfg, jp, prompts, 6)
+    tokens, logits = reference_loop(jcfg, jp, prompts, 6)
     assert s["tokens"].dtype == np.int32 and s["tokens"].shape == (B, 6)
     assert np.array_equal(s["tokens"], tokens)
     close(s["logits"], logits, BF16_TOL)
@@ -385,9 +415,18 @@ def test_serve_launcher_arch_path_on_the_cpu(quiet_logging):
     with pytest.raises(SystemExit, match="encoder-only"):
         serve_launcher.main(["--arch", "hubert-xlarge", "--device", "cpu",
                              "--log-level", "error"])
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        serve_launcher.main(["--arch", "jamba-v0.1-52b", "--device", "cpu",
-                             "--log-level", "error"])
+    # jamba (Mamba, attention, MoE) with the launcher's own weights, held
+    # to the reference's greedy loop on them
+    jamba = serve_launcher.main(["--arch", "jamba-v0.1-52b", "--device",
+                                 "cpu", "--batch", "2", "--prompt-len", "16",
+                                 "--new", "3", "--log-level", "error"])
+    assert jamba["arch"] == "jamba-v0.1-52b-reduced"
+    jcfg, _ = cfgs("jamba-v0.1-52b")
+    prompts = np.random.default_rng(0).integers(
+        0, jcfg.vocab_size, (2, 16), dtype=np.int32)
+    jp = jax.tree.map(jnp.asarray, to_numpy_lm_params(jamba["params"]))
+    assert np.array_equal(jamba["tokens"],
+                          reference_loop(jcfg, jp, prompts, 3)[0])
 
 
 def test_example_arch_path_on_the_cpu(quiet_logging):
@@ -405,4 +444,4 @@ def test_example_arch_path_on_the_cpu(quiet_logging):
     got = mod.serve_lm_batched(cfg, params=tp, prompts=prompts, new=4,
                                device="cpu")
     assert np.array_equal(got["tokens"],
-                          _reference_loop(jcfg, jp, prompts, 4)[0])
+                          reference_loop(jcfg, jp, prompts, 4)[0])

@@ -1,11 +1,12 @@
 """The port's LM configs and counts against the reference's, and the
-guards of the LM slice: unported kinds raise, ``shard_logical`` raises
-under a sharding context, the entry points default to the card.
+guards of the LM slice: an unknown layer kind raises, ``shard_logical``
+raises under a sharding context, the entry points default to the card.
 
 Configs and ``reduced`` equal field for field for all 10 archs;
 ``count_params`` and ``step_flops`` equal exactly for every (arch x
-``LM_SHAPES``), at full size and reduced; a full-width model built on the
-``meta`` device (no storage) holds exactly ``count_params`` parameters.
+``LM_SHAPES``), at full size and reduced; every arch's full-width model
+built on the ``meta`` device (no storage) holds exactly ``count_params``
+parameters.
 Neither side needs JAX here: ``repro.config`` and
 ``repro.models.counting`` import none.
 """
@@ -22,11 +23,6 @@ from repro_torch.models.layers import embedding
 from repro_torch.sharding import ShardingCtx, shard_logical, use_sharding
 
 ARCHS = sorted(jx_config.list_archs())
-IN_SCOPE = ["command-r-35b", "deepseek-moe-16b", "deepseek-v3-671b",
-            "gemma3-27b", "gemma3-4b", "hubert-xlarge", "pixtral-12b",
-            "qwen2.5-3b"]
-# an arch of each kind still to port, and the ROADMAP item it names
-UNPORTED = {"jamba-v0.1-52b": "14c", "rwkv6-7b": "14d"}
 
 
 def _as_dict(cfg):
@@ -89,7 +85,7 @@ def test_step_flops_exact(arch, shape):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", IN_SCOPE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_model_holds_count_params(arch):
     """The model at its published widths and depth, on the meta device:
     every layer built, no storage, exactly the closed-form count."""
@@ -101,27 +97,15 @@ def test_full_width_model_holds_count_params(arch):
     assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_kinds_raise_at_build(arch):
-    cfg = config.reduced(config.get_arch(arch))
-    with pytest.raises(NotImplementedError,
-                       match=rf"is not ported yet \(ROADMAP queue 1, item "
-                             rf"{UNPORTED[arch]}"):
-        transformer.Transformer(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        transformer.init_caches(cfg, 1, 8, device="cpu")
-
-
-def test_each_unported_kind_names_its_item():
+def test_an_unknown_layer_kind_raises():
     base = config.reduced(config.get_arch("qwen2.5-3b"))
-    items = {config.MAMBA: "14c", config.RWKV6: "14d"}
-    assert set(transformer.NOT_PORTED) == set(items)
-    for kind, item in items.items():
-        cfg = dataclasses.replace(base, stages=((1, ((kind,
-                                                     config.FFN_DENSE),)),),
+    for kinds in (("lstm", config.FFN_DENSE), (config.MAMBA, "glu")):
+        cfg = dataclasses.replace(base, stages=((1, (kinds,)),),
                                   num_layers=1)
-        with pytest.raises(NotImplementedError, match=rf"item {item} "):
+        with pytest.raises(ValueError, match="unknown layer kind"):
             transformer.Transformer(cfg, device="meta")
+        with pytest.raises(ValueError, match="unknown layer kind"):
+            transformer.init_caches(cfg, 1, 8, device="cpu")
 
 
 def test_shard_logical_is_identity_without_a_context():
