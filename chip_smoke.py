@@ -190,6 +190,40 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           2 x E / k for jamba; their float64 checks at depth 2 (rwkv6: two
           time-mix layers; jamba: its first layer, Mamba + dense, and its
           attention layer)
+  lm_train LM training on the card (``models.lm.make_train_step``:
+          float32, TF32 off, AdamW in place; no SNN kernel launches):
+          (a) qwen2.5-3b at full width and depth through the train
+          launcher, ``--arch qwen2.5-3b --full-config --batch 4 --seq 256
+          --steps 6`` with ``--checkpoint-every`` past the steps, so the
+          final blocking save alone writes (params, m and v, 37.0 GB, under
+          ``build/`` or the temp dir, whichever has the room; free disk
+          and memory as ``df`` and ``free`` give them): the losses (finite,
+          the first within 1.5 of ln V), median step ms and trained
+          tokens/s beside the FLOPs bound (``counting.step_flops``'s
+          "train", remat included, over the float32 peak), peak memory
+          (under 80 GB), the save's seconds and bytes; then two steps of
+          ``make_train_step`` on one batch lower the loss (the reference's
+          ``test_loss_decreases_two_steps``), one step's time (CUDA
+          events), device time, launches and idle share (the profiler),
+          and the clip and AdamW alone against their bytes bound (ten
+          passes of the parameters' bytes).  (b) The loss and every
+          gradient leaf of ``loss_fn`` on the card against the port's code
+          in float64 on the CPU, at full width, depth 2, batch 2, seq 64:
+          qwen2.5-3b, deepseek-moe-16b (its dense and a MoE layer at
+          factor 1.25, routing equal to float64's choice for choice),
+          rwkv6-7b and jamba-v0.1-52b's first two layers (Mamba with a
+          dense and with a MoE FFN), each within ``LM_F64_TOL`` of
+          max(1, max|float64|) per leaf, and once more with TF32 products,
+          which must exceed it.  (c) ``ResilientLoop`` on qwen2.5-3b at
+          full width, depth 2: two uninterrupted runs of 7 steps against
+          each other (their spread is the tolerance: 0 when the card's
+          backward is run-to-run bitwise), a loop whose step raises after
+          its backward at step 5 (checkpoints every 2) ends at the
+          uninterrupted params, a second loop resumes from step 6 and
+          ends at the uninterrupted step 7, and bfloat16 card tensors make
+          a checkpoint round trip into their own storage.  (d)
+          ``Prefetcher(device="cuda")``: batches in order, equal to
+          ``token_batches``' bits
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line (each kernel's times, bounds and shapes summed over
@@ -260,6 +294,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2931,6 +2966,411 @@ def phase_lm():
     emit("lm", part="phase", seconds=time.perf_counter() - t_phase)
 
 
+# -- LM training (phase lm_train) ----------------------------------------------
+
+LM_TRAIN_ARCH = "qwen2.5-3b"
+LM_TRAIN = dict(batch=4, seq=256, steps=6)
+
+
+def _host_room():
+    """Free disk beside the checkout and in the temp dir, and the host's
+    memory, as ``df`` and ``free`` give them."""
+    import tempfile
+    dirs = [str(ROOT), tempfile.gettempdir()]
+    df = subprocess.run(["df", "-B1", "--output=target,avail"] + dirs,
+                        capture_output=True, text=True, timeout=60)
+    free = subprocess.run(["free", "-b"], capture_output=True, text=True,
+                          timeout=60)
+    room = {d: shutil.disk_usage(d).free for d in dirs}
+    return room, df.stdout.strip().splitlines(), \
+        free.stdout.strip().splitlines()
+
+
+def _ckpt_dir(need: float) -> Path:
+    """A directory for a checkpoint of ``need`` bytes: under ``build/``
+    beside the checkout (gitignored) if it has the room, else in the temp
+    dir; fails if neither has."""
+    import tempfile
+    for base in (ROOT / "build", Path(tempfile.gettempdir())):
+        base.mkdir(parents=True, exist_ok=True)
+        if shutil.disk_usage(base).free > 1.1 * need:
+            d = base / "lm_train_ckpt"
+            shutil.rmtree(d, ignore_errors=True)
+            return d
+    fail(f"lm_train: no filesystem holds a {need / 1e9:.1f} GB checkpoint")
+
+
+def _train_batch(cfg, batch: int, seq: int, seed: int):
+    import torch
+    from repro_torch.data.synthetic import token_batches
+    b = next(token_batches(cfg.vocab_size, batch, seq, seed=seed))
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def _lm_train_launcher(cfg, smi: str):
+    """(a) The train launcher at full width and depth, then two steps of
+    ``make_train_step`` on one batch, one step's profile and the clip and
+    AdamW alone."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import counting, lm
+    from repro_torch.optim import adam
+    n_params = counting.count_params(cfg)
+    ckpt_bytes = 3 * 4 * n_params           # params, m and v in float32
+    room, df, free = _host_room()
+    emit("lm_train", part="host room", disk_free_bytes=room, df=df,
+         free=free, checkpoint_bytes_needed=ckpt_bytes)
+    ckpt = _ckpt_dir(ckpt_bytes)
+    r = LM_TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_launcher.main([
+        "--arch", LM_TRAIN_ARCH, "--full-config", "--batch", str(r["batch"]),
+        "--seq", str(r["seq"]), "--steps", str(r["steps"]),
+        "--checkpoint-every", str(r["steps"] + 1), "--ckpt-dir", str(ckpt),
+        "--log-level", "error"])
+    launcher_s = time.perf_counter() - t0
+    # the final save reached the disk: its manifest and at least its bytes
+    final = ckpt / f"step_{r['steps']}"
+    npz = final / "arrays.npz"
+    on_disk = npz.stat().st_size if npz.exists() else 0
+    saved = (final / "manifest.json").exists() and \
+        on_disk >= out["save_bytes"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tokens = r["batch"] * r["seq"]
+    flops = counting.step_flops(cfg, ShapeConfig(
+        "train", r["seq"], r["batch"], "train"))["train"]
+    bound_ms = flops / PEAK_FP32 * 1e3
+    losses = out["losses"]
+    emit("lm_train", part=f"(a) {LM_TRAIN_ARCH} full width and depth, "
+         f"train launcher", layers=cfg.num_layers, d_model=cfg.d_model,
+         params=n_params, **r, losses=losses, ln_vocab=math.log(
+             cfg.vocab_size), median_step_ms=out["median_step_ms"],
+         step_ms=out["step_ms"], tokens_per_s=out["tokens_per_s"],
+         train_flops=flops, bound_ms=bound_ms,
+         bound_tokens_per_s=tokens / bound_ms * 1e3,
+         share_of_bound=bound_ms / out["median_step_ms"],
+         peak_memory_bytes=out["peak_memory_bytes"],
+         save_seconds=out["save_seconds"], save_bytes=out["save_bytes"],
+         save_gb_per_s=out["save_bytes"] / out["save_seconds"] / 1e9,
+         save_bytes_on_disk=on_disk,
+         ckpt_dir=str(ckpt), launcher_seconds=launcher_s,
+         steps_done=out["steps_done"], resumed_from=out["resumed_from"],
+         device=out["device"], nvidia_smi=smi)
+    if out["steps_done"] != r["steps"] or out["resumed_from"] is not None:
+        fail(f"lm_train: the launcher ran {out['steps_done']} steps "
+             f"(resumed from {out['resumed_from']})")
+    if not np.isfinite(losses).all():
+        fail(f"lm_train: non-finite losses {losses}")
+    # random weights give logits of about unit variance, which add about
+    # 0.5 to ln V
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.5:
+        fail(f"lm_train: first loss {losses[0]} is not near ln V = "
+             f"{math.log(cfg.vocab_size)}")
+    if out["peak_memory_bytes"] >= 80e9:
+        fail(f"lm_train: peak memory {out['peak_memory_bytes']} >= 80 GB")
+    if out["save_bytes"] != ckpt_bytes + 4:      # and the int32 step
+        fail(f"lm_train: the save wrote {out['save_bytes']} bytes, not "
+             f"params, m and v")
+    if not saved:
+        fail(f"lm_train: the final save is not on disk: {final} holds "
+             f"{on_disk} bytes of arrays.npz, the save {out['save_bytes']}")
+    # two steps on one batch lower the loss (the reference's
+    # test_loss_decreases_two_steps), at full width and depth
+    torch.cuda.empty_cache()
+    state = lm.init_train_state(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    b = _train_batch(cfg, r["batch"], r["seq"], SEED + 2)
+    step = lm.make_train_step(cfg, total_steps=100)
+    _, m1 = step(state, b)
+    _, m2 = step(state, b)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    emit("lm_train", part="(a) two steps of make_train_step on one batch",
+         losses=[l1, l2], grad_norms=[float(m1["grad_norm"]),
+                                     float(m2["grad_norm"])],
+         lrs=[float(m1["lr"]), float(m2["lr"])])
+    if not l2 < l1:
+        fail(f"lm_train: two steps on one batch did not lower the loss: "
+             f"{l1} -> {l2}")
+    # one step's time (CUDA events) and its device time by kernel
+    step_ms = cuda_ms(lambda: step(state, b), reps=2, warmup=0)
+    by_kernel, launches = device_time(lambda: step(state, b), reps=1)
+    dev_ms = sum(by_kernel.values())
+    gemm_ms = sum(v for k, v in by_kernel.items()
+                  if "gemm" in k.lower() or "sgemm" in k.lower())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    # the clip and AdamW alone, on grads of the params' shapes
+    grads = {n: torch.full_like(p, 1e-3)
+             for n, p in state.params.named_parameters()}
+    lr = torch.full((), 1e-6, device="cuda")
+
+    def optimizer():
+        g, _ = adam.clip_by_global_norm(grads, 1.0)
+        adam.update(g, state.opt, state.params, lr=lr)
+
+    opt_ms = cuda_ms(optimizer, reps=3, warmup=1)
+    opt_kernels, opt_launches = device_time(optimizer, reps=1)
+    opt_dev_ms = sum(opt_kernels.values())
+    # the clip reads the grads twice and writes them; AdamW reads g, m, v
+    # and p and writes m, v and p
+    opt_bound_ms = 10 * 4 * n_params / PEAK_BYTES * 1e3
+    emit("lm_train", part="(a) one train step at full width and depth",
+         step_ms=step_ms, device_ms=dev_ms,
+         device_idle_share=max(0.0, 1 - dev_ms / step_ms),
+         launches_per_step=launches, gemm_device_ms=gemm_ms,
+         bound_ms=bound_ms, top_device_ms=[[k[:90], v] for k, v in top],
+         optimizer_ms=opt_ms, optimizer_device_ms=opt_dev_ms,
+         optimizer_launches=opt_launches,
+         optimizer_bound_ms=opt_bound_ms,
+         optimizer_top_device_ms=[[k[:90], v] for k, v in sorted(
+             opt_kernels.items(), key=lambda kv: -kv[1])[:6]])
+    del state, grads, step
+    torch.cuda.empty_cache()
+
+
+def _f64_grad_check(cfg, seed: int, batch: int = 2, seq: int = 64):
+    """The loss and every gradient leaf of ``loss_fn`` (remat, as the train
+    step runs it) on the card in float32, then with TF32 products, against
+    the port's code in float64 on the CPU, on the same weights and tokens;
+    the MoE layers' routing of the card and of float64 compared choice
+    for choice.  Returns the largest error of the loss and of any leaf,
+    each over max(1, max|float64|), the worst leaf, the TF32 run's, and
+    the routing's differences."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm, transformer
+    from repro_torch.models.layers.moe import recorded_routes
+    params = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1), dtype=np.int32)
+    host = {"tokens": torch.from_numpy(toks[:, :-1]),
+            "labels": torch.from_numpy(toks[:, 1:])}
+
+    def run(p):
+        dev = p.final_norm.scale.device
+        b = {k: v.to(dev) for k, v in host.items()}
+        with torch.no_grad(), recorded_routes(p) as routes:
+            lm.loss_fn(p, cfg, b, remat=False)
+        names, leaves = zip(*p.named_parameters())
+        loss, _ = lm.loss_fn(p, cfg, b)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), dict(zip(names, grads)), routes
+
+    loss32, g32, card_routes = run(params)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss_tf, g_tf, _ = run(params)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    params.to(device="cpu", dtype=torch.float64)
+    loss64, g64, ref_routes = run(params)
+    del params
+    errs, tf_errs = {}, {}
+    for n, ref in g64.items():
+        scale = max(1.0, float(ref.abs().max()))
+        for got, out in ((g32, errs), (g_tf, tf_errs)):
+            d = got.pop(n).cpu().double()
+            out[n] = float(d.sub_(ref).abs_().max()) / scale
+    worst = max(errs, key=errs.get)
+    lscale = max(1.0, abs(loss64))
+    diff, margin = _route_diff(card_routes, ref_routes)
+    return {"loss64": loss64, "loss_err": abs(loss32 - loss64) / lscale,
+            "grad_err": errs[worst], "worst_leaf": worst,
+            "tf32_loss_err": abs(loss_tf - loss64) / lscale,
+            "tf32_grad_err": max(tf_errs.values()),
+            "leaves": len(errs), "moe_calls": len(ref_routes),
+            "route_differences": diff, "min_gate_margin": margin}
+
+
+def _params_equal(a, b):
+    """(equal bit for bit, the largest difference) of two lists of
+    tensors."""
+    diff = max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a, b))
+    return diff == 0.0, diff
+
+
+def _lm_train_loop(cfg):
+    """(c) ``ResilientLoop`` on the card at full width, depth 2: a step
+    that raises after its backward at step 5 rolls back and replays to the
+    uninterrupted run's params; a second loop resumes; a bfloat16 round
+    trip of card tensors."""
+    import itertools
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import lm
+    from repro_torch.optim import adam
+    from repro_torch.runtime.fault_tolerance import LoopConfig, ResilientLoop
+    cut = _cut(cfg, cfg.pattern()[:2])
+    b = _train_batch(cut, 2, 64, SEED + 3)
+    step = lm.make_train_step(cut, total_steps=100)
+
+    def fresh():
+        return lm.init_train_state(
+            torch.Generator(device="cuda").manual_seed(SEED), cut)
+
+    def params_of(st):
+        return [p.detach().to("cpu", copy=True)
+                for p in st.params.parameters()]
+
+    runs = []
+    for _ in range(2):
+        st, snaps = fresh(), {}
+        for i in range(7):
+            step(st, b)
+            if i + 1 in (6, 7):
+                snaps[i + 1] = params_of(st)
+        runs.append(snaps)
+        del st
+    bitwise, spread = _params_equal(runs[0][6], runs[1][6])
+    ckpt = _ckpt_dir(3 * 4 * sum(p.numel() for p in runs[0][6]) * 3)
+    clip, fired = adam.clip_by_global_norm, []
+
+    def raising_clip(grads, max_norm):
+        raise RuntimeError("injected fault after the backward at step 5")
+
+    def flaky(st, batch):
+        if int(st.opt.step) == 4 and not fired:
+            fired.append(True)
+            adam.clip_by_global_norm = raising_clip
+            try:
+                return step(st, batch)
+            finally:
+                adam.clip_by_global_norm = clip
+        return step(st, batch)
+
+    st = fresh()
+    ck = Checkpointer(str(ckpt), keep=2)
+    loop = ResilientLoop(flaky, ck, LoopConfig(checkpoint_every=2,
+                                               max_steps=6))
+    t0 = time.perf_counter()
+    loop.run(st, itertools.repeat(b))
+    loop_s = time.perf_counter() - t0
+    same, diff = _params_equal(params_of(st), runs[0][6])
+    save_s, save_bytes = ck.last_save_seconds, ck.last_save_bytes
+    del st
+    st2 = fresh()
+    loop2 = ResilientLoop(step, Checkpointer(str(ckpt), keep=2), LoopConfig(
+        checkpoint_every=2, max_steps=7))
+    loop2.run(st2, itertools.repeat(b))
+    same2, diff2 = _params_equal(params_of(st2), runs[0][7])
+    del st2
+    # bfloat16 card tensors through a Checkpointer, restored in place
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tree = {"w": torch.randn((1024, 2048), generator=gen, device="cuda")
+            .to(torch.bfloat16), "s": torch.arange(
+                7, dtype=torch.int32, device="cuda")}
+    want = {k: v.clone() for k, v in tree.items()}
+    ck.save(100, tree, blocking=True)
+    for v in tree.values():
+        v.zero_()
+    ptrs = {k: v.data_ptr() for k, v in tree.items()}
+    ck.restore(100, tree)
+    bf16_ok = all(torch.equal(tree[k], want[k]) and
+                  tree[k].data_ptr() == ptrs[k] for k in tree)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tol = spread
+    emit("lm_train", part="(c) ResilientLoop on the card, full width, "
+         "depth 2", layers=cut.num_layers, two_runs_bitwise=bitwise,
+         two_runs_spread=spread, failures=loop.stats.failures,
+         steps_done=loop.stats.steps_done,
+         rolled_back_to=10 - loop.stats.steps_done,
+         rollback_equals_uninterrupted=same, rollback_max_diff=diff,
+         resumed_from=loop2.stats.resumed_from,
+         resume_equals_uninterrupted=same2, resume_max_diff=diff2,
+         loop_seconds=loop_s, final_save_seconds=save_s,
+         final_save_bytes=save_bytes, bf16_round_trip=bf16_ok)
+    if len(loop.stats.failures) != 1 or loop2.stats.resumed_from != 6:
+        fail(f"lm_train: the loop's failures {loop.stats.failures}, resumed "
+             f"from {loop2.stats.resumed_from}")
+    if diff > tol or diff2 > tol:
+        fail(f"lm_train: the rolled-back run differs from the "
+             f"uninterrupted one by {diff} and {diff2} (two uninterrupted "
+             f"runs: {spread})")
+    if not bf16_ok:
+        fail("lm_train: bfloat16 card tensors did not round-trip in place")
+
+
+def phase_lm_train(smi: str):
+    """LM training on the card (module doc, phase ``lm_train``): no SNN
+    kernel launches in it."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.data.synthetic import token_batches
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm_train: TF32 matmuls are on; the LM trains in full float32")
+    reset_counts()
+    cfg = get_arch(LM_TRAIN_ARCH)
+    t0 = time.perf_counter()
+    _lm_train_launcher(cfg, smi)
+    emit("lm_train", part="(a) seconds", seconds=time.perf_counter() - t0)
+    # (b) the card against float64 on the CPU, full width, depth 2
+    ds = get_arch("deepseek-moe-16b")
+    jamba = get_arch("jamba-v0.1-52b")
+    checks = {"qwen2.5-3b": _cut(cfg, cfg.pattern()[:2]),
+              "deepseek-moe-16b": _cut(ds, (ds.pattern()[0],
+                                            ds.pattern()[-1])),
+              "rwkv6-7b": _cut(get_arch("rwkv6-7b"),
+                               get_arch("rwkv6-7b").pattern()[:2]),
+              "jamba-v0.1-52b": _cut(jamba, jamba.pattern()[:2])}
+    for arch, cut in checks.items():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = _f64_grad_check(cut, SEED)
+        emit("lm_train", part=f"(b) {arch}: loss and gradients, card "
+             f"float32 against CPU float64, full width, 2 layers",
+             kinds=cut.pattern(), batch=2, seq=64, tol=LM_F64_TOL,
+             capacity_factor=cut.moe.capacity_factor if cut.moe else None,
+             tf32_after=torch.backends.cuda.matmul.allow_tf32,
+             seconds=time.perf_counter() - t0, **r)
+        if max(r["loss_err"], r["grad_err"]) > LM_F64_TOL:
+            fail(f"lm_train {arch}: card against float64: loss "
+                 f"{r['loss_err']}, gradient {r['grad_err']} "
+                 f"({r['worst_leaf']}) > {LM_F64_TOL}")
+        if r["route_differences"]:
+            fail(f"lm_train {arch}: the card's routing differs from "
+                 f"float64's in {r['route_differences']} choices "
+                 f"(smallest k-th gate margin {r['min_gate_margin']})")
+        if max(r["tf32_loss_err"], r["tf32_grad_err"]) <= LM_F64_TOL:
+            fail(f"lm_train {arch}: with TF32 products the errors are "
+                 f"within {LM_F64_TOL}: the check would not see them")
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"lm_train {arch}: TF32 was left on after the TF32 run")
+    # (c) the loop's semantics on the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _lm_train_loop(cfg)
+    emit("lm_train", part="(c) seconds", seconds=time.perf_counter() - t0)
+    # (d) the Prefetcher onto the card
+    host = [b for b, _ in zip(token_batches(cfg.vocab_size, 4, 256,
+                                            seed=SEED + 5), range(6))]
+    got = list(Prefetcher(iter(host), device="cuda"))
+    same = len(got) == len(host) and all(
+        g[k].device.type == "cuda" and np.array_equal(g[k].cpu().numpy(),
+                                                      h[k])
+        for g, h in zip(got, host) for k in h)
+    counts = {k: v for k, v in read_counts().items() if v}
+    emit("lm_train", part="(d) Prefetcher onto the card", batches=len(got),
+         equal_in_order=same, snn_kernel_launches=counts)
+    if not same:
+        fail("lm_train: the Prefetcher's card batches differ from "
+             "token_batches'")
+    if counts:
+        fail(f"lm_train: the LM training path launched SNN kernels {counts}")
+    torch.cuda.empty_cache()
+    emit("lm_train", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -2994,8 +3434,9 @@ def main() -> int:
     # the launchers on the facade and the four examples (their own counts)
     for name, n in phase_entry(cfg, train_losses).items():
         launches[name] = launches.get(name, 0) + n
-    # the LM substrate's serving path (no SNN kernel)
+    # the LM substrate's serving path and its training (no SNN kernel)
     phase_lm()
+    phase_lm_train(smi)
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     # each TPU kernel's pl.pallas_call site

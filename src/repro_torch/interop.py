@@ -22,16 +22,18 @@ stay float32, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.tree import flatten_with_paths
 
 __all__ = ["from_jax_params", "to_numpy_params", "from_jax_lm_params",
-           "to_numpy_lm_params", "from_jax_lm_caches", "to_numpy_lm_caches"]
+           "to_numpy_lm_params", "from_jax_lm_caches", "to_numpy_lm_caches",
+           "from_jax_train_state", "to_numpy_train_state"]
 
 
 def _map(params: Dict, fn) -> Dict:
@@ -100,26 +102,14 @@ def from_jax_lm_params(np_params: Dict, cfg: ArchConfig, device=None):
             src = np_params["stages"][si]["sub"][i]
             for part, leaves in src.items():
                 mod = getattr(model.layers[layer], part)
-                for name, a in _flat(leaves).items():
+                for name, a in flatten_with_paths(leaves, ".").items():
                     mod.get_parameter(name).data = _tensor(
                         np.asarray(a)[r], dev)
     return model
 
 
-def _flat(tree: Dict, prefix: str = "") -> Dict:
-    """A nested dict of leaves (MoE's ``shared``, MLA's ``q_norm``) ->
-    {dotted name: leaf}, the names of ``named_parameters``."""
-    out = {}
-    for name, a in tree.items():
-        if isinstance(a, dict):
-            out.update(_flat(a, f"{prefix}{name}."))
-        else:
-            out[prefix + name] = a
-    return out
-
-
 def _nested(flat: Dict) -> Dict:
-    """The inverse of ``_flat``."""
+    """The inverse of ``flatten_with_paths(tree, ".")``."""
     out: Dict = {}
     for name, a in flat.items():
         *path, leaf = name.split(".")
@@ -138,13 +128,15 @@ def _pytree_names(np_params: Dict, cfg: ArchConfig) -> set:
     stages = np_params["stages"]
     shape = [(len(st["sub"]), {np.shape(a)[0] for sub in st["sub"]
                                for leaves in sub.values()
-                               for a in _flat(leaves).values()})
+                               for a in flatten_with_paths(
+                                   leaves, ".").values()})
              for st in stages]
     if shape != [(len(sub), {r}) for r, sub in cfg.stage_list()]:
         return names | {f"stages {shape}"}
     for layer, si, _, i in _layer_slots(cfg):
         for part, leaves in stages[si]["sub"][i].items():
-            names |= {f"layers.{layer}.{part}.{n}" for n in _flat(leaves)}
+            names |= {f"layers.{layer}.{part}.{n}"
+                      for n in flatten_with_paths(leaves, ".")}
     return names
 
 
@@ -165,16 +157,57 @@ def _stacked(cfg: ArchConfig, per_layer: List[Dict]) -> List[Dict]:
     return stages
 
 
-def to_numpy_lm_params(model) -> Dict:
-    """A ``Transformer`` -> the reference's LM pytree of numpy arrays."""
-    per_layer = [{part: {n: _numpy(p) for n, p in
+def to_numpy_lm_params(model, leaves: Optional[Dict] = None) -> Dict:
+    """A ``Transformer`` -> the reference's LM pytree of numpy arrays;
+    with ``leaves`` ({parameter name: tensor}, such as AdamW's moments),
+    the pytree of those tensors in the model's layout."""
+    def value(prefix, name, p):
+        return _numpy(p if leaves is None else leaves[prefix + name])
+
+    per_layer = [{part: {n: value(f"layers.{i}.{part}.", n, p) for n, p in
                          getattr(layer, part).named_parameters()}
                   for part in ("norm1", "mixer", "norm2", "ffn")}
-                 for layer in model.layers]
-    return {"embed": {n: _numpy(p) for n, p in
+                 for i, layer in enumerate(model.layers)]
+    return {"embed": {n: value("embed.", n, p) for n, p in
                       model.embed.named_parameters()},
             "stages": _stacked(model.cfg, per_layer),
-            "final_norm": {"scale": _numpy(model.final_norm.scale)}}
+            "final_norm": {"scale": value("final_norm.", "scale",
+                                          model.final_norm.scale)}}
+
+
+def from_jax_train_state(np_state, cfg: ArchConfig, device=None):
+    """The reference's ``TrainState(params, AdamState(step, m, v))``
+    (numpy leaves, params, m and v in its stacked layout) -> the port's
+    ``models.lm.TrainState`` on ``device`` (default: the card): a
+    ``Transformer`` and m and v keyed by its parameter names."""
+    from repro_torch.models.lm import TrainState
+    from repro_torch.optim.adam import AdamState
+    dev = resolve_device(device)
+    np_params, (step, np_m, np_v) = np_state
+    model = from_jax_lm_params(np_params, cfg, dev)
+
+    def moments(tree):
+        return {n: p.detach() for n, p in
+                from_jax_lm_params(tree, cfg, dev).named_parameters()}
+
+    return TrainState(model, AdamState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        m=moments(np_m), v=moments(np_v)))
+
+
+def to_numpy_train_state(state, cfg: ArchConfig) -> Tuple:
+    """The port's ``TrainState`` -> ``(params, (step, m, v))`` of numpy
+    arrays in the reference's layout: the fields of its ``TrainState`` and
+    ``AdamState``, in their order."""
+    model, opt = state
+    if model.cfg.pattern() != cfg.pattern():
+        raise ValueError(f"to_numpy_train_state: the model is not of "
+                         f"{cfg.name}")
+    return (to_numpy_lm_params(model),
+            (np.asarray(int(opt.step), np.int32),
+             to_numpy_lm_params(model, opt.m),
+             to_numpy_lm_params(model, opt.v)))
 
 
 def from_jax_lm_caches(np_caches: List[Dict], cfg: ArchConfig,

@@ -1,6 +1,11 @@
-"""Training launcher: surrogate-gradient SGD of an SNN through the
-``repro_torch.api`` facade.
+"""Training launcher: an LM (``--arch``) through the fault-tolerant loop,
+or an SNN by surrogate-gradient SGD through the ``repro_torch.api``
+facade (the default).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+        --steps 100 --batch 4 --seq 128 [--full-config]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+        --device cpu --steps 2 --batch 2 --seq 16
     PYTHONPATH=src python -m repro_torch.launch.train --snn snn-mnist \
         --backend hopper --steps 50 --batch 256 --lr 1e-2
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -9,8 +14,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train --mesh data=2 \
         --device cpu --steps 2 --batch 4
 
-The flags build one validated ``TrainSpec`` (backend, surrogate, lr,
-timesteps), or ``--spec-file`` loads one from JSON
+``--arch`` trains a registered LM (``reduced`` unless ``--full-config``),
+the reference's LM path: ``lm.init_train_state`` from ``--seed``,
+``lm.make_train_step`` (AdamW in place, warmup-cosine over ``--steps``),
+``token_batches`` through a ``Prefetcher`` onto the device, a
+``Checkpointer`` (keeps 2) in ``--ckpt-dir`` and a ``StragglerMonitor``,
+all run by ``ResilientLoop``, which resumes from the directory's latest
+checkpoint.  Each step's loss is read on the host (one sync a step), so
+the step times are the device's work.  ``--mesh`` is not taken with
+``--arch``: the sharded LM is ROADMAP queue 1, item 14f.
+
+Otherwise the flags build one validated ``TrainSpec`` (backend,
+surrogate, lr, timesteps), or ``--spec-file`` loads one from JSON
 (``api.spec_from_dict``), and ``--mesh`` (``dist.parse_mesh``) layers
 over either: the step then shards the batch over the mesh's entries
 (per-example gradient rows combined on the host, the same params at any
@@ -25,24 +40,90 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import statistics
+import tempfile
 import time
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch import api
-from repro_torch.config import SNNConfig, get_snn
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.config import ArchConfig, SNNConfig, get_arch, get_snn, \
+    reduced
 from repro_torch.core.snn_model import SNN_BACKENDS
 from repro_torch.core.surrogate import SURROGATE_KINDS
-from repro_torch.data.synthetic import mnist_like
+from repro_torch.data.pipeline import Prefetcher
+from repro_torch.data.synthetic import mnist_like, token_batches
+from repro_torch.device import resolve_device
 from repro_torch.dist.mesh import parse_mesh
 from repro_torch.launch.serve import device_name, load_spec_file
+from repro_torch.models import lm
 from repro_torch.obs.log import LOG_LEVELS, configure_logging, get_logger
+from repro_torch.runtime.fault_tolerance import LoopConfig, ResilientLoop
+from repro_torch.runtime.straggler import StragglerMonitor
 
 log = get_logger("train")
 
 EVAL_BATCH, EVAL_SEED = 256, 10_000
+# where --arch checkpoints by default: the reference's directory is
+# another, so a run here never resumes from one of its runs by accident
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_train")
+
+
+def train_lm(cfg: ArchConfig, *, steps: int = 50, batch: int = 4,
+             seq: int = 128, seed: int = 0, ckpt_dir: str = DEFAULT_CKPT_DIR,
+             checkpoint_every: int = 50, device=None) -> Dict:
+    """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens
+    through ``ResilientLoop`` (module doc).  Returns every step's loss (on
+    the host), the median step and the trained tokens a second, the
+    loop's ``resumed_from``, ``failures`` and ``steps_done``, the card's
+    peak memory and the final blocking save's seconds and bytes."""
+    dev = resolve_device(device)
+    state = lm.init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                                cfg, device=dev)
+    step_fn = lm.make_train_step(cfg, total_steps=steps)
+    batches = Prefetcher(token_batches(cfg.vocab_size, batch, seq,
+                                       seed=seed), device=dev)
+    ckpt = Checkpointer(ckpt_dir, keep=2)
+    monitor = StragglerMonitor(num_hosts=1)
+    losses, seconds = [], []
+    t_last = [time.perf_counter()]
+
+    def on_metrics(step, m):
+        losses.append(float(m["loss"]))     # the step's one host sync
+        now = time.perf_counter()
+        seconds.append(now - t_last[0])
+        monitor.record([seconds[-1]])
+        t_last[0] = now
+        if step % 10 == 0:
+            log.info("step %5d loss %.4f fleet_balance %.3f", step,
+                     losses[-1], monitor.fleet_balance())
+
+    loop = ResilientLoop(step_fn, ckpt, LoopConfig(
+        checkpoint_every=checkpoint_every, max_steps=steps))
+    try:
+        loop.run(state, batches, on_metrics=on_metrics)
+    finally:
+        batches.close()
+    step_s = statistics.median(seconds) if seconds else 0.0
+    return {
+        "losses": losses,
+        "step_ms": [x * 1e3 for x in seconds],
+        "median_step_ms": step_s * 1e3,
+        "tokens_per_s": batch * seq / step_s if step_s > 0 else 0.0,
+        "resumed_from": loop.stats.resumed_from,
+        "failures": loop.stats.failures,
+        "steps_done": loop.stats.steps_done,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "save_seconds": ckpt.last_save_seconds,
+        "save_bytes": ckpt.last_save_bytes,
+        "arch": cfg.name, "batch": batch, "seq": seq,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+    }
 
 
 def train(cfg: SNNConfig, spec: Optional[api.TrainSpec] = None, *,
@@ -89,6 +170,18 @@ def train(cfg: SNNConfig, spec: Optional[api.TrainSpec] = None, *,
 
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None,
+                    help="train a registered LM (repro_torch.config."
+                         "list_archs) instead of an SNN")
+    ap.add_argument("--full-config", action="store_true",
+                    help="--arch at its published widths and depth "
+                         "(default: reduced)")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="--arch: tokens per sequence")
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR,
+                    help="--arch: checkpoint directory (resumed from)")
+    ap.add_argument("--checkpoint-every", type=int, default=50,
+                    help="--arch: steps between async checkpoints")
     ap.add_argument("--snn", default="snn-mnist")
     ap.add_argument("--backend", default="hopper", choices=SNN_BACKENDS)
     ap.add_argument("--surrogate", default="fast_sigmoid",
@@ -104,13 +197,37 @@ def main(argv=None) -> Dict:
                          "bare '2': data-sharded train step over the mesh's "
                          "entries (with --device cpu, N host entries)")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences (--arch, default 4) or frames (default "
+                         "256) a step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--log-level", default="info", choices=LOG_LEVELS,
                     help="stderr log verbosity (repro_torch.obs.log)")
     args = ap.parse_args(argv)
     configure_logging(args.log_level)
+    if args.arch:
+        if args.mesh:
+            raise ValueError(
+                "--mesh with --arch: the sharded LM (partitioning, "
+                "shard_logical on a mesh) is ROADMAP queue 1, item 14f, "
+                "not ported; train the LM on one device")
+        cfg = get_arch(args.arch)
+        cfg = cfg if args.full_config else reduced(cfg)
+        r = train_lm(cfg, steps=args.steps, batch=args.batch or 4,
+                     seq=args.seq, seed=args.seed, ckpt_dir=args.ckpt_dir,
+                     checkpoint_every=args.checkpoint_every,
+                     device=args.device)
+        log.info("trained %d steps of %dx%d tokens (arch=%s, resumed_from="
+                 "%s, failures=%d): loss %s -> %s, median step %.2f ms, "
+                 "%.1f trained tokens/s, final save %.2f s, device=%s",
+                 r["steps_done"], r["batch"], r["seq"], cfg.name,
+                 r["resumed_from"], len(r["failures"]),
+                 r["losses"][0] if r["losses"] else None,
+                 r["losses"][-1] if r["losses"] else None,
+                 r["median_step_ms"], r["tokens_per_s"], r["save_seconds"],
+                 r["device"])
+        return r
     if args.spec_file:
         spec = load_spec_file(args.spec_file, api.TrainSpec)
     else:
@@ -119,7 +236,8 @@ def main(argv=None) -> Dict:
                              timesteps=args.timesteps or None)
     if args.mesh:
         spec = dataclasses.replace(spec, mesh=parse_mesh(args.mesh))
-    r = train(get_snn(args.snn), spec, steps=args.steps, batch=args.batch,
+    r = train(get_snn(args.snn), spec, steps=args.steps,
+              batch=args.batch or 256,
               seed=args.seed, device=args.device)
     log.info("trained %d steps of %d frames (backend=%s, surrogate=%s, "
              "T=%d): loss %.4f -> %.4f, median step %.2f ms, %.1f trained "

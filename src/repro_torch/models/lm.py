@@ -1,22 +1,35 @@
-"""Step functions: prefill, encode and decode, and the loss, shared by the
-serve launcher, the examples and the tests.
+"""Step functions: train, prefill, encode and decode, and the loss, shared
+by the launchers, the examples and the tests.
 
-``make_*_step`` return functions of (params, batch) or (params, caches,
-token, pos), as the reference's do.  The training state and step
-(``TrainState``, ``make_train_step``, ``init_train_state``) come with the
-port of ``optim`` (ROADMAP queue 1, item 14e).
+``make_*_step`` return functions of (state, batch), (params, batch) or
+(params, caches, token, pos), as the reference's do.  The train step
+writes its ``TrainState`` in place (``optim.adam``: a functional update
+of a full-width model would not fit on the card beside its grads) and
+returns it with its metrics, 0-d tensors on the device; it makes no host
+sync.  Every point where it can raise (the forward, the backward, the
+clip) comes before its first write, so a step that raises leaves the
+state as it was, as the reference's functional step does
+(``runtime.fault_tolerance.ResilientLoop`` relies on that).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 
 from repro_torch.config import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer
+from repro_torch.optim import adam, schedules
 
-__all__ = ["cross_entropy", "loss_fn", "make_prefill_step",
-           "make_encode_step", "make_decode_step"]
+__all__ = ["TrainState", "cross_entropy", "loss_fn", "make_train_step",
+           "make_prefill_step", "make_encode_step", "make_decode_step",
+           "init_train_state"]
+
+
+class TrainState(NamedTuple):
+    params: Any                 # a ``transformer.Transformer``
+    opt: adam.AdamState
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -47,6 +60,35 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict, *, remat: bool = True):
     return ce + moe_w * aux, {"ce": ce, "aux": aux}
 
 
+def make_train_step(cfg: ArchConfig, *, peak_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000,
+                    clip_norm: float = 1.0, remat: bool = True):
+    """The reference's step: loss and grads of ``loss_fn``, the grads
+    clipped to ``clip_norm``, ``lr = linear_warmup_cosine(step + 1)``, then
+    the AdamW update, which writes the state in place.  Returns
+    ``(state, metrics)``: ``ce``, ``aux``, ``loss``, ``grad_norm`` and
+    ``lr``, detached 0-d tensors."""
+    def train_step(state: TrainState, batch: Dict):
+        model = state.params
+        names, leaves = zip(*model.named_parameters())
+        loss, metrics = loss_fn(model, cfg, batch, remat=remat)
+        # a leaf the loss does not reach gets a zero grad, as under jax.grad
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for n, p, g in zip(names, leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))}
+        grads, gnorm = adam.clip_by_global_norm(grads, clip_norm)
+        lr = schedules.linear_warmup_cosine(
+            state.opt.step + 1, peak_lr=peak_lr, warmup=warmup,
+            total=total_steps)
+        # the first write to the state
+        adam.update(grads, state.opt, model, lr=lr)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=loss.detach(), grad_norm=gnorm, lr=lr)
+        return state, metrics
+
+    return train_step
+
+
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, batch: Dict):
         return transformer.prefill(
@@ -73,3 +115,13 @@ def make_decode_step(cfg: ArchConfig):
                                        pos=pos)
 
     return decode_step
+
+
+def init_train_state(generator: torch.Generator, cfg: ArchConfig,
+                     dtype=torch.float32, opt_dtype=torch.float32,
+                     device=None) -> TrainState:
+    """A ``Transformer`` of ``cfg`` drawn from ``generator`` (which lives on
+    ``device``, the card by default) and its zero AdamW state."""
+    params = transformer.init_params(generator, cfg, dtype,
+                                     device=resolve_device(device))
+    return TrainState(params=params, opt=adam.init(params, opt_dtype))

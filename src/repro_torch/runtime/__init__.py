@@ -1,3 +1,3 @@
-"""Fault runtime of the serving engine: bounded retry
-(``fault_tolerance``), seeded fault injection (``faults``) and straggler
-detection (``straggler``)."""
+"""Fault runtime: bounded retry for the serving engine's lanes and the
+training loop's ``ResilientLoop`` (``fault_tolerance``), seeded fault
+injection (``faults``) and straggler detection (``straggler``)."""

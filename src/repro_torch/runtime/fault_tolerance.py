@@ -1,15 +1,32 @@
-"""Bounded retry for serving lanes: ``RetryPolicy`` and ``call_with_retry``
-(the reference's ``repro.runtime.fault_tolerance``, without the training
-loop's ``ResilientLoop`` and its checkpointer, which come with the
-checkpoint module)."""
+"""Fault tolerance: bounded retry for serving lanes (``RetryPolicy``,
+``call_with_retry``) and the training loop's ``ResilientLoop`` (the
+reference's ``repro.runtime.fault_tolerance``).
+
+``ResilientLoop`` wraps a step function with:
+  * periodic async checkpoints (``checkpoint.Checkpointer``);
+  * a resume from the latest checkpoint on (re)start;
+  * bounded retry of a step that raises: the state rolls back to the last
+    checkpoint (restored into the state's own tensors) and the steps since
+    are replayed; with no checkpoint yet the loop goes on with the state
+    it has;
+  * a failure budget: more than ``max_failures`` within
+    ``failure_window`` steps raises, so the job's scheduler can take
+    over.
+
+The port's train step writes its state in place, so a step that raises
+must do so before its first write (``models.lm.make_train_step``: every
+failure point precedes ``adam.update``); the state is then the one the
+step was given, as with the reference's functional step.
+"""
 from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
-__all__ = ["RetryPolicy", "call_with_retry"]
+__all__ = ["RetryPolicy", "call_with_retry", "LoopConfig", "LoopStats",
+           "ResilientLoop"]
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -82,3 +99,75 @@ def call_with_retry(fn: Callable[..., Any], *args: Any,
                     time.sleep(delay)  # lint: allow(clock-discipline) — wall default when no clock is injected
     raise RuntimeError(
         f"retry budget ({policy.max_retries}) exhausted") from last
+
+
+@dataclass
+class LoopConfig:
+    checkpoint_every: int = 100
+    max_failures: int = 3
+    failure_window: int = 1000          # steps
+    max_steps: int = 1000
+
+
+@dataclass
+class LoopStats:
+    resumed_from: Optional[int] = None
+    failures: List[Tuple[int, str]] = field(default_factory=list)
+    steps_done: int = 0
+    step_times: List[float] = field(default_factory=list)
+
+
+class ResilientLoop:
+    """``step_fn(state, batch) -> (state, metrics)`` run to
+    ``cfg.max_steps`` with checkpoints, resume, rollback and a failure
+    budget (module doc).  ``ckpt`` is a ``checkpoint.Checkpointer``."""
+
+    def __init__(self, step_fn: Callable[[Any, Any], Tuple[Any, Any]],
+                 ckpt, cfg: LoopConfig):
+        self.step_fn = step_fn
+        self.ckpt = ckpt
+        self.cfg = cfg
+        self.stats = LoopStats()
+
+    def run(self, state: Any, batches: Iterator[Any],
+            start_step: int = 0,
+            on_metrics: Optional[Callable[[int, Any], None]] = None) -> Any:
+        # resume if a newer checkpoint exists
+        latest = self.ckpt.latest_step()
+        if latest is not None and latest > start_step:
+            state = self.ckpt.restore(latest, state)
+            start_step = latest
+            self.stats.resumed_from = latest
+            log.info("resumed from checkpoint step %d", latest)
+
+        step = start_step
+        while step < self.cfg.max_steps:
+            batch = next(batches)
+            # step timing is observability, not schedule input
+            t0 = time.perf_counter()  # lint: allow(clock-discipline)
+            try:
+                state, metrics = self.step_fn(state, batch)
+            except Exception as e:  # noqa: BLE001 — transient device failures
+                self.stats.failures.append((step, repr(e)))
+                recent = [s for s, _ in self.stats.failures
+                          if s > step - self.cfg.failure_window]
+                if len(recent) > self.cfg.max_failures:
+                    raise RuntimeError(
+                        f"failure budget exceeded at step {step}") from e
+                latest = self.ckpt.latest_step()
+                if latest is not None:
+                    self.ckpt.wait()
+                    state = self.ckpt.restore(latest, state)
+                    log.warning("step %d failed (%r); rolled back to %d",
+                                step, e, latest)
+                    step = latest
+                continue
+            self.stats.step_times.append(time.perf_counter() - t0)  # lint: allow(clock-discipline)
+            step += 1
+            self.stats.steps_done += 1
+            if on_metrics is not None:
+                on_metrics(step, metrics)
+            if step % self.cfg.checkpoint_every == 0:
+                self.ckpt.save(step, state)
+        self.ckpt.save(step, state, blocking=True)
+        return state

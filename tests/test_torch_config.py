@@ -164,6 +164,17 @@ def test_package_imports_neither_jax_nor_the_reference():
         "    out = repro_torch.models.lm.make_prefill_step(lm_cfg)(\n"
         "        lm, {'tokens': torch.zeros((1, 4), dtype=torch.int32)})\n"
         "assert out[0].shape == (1, 1, lm_cfg.vocab_size)\n"
+        "import repro_torch.optim, repro_torch.optim.adam\n"
+        "import repro_torch.optim.schedules, repro_torch.optim.compression\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.checkpointer\n"
+        "import repro_torch.data.pipeline, repro_torch.tree\n"
+        "from repro_torch.runtime.fault_tolerance import ResilientLoop\n"
+        "st = repro_torch.models.lm.init_train_state(\n"
+        "    torch.Generator().manual_seed(0), lm_cfg, device='cpu')\n"
+        "_, met = repro_torch.models.lm.make_train_step(lm_cfg)(st, {\n"
+        "    'tokens': torch.zeros((1, 4), dtype=torch.int32),\n"
+        "    'labels': torch.ones((1, 4), dtype=torch.int32)})\n"
+        "assert int(st.opt.step) == 1 and met['loss'].shape == ()\n"
         "assert not repro_torch.analysis.check_cuda_abi()\n"
         "for name in ('quickstart', 'snn_mnist_train', 'serve_batched',\n"
         "             'snn_accelerator_sim'):\n"

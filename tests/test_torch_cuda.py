@@ -1189,3 +1189,113 @@ def test_state_lm_on_the_card_matches_the_cpu_in_float64(card, arch):
         err = float((g - w).abs().max())
         print(f"{arch}: {err / scale:.3e} of max(1, max|logit|)")
         assert err <= 1e-5 * scale
+
+
+# -- LM training on the card -------------------------------------------------------
+
+def _named(state):
+    return ([(n, p) for n, p in state.params.named_parameters()]
+            + [(".step", state.opt.step)]
+            + [(f".m/{n}", t) for n, t in state.opt.m.items()]
+            + [(f".v/{n}", t) for n, t in state.opt.v.items()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-moe-16b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(card, arch):
+    """A reduced config's train steps on the card against the same steps
+    on the CPU from the same state (TF32 off): the metrics, m and v within
+    1e-5 x max(1, max|cpu|), and the params within that plus 2 x lr_s for
+    each step s at which the element's CPU gradient lies within 1e-5 x
+    max(1, max|g|) of zero (Adam's first steps move an element near lr
+    whatever its grad's size, so a grad near zero of the other sign is
+    2 x lr apart); every other element has no lr term.  The MoE at
+    2 x E / k."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.models import lm
+    cfg = reduced(get_arch(arch))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=2 * cfg.moe.num_experts
+            / cfg.moe.top_k))
+    cpu = lm.init_train_state(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    gpu = lm.init_train_state(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    gpu.params.to(card)
+    gpu = lm.TrainState(gpu.params, type(gpu.opt)(
+        gpu.opt.step.to(card), {n: t.to(card) for n, t in gpu.opt.m.items()},
+        {n: t.to(card) for n, t in gpu.opt.v.items()}))
+    step = lm.make_train_step(cfg)
+    extra = {n: 0.0 for n, _ in cpu.params.named_parameters()}
+    for b, _ in zip(token_batches(cfg.vocab_size, 2, 32, seed=0), range(2)):
+        tb = {k: torch.from_numpy(v) for k, v in b.items()}
+        names, leaves = zip(*cpu.params.named_parameters())
+        loss, _ = lm.loss_fn(cpu.params, cfg, tb)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        _, mc = step(cpu, tb)
+        _, mg = step(gpu, {k: v.to(card) for k, v in tb.items()})
+        for k in mc:
+            want = float(mc[k])
+            assert abs(float(mg[k]) - want) <= 1e-5 * max(1.0, abs(want)), k
+        lr = float(mc["lr"])
+        for n, g in zip(names, grads):
+            if g is None:
+                extra[n] = extra[n] + 2 * lr
+                continue
+            g = g.detach().double().abs()
+            near = g <= 1e-5 * max(1.0, float(g.max()))
+            extra[n] = extra[n] + 2 * lr * near.double()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    for (name, g), (_, c) in zip(_named(gpu), _named(cpu)):
+        assert g.device.type == "cuda"
+        g, c = g.detach().cpu().double(), c.detach().double()
+        err = float(((g - c).abs() - extra.get(name, 0.0)).max())
+        bound = 1e-5 * max(1.0, float(c.abs().max()))
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.cuda
+def test_checkpointer_round_trips_card_tensors_in_place(card, tmp_path):
+    """Card tensors, bfloat16 among them, saved and restored into the
+    target's own storage (the same ``data_ptr``) with their bits."""
+    from repro_torch.checkpoint import Checkpointer
+    gen = torch.Generator(device=card).manual_seed(0)
+    tree = {"a": torch.randn((64, 33), generator=gen, device=card),
+            "b": [torch.randn((7,), generator=gen, device=card)
+                  .to(torch.bfloat16),
+                  torch.arange(5, dtype=torch.int32, device=card)]}
+    ck = Checkpointer(str(tmp_path), keep=2)
+    ck.save(1, tree)
+    want = [t.clone() for t in (tree["a"], *tree["b"])]
+    for t in (tree["a"], *tree["b"]):
+        t.zero_()                      # written after save returned
+    ck.wait()
+    ptrs = [t.data_ptr() for t in (tree["a"], *tree["b"])]
+    out = ck.restore(1, tree)
+    assert out is tree
+    got = [tree["a"], *tree["b"]]
+    assert [t.data_ptr() for t in got] == ptrs
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_prefetcher_puts_batches_on_the_card(card):
+    """``Prefetcher(device="cuda")``: the batches come in order, on the
+    card, equal to their host batches once the consumer has waited."""
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.data.synthetic import token_batches
+    host = [b for b, _ in zip(token_batches(1000, 4, 64, seed=3), range(6))]
+    pf = Prefetcher(iter(host), device=card, depth=2)
+    got = list(pf)
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        assert set(g) == set(h)
+        for k in h:
+            assert g[k].device.type == "cuda"
+            assert torch.equal(g[k].cpu(), torch.from_numpy(h[k]))
