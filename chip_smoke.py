@@ -224,6 +224,19 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           a checkpoint round trip into their own storage.  (d)
           ``Prefetcher(device="cuda")``: batches in order, equal to
           ``token_batches``' bits
+  lm_mesh  the sharded LM (``sharding.partitioning``, the bodies on
+          local shards, ``dist.spmd``; no SNN kernel launches): (a)
+          qwen2.5-3b at full width, 2 layers, on a mesh data=1 x model=1
+          over a real NCCL group of one (this process): weights built
+          leaf by leaf equal ``init_params``', a prefill (batch 4, 64
+          tokens) and 8 decode steps under ``serve`` and 3 steps of the
+          launcher's ``train_lm`` under ``tp_fsdp`` against the unsharded
+          path on the same weights, bit for bit, or the first differing
+          tensor named and held to ``LM_MESH_TOL`` x max(1, |ref|); a
+          decode step's ms, device ms and launches, sharded and not, and
+          peak memory; then the train launcher's ``--mesh 1x1`` (reduced,
+          its rank spawned on NCCL) against its one-device losses; (b)
+          with two or more cards, ``--mesh 1x2`` and ``2x1`` within 1e-5
 
 then the card's name and power limit as nvidia-smi gives them, the
 kernels' summary line (each kernel's times, bounds and shapes summed over
@@ -3371,6 +3384,257 @@ def phase_lm_train(smi: str):
     emit("lm_train", part="phase", seconds=time.perf_counter() - t_phase)
 
 
+LM_MESH_ARCH = "qwen2.5-3b"
+LM_MESH = dict(batch=4, prompt=64, new=8, steps=3, seq=64)
+LM_MESH_TOL = 1e-6       # where the group of one's bits differ (module doc)
+
+
+def _first_difference(pairs):
+    """(name, max |a - b| / max(1, max|b|)) of the first pair of tensors
+    in ``pairs`` ([(name, a, b)]) whose bits differ; None when all are
+    equal."""
+    for name, a, b in pairs:
+        if not torch_equal(a, b):
+            return name, rel_err(a, b)
+    return None
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a, b))
+
+
+def rel_err(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def _local(t):
+    """A DTensor's local shard: on a group of one, the whole tensor."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _lm_mesh_serve(cfg, ctx):
+    """(a) prefill and decode: the whole model against its group-of-one
+    layout, from one generator; returns the record."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.sharding import partitioning
+    from repro_torch.sharding.context import use_sharding
+    b, prompt, new = LM_MESH["batch"], LM_MESH["prompt"], LM_MESH["new"]
+    whole = transformer.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    sharded = partitioning.init_params(
+        ctx, torch.Generator(device="cuda").manual_seed(SEED), cfg,
+        device="cuda")
+    pairs = [(f"init {n}", _local(q), p) for (n, p), q in zip(
+        whole.named_parameters(), sharded.parameters())]
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (b, prompt + new), dtype=np.int32)).cuda()
+    runs = {}
+    with torch.inference_mode():
+        for name, params, c in (("whole", whole, None), ("mesh", sharded,
+                                                         ctx)):
+            with use_sharding(c):
+                lg, caches = transformer.prefill(
+                    params, cfg, tokens=toks[:, :prompt],
+                    max_len=prompt + new, cache_dtype=torch.float32)
+                logits = [_local(lg)]
+                for i in range(new):
+                    lg, caches = transformer.decode_step(
+                        params, caches, cfg,
+                        token=toks[:, prompt + i:prompt + i + 1],
+                        pos=prompt + i)
+                    logits.append(_local(lg))
+                pos = prompt + new - 1
+                tok = toks[:, -1:]
+                step = (lambda p=params, cc=caches: transformer.decode_step(
+                    p, cc, cfg, token=tok, pos=pos))
+                ms = cuda_ms(step, reps=10, warmup=2)
+                by_kernel, launches = device_time(step, reps=3)
+            runs[name] = {"logits": logits, "caches": caches, "ms": ms,
+                          "device_ms": sum(by_kernel.values()),
+                          "launches": launches / 3}
+    peak = torch.cuda.max_memory_allocated() - mem0
+    w, m = runs["whole"], runs["mesh"]
+    for i, (a, c) in enumerate(zip(m["logits"], w["logits"])):
+        pairs.append(("prefill logits" if i == 0 else
+                      f"decode step {i} logits", a, c))
+    for i, (cm, cw) in enumerate(zip(m["caches"], w["caches"])):
+        for part in ("mixer", "ffn"):
+            for k in cw[part]:
+                pairs.append((f"layers.{i}.{part}.{k} cache after "
+                              f"{new} steps", _local(cm[part][k]),
+                              cw[part][k]))
+    diff = _first_difference(pairs)
+    rec = {"compared": len(pairs), "bit_equal": diff is None,
+           "first_difference": diff, "batch": b, "prompt": prompt,
+           "decode_steps": new,
+           "decode_step_ms": {"whole": w["ms"], "mesh": m["ms"]},
+           "decode_device_ms": {"whole": w["device_ms"],
+                                "mesh": m["device_ms"]},
+           "decode_launches_per_step": {"whole": w["launches"],
+                                        "mesh": m["launches"]},
+           "mesh_peak_memory_bytes": peak}
+    del whole, sharded, runs
+    return rec
+
+
+def _lm_mesh_train(cfg, ctx):
+    """(a) 3 steps of the launcher's ``train_lm``: one device against the
+    group of one; the record."""
+    import tempfile
+    import torch
+    from repro_torch.launch.train import train_lm
+    kw = dict(steps=LM_MESH["steps"], batch=LM_MESH["batch"],
+              seq=LM_MESH["seq"], seed=SEED,
+              checkpoint_every=LM_MESH["steps"] + 1, device="cuda")
+    out, prof = {}, {}
+    for name, c in (("whole", None), ("mesh", ctx)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as d:
+            out[name] = train_lm(cfg, ckpt_dir=d, ctx=c, **kw)
+        prof[name] = _lm_mesh_step_profile(cfg, c)
+    w, m = out["whole"], out["mesh"]
+    return {"losses": {"whole": w["losses"], "mesh": m["losses"]},
+            "bit_equal": w["losses"] == m["losses"],
+            "max_loss_err": max(abs(a - b) / max(1.0, abs(b))
+                                for a, b in zip(m["losses"], w["losses"])),
+            "median_step_ms": {"whole": w["median_step_ms"],
+                               "mesh": m["median_step_ms"]},
+            "peak_memory_bytes": {"whole": w["peak_memory_bytes"],
+                                  "mesh": m["peak_memory_bytes"]},
+            "save_seconds": {"whole": w["save_seconds"],
+                             "mesh": m["save_seconds"]},
+            "step_device_ms": {k: v[0] for k, v in prof.items()},
+            "step_launches": {k: v[1] for k, v in prof.items()}, **kw}
+
+
+def _lm_mesh_step_profile(cfg, ctx):
+    """(device ms, launches) of one train step (after a warm one), the
+    profiler's, on the whole model or its layout under ``ctx``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.sharding import partitioning
+    from repro_torch.sharding.context import use_sharding
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    state = (lm.init_train_state(g, cfg, device="cuda") if ctx is None
+             else partitioning.init_train_state(ctx, g, cfg, device="cuda"))
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_MESH["batch"], LM_MESH["seq"]),
+        dtype=np.int32)).cuda()
+    batch = {"tokens": toks, "labels": toks.long()}
+    step = lm.make_train_step(cfg)
+    with use_sharding(ctx):
+        by_kernel, launches = device_time(
+            lambda: float(step(state, batch)[1]["loss"]), reps=1)
+    del state
+    torch.cuda.empty_cache()
+    return sum(by_kernel.values()), launches
+
+
+def _lm_mesh_launcher(mesh: str):
+    """The train launcher's ``--mesh`` on the cards (reduced qwen2.5-3b,
+    its spawned ranks on nccl) against its one-device run."""
+    import tempfile
+    from repro_torch.launch import train as train_launcher
+    args = ["--arch", LM_MESH_ARCH, "--steps", str(LM_MESH["steps"]),
+            "--batch", "4", "--seq", "64", "--log-level", "error"]
+    with tempfile.TemporaryDirectory() as d:
+        one = train_launcher.main(args + ["--ckpt-dir", f"{d}/one"])
+        t0 = time.perf_counter()
+        r = train_launcher.main(args + ["--mesh", mesh, "--ckpt-dir",
+                                        f"{d}/mesh"])
+        seconds = time.perf_counter() - t0
+    return {"mesh": r["mesh"], "profile": r["profile"],
+            "losses": {"whole": one["losses"], "mesh": r["losses"]},
+            "bit_equal": one["losses"] == r["losses"],
+            "max_loss_err": max(abs(a - b) / max(1.0, abs(b)) for a, b in
+                                zip(r["losses"], one["losses"])),
+            "peak_memory_bytes_per_rank": r["peak_memory_bytes_per_rank"],
+            "seconds_with_spawn": seconds}
+
+
+def phase_lm_mesh():
+    """The sharded LM on the card (module doc, phase ``lm_mesh``): (a)
+    qwen2.5-3b at full width, 2 layers, on a mesh data=1 x model=1 over a
+    real NCCL group of one, its prefill, 8 decode steps and 3 train steps
+    against the unsharded path on the same weights, bit for bit (a
+    difference is named by its first tensor and held to
+    ``LM_MESH_TOL`` x max(1, |ref|)); the launcher's ``--mesh 1x1``
+    through its spawned rank; (b) with two or more cards, the launcher
+    on 1x2 and 2x1 within the LM tolerance 1e-5; (c) each record's
+    launches, device ms and peak memory.  No SNN kernel runs in it."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import get_arch
+    from repro_torch.dist.mesh import make_test_mesh
+    from repro_torch.sharding.context import ShardingCtx, make_rules
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("lm_mesh: TF32 matmuls are on; the LM runs in full float32")
+    reset_counts()
+    full = get_arch(LM_MESH_ARCH)
+    cfg = _cut(full, full.pattern()[:2])
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_test_mesh((1, 1))
+        t0 = time.perf_counter()
+        serve = _lm_mesh_serve(cfg, ShardingCtx(mesh, make_rules("serve")))
+        emit("lm_mesh", part="(a) prefill and decode, 1x1 serve against "
+             "one device", arch=cfg.name, layers=cfg.num_layers,
+             seconds=time.perf_counter() - t0, **serve)
+        t0 = time.perf_counter()
+        train = _lm_mesh_train(cfg, ShardingCtx(mesh, make_rules(
+            "tp_fsdp")))
+        emit("lm_mesh", part="(a) train_lm, 1x1 tp_fsdp against one "
+             "device", arch=cfg.name, seconds=time.perf_counter() - t0,
+             **train)
+    finally:
+        dist.destroy_process_group()
+    for what, r, err in (("serve", serve, serve["first_difference"]),
+                         ("train", train, None if train["bit_equal"] else
+                          ("losses", train["max_loss_err"]))):
+        if err is not None and err[1] > LM_MESH_TOL:
+            fail(f"lm_mesh: the group of one's {what} differs from one "
+                 f"device at {err[0]} by {err[1]} > {LM_MESH_TOL}")
+    t0 = time.perf_counter()
+    launcher = _lm_mesh_launcher("1x1")
+    emit("lm_mesh", part="(a) the launcher --mesh 1x1 (reduced, spawned "
+         "nccl rank) against its one-device run",
+         seconds=time.perf_counter() - t0, **launcher)
+    if not launcher["bit_equal"] and launcher["max_loss_err"] > LM_MESH_TOL:
+        fail(f"lm_mesh: the launcher's --mesh 1x1 losses differ by "
+             f"{launcher['max_loss_err']}")
+    if torch.cuda.device_count() >= 2:
+        for shape in ("1x2", "2x1"):
+            t0 = time.perf_counter()
+            r = _lm_mesh_launcher(shape)
+            emit("lm_mesh", part=f"(b) the launcher --mesh {shape}",
+                 seconds=time.perf_counter() - t0, **r)
+            if r["max_loss_err"] > 1e-5:
+                fail(f"lm_mesh: --mesh {shape} losses differ by "
+                     f"{r['max_loss_err']} > 1e-5")
+    else:
+        emit("lm_mesh", part="(b) skipped: one card visible")
+    counts = {k: v for k, v in read_counts().items() if v}
+    if counts:
+        fail(f"lm_mesh: the sharded LM launched SNN kernels {counts}")
+    torch.cuda.empty_cache()
+    emit("lm_mesh", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -3437,6 +3701,7 @@ def main() -> int:
     # the LM substrate's serving path and its training (no SNN kernel)
     phase_lm()
     phase_lm_train(smi)
+    phase_lm_mesh()
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     # each TPU kernel's pl.pallas_call site

@@ -21,6 +21,15 @@ the reference's layout on disk.
 
 A tree is what ``repro_torch.tree.flatten_with_paths`` walks: nested
 dicts, lists, tuples and NamedTuples of tensors, and ``nn.Module``s.
+
+On a mesh (``mesh=``: a torch ``DeviceMesh``, one process per entry) the
+tree's DTensor leaves are saved in the same layout: leaf by leaf the
+whole tensor is gathered, and only the mesh's rank 0 copies it to the
+host and writes the files, so a checkpoint saved on a mesh restores on
+one device and the other way round.  A restore reads the file on rank 0
+only and scatters each leaf from there (a plain leaf is broadcast); the
+other ranks never load it.  Rank 0 also answers ``latest_step`` and
+``all_steps`` for every rank, so all ranks roll back to one step.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree import flatten_with_paths
 
@@ -71,9 +82,11 @@ def _from_file(arr: np.ndarray, logical: str) -> torch.Tensor:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, mesh=None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh
+        self.writer = mesh is None or dist.get_rank() == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -89,7 +102,16 @@ class Checkpointer:
         manifest = {k: {"shape": list(v.shape),
                         "dtype": str(v.dtype).split(".")[1]}
                     for k, v in leaves.items()}
-        payload = {k: _to_host(v) for k, v in leaves.items()}
+        payload = {}
+        for k, v in leaves.items():
+            if isinstance(v, DTensor):
+                v = v.full_tensor()
+            if self.writer:
+                payload[k] = _to_host(v)
+        self.last_save_bytes = sum(a.nbytes for a in payload.values())
+        if not self.writer:
+            self.last_save_seconds = time.perf_counter() - t0
+            return
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, payload, manifest), daemon=True)
@@ -97,7 +119,6 @@ class Checkpointer:
         if blocking:
             self.wait()
         self.last_save_seconds = time.perf_counter() - t0
-        self.last_save_bytes = sum(a.nbytes for a in payload.values())
 
     def _write(self, step: int, payload: Dict[str, np.ndarray],
                manifest: Dict) -> None:
@@ -129,13 +150,20 @@ class Checkpointer:
                                f"failed: {err!r}") from err
 
     def _gc(self) -> None:
-        steps = self.all_steps()
+        steps = self._all_steps()
         for s in steps[:-self.keep] if self.keep else []:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
                           ignore_errors=True)
 
     # --------------------------------------------------------------- restore
     def all_steps(self):
+        if self.mesh is None:
+            return self._all_steps()
+        box = [self._all_steps() if self.writer else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _all_steps(self):
         out = []
         for name in os.listdir(self.dir):
             m = re.fullmatch(r"step_(\d+)", name)
@@ -153,6 +181,8 @@ class Checkpointer:
         """Copies checkpoint ``step`` into ``target``'s tensors in place
         (``copy_``, converting to each leaf's dtype on its device) and
         returns ``target``."""
+        if self.mesh is not None:
+            return self._restore_sharded(step, target)
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
@@ -165,4 +195,38 @@ class Checkpointer:
                                      f"shape {arr.shape}, the target "
                                      f"{tuple(leaf.shape)}")
                 leaf.copy_(_from_file(arr, logical))
+        return target
+
+    def _restore_sharded(self, step: int, target: Any) -> Any:
+        path = os.path.join(self.dir, f"step_{step}")
+        data, manifest = None, {}
+        if self.writer:
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)["leaves"]
+            data = np.load(os.path.join(path, "arrays.npz"))
+        try:
+            for key, leaf in _leaves(target).items():
+                local = leaf.to_local() if isinstance(leaf, DTensor) \
+                    else leaf
+                whole = torch.empty(leaf.shape, dtype=leaf.dtype,
+                                    device=local.device)
+                if self.writer:
+                    arr = data[key]
+                    if tuple(arr.shape) != tuple(leaf.shape):
+                        raise ValueError(
+                            f"checkpoint step {step}: {key} has shape "
+                            f"{arr.shape}, the target {tuple(leaf.shape)}")
+                    whole.copy_(_from_file(arr, manifest.get(key, {}).get(
+                        "dtype", str(arr.dtype))))
+                if isinstance(leaf, DTensor):
+                    whole = distribute_tensor(
+                        whole, leaf.device_mesh, leaf.placements,
+                        src_data_rank=0).to_local()
+                else:
+                    dist.broadcast(whole, src=0)
+                local.copy_(whole)
+                del whole
+        finally:
+            if data is not None:
+                data.close()
         return target

@@ -9,6 +9,11 @@ the consumer's stream, so the caching allocator does not hand its memory
 out again while the step still reads it.  Given the CPU, each batch
 becomes tensors there; given no device, batches pass through unchanged.
 It never leaves a batch on the host when it was given a card.
+
+On a mesh each rank runs its own ``Prefetcher`` over the same global
+batches; ``shard`` picks the rank's part of each on the host (its rows
+of the batch axis, ``batch_rows``), so only that part is copied to its
+card.
 """
 from __future__ import annotations
 
@@ -21,7 +26,19 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Prefetcher", "global_batch_iterator"]
+__all__ = ["Prefetcher", "global_batch_iterator", "batch_rows"]
+
+
+def batch_rows(index: int, count: int):
+    """A ``shard`` for ``Prefetcher``: rows [index x n, (index + 1) x n)
+    of every array of a batch, n = rows / count."""
+    def shard(batch):
+        out = {}
+        for k, v in batch.items():
+            n = v.shape[0] // count
+            out[k] = v[index * n:(index + 1) * n]
+        return out
+    return shard
 
 
 class Prefetcher:
@@ -30,8 +47,9 @@ class Prefetcher:
 
     def __init__(self, it: Iterator[Dict[str, np.ndarray]],
                  device: Optional[Union[str, torch.device]] = None,
-                 depth: int = 2):
-        self._it = it
+                 depth: int = 2,
+                 shard: Optional[Callable[[Dict], Dict]] = None):
+        self._it = it if shard is None else map(shard, it)
         self._device = None if device is None else resolve_device(device)
         self._stream = None
         if self._device is not None and self._device.type == "cuda":

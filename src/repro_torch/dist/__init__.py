@@ -10,20 +10,22 @@ e.g. ``{"data": 4}``) into execution on several devices:
   * ``runner``: ``MeshRunner``, batch-sharded ``Session.infer`` and
     ``train_step`` with a bit-parity contract across device counts;
   * ``placement``: CBWS device placement (Skydiver's SPE assignment at
-    mesh-device granularity) for the serving engine's pinned lanes.
+    mesh-device granularity) for the serving engine's pinned lanes;
+  * ``spmd``: one process per mesh entry for the sharded LM (``run``),
+    and ``mesh.make_test_mesh``, the torch ``DeviceMesh`` of its group.
 
-``MeshRunner`` and the placement helpers load lazily (PEP 562), so spec
-validation (``normalize_mesh``) stays importable without the model code.
-The reference's ``host_device_env`` and ``HOST_DEVICE_FLAG`` have no
-counterpart (torch needs no flag for host entries), and its LM pod meshes
-(``make_production_mesh``, ``make_test_mesh``) come with the LM substrate.
+``MeshRunner``, the placement helpers and ``spmd`` load lazily (PEP 562),
+so spec validation (``normalize_mesh``) stays importable without the
+model code.  The reference's ``host_device_env`` and ``HOST_DEVICE_FLAG``
+have no counterpart (torch needs no flag for host entries); its
+256-chip ``make_production_mesh`` is ROADMAP item 14g's.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.dist.mesh import (DeviceMesh, MeshAxes, mesh_str,
-                                   normalize_mesh, parse_mesh)
+from repro_torch.dist.mesh import (DeviceMesh, MeshAxes, make_test_mesh,
+                                   mesh_str, normalize_mesh, parse_mesh)
 
 __all__ = [
     "DeviceMesh",
@@ -33,9 +35,11 @@ __all__ = [
     "assignment_balance",
     "device_placement",
     "fifo_placement",
+    "make_test_mesh",
     "mesh_str",
     "normalize_mesh",
     "parse_mesh",
+    "spmd",
 ]
 
 _LAZY = {
@@ -44,6 +48,7 @@ _LAZY = {
     "assignment_balance": "repro_torch.dist.placement",
     "device_placement": "repro_torch.dist.placement",
     "fifo_placement": "repro_torch.dist.placement",
+    "spmd": "repro_torch.dist.spmd",
 }
 
 
@@ -52,4 +57,6 @@ def __getattr__(name):
     if mod is None:
         raise AttributeError(
             f"module 'repro_torch.dist' has no attribute {name!r}")
+    if mod.endswith("." + name):
+        return importlib.import_module(mod)
     return getattr(importlib.import_module(mod), name)

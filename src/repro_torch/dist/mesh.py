@@ -23,7 +23,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["MeshAxes", "parse_mesh", "normalize_mesh", "mesh_str",
-           "DeviceMesh"]
+           "DeviceMesh", "make_test_mesh"]
 
 MeshAxes = Tuple[Tuple[str, int], ...]
 
@@ -187,3 +187,14 @@ class DeviceMesh:
 
     def __repr__(self) -> str:
         return f"DeviceMesh({mesh_str(self.axes)}, devices={self.num_devices})"
+
+
+def make_test_mesh(shape: Sequence[int] = (2, 2),
+                   axes: Sequence[str] = ("data", "model")):
+    """The torch ``DeviceMesh`` of the current process group (one process
+    per entry, ``dist.spmd``), its axes named as the reference's: on the
+    cards under ``nccl``, on the host under ``gloo``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))

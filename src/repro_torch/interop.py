@@ -19,6 +19,12 @@ arrays (``np.asarray`` of each JAX leaf; a bfloat16 leaf keeps its bits),
 and float32 leaves of a bfloat16 model (Mamba's ``A_log`` and ``D``,
 RWKV6's ``w0`` and ``u``; the Mamba and RWKV6 states of bfloat16 caches)
 stay float32, as in the reference.
+
+With ``ctx`` (a ``ShardingCtx`` on a torch mesh) the ``from_jax_*``
+functions lay what they carry out on the mesh
+(``sharding.partitioning``: every rank holds the numpy arrays and keeps
+its shard), and the ``to_numpy_*`` functions gather DTensor leaves whole
+(on every rank: each must call them).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import ArchConfig
 from repro_torch.device import resolve_device
@@ -66,7 +73,10 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor on the host as numpy; bfloat16 widens to float32 (exact)."""
+    """A tensor on the host as numpy; bfloat16 widens to float32 (exact);
+    a DTensor is gathered whole first (a collective: every rank calls)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -81,10 +91,15 @@ def _layer_slots(cfg: ArchConfig) -> Iterator[Tuple[int, int, int, int]]:
                 layer += 1
 
 
-def from_jax_lm_params(np_params: Dict, cfg: ArchConfig, device=None):
+def from_jax_lm_params(np_params: Dict, cfg: ArchConfig, device=None,
+                       ctx=None):
     """The reference's LM pytree (numpy leaves) -> a ``Transformer`` of
     ``cfg`` on ``device`` (default: the card) holding those weights, in
-    their dtype."""
+    their dtype; laid out on ``ctx``'s mesh when given."""
+    if ctx is not None:
+        from repro_torch.sharding import partitioning
+        return partitioning.shard_model(
+            ctx, from_jax_lm_params(np_params, cfg, device))
     from repro_torch.models.transformer import Transformer
     dev = resolve_device(device)
     model = Transformer(cfg, device="meta").to_empty(device=dev)
@@ -175,11 +190,17 @@ def to_numpy_lm_params(model, leaves: Optional[Dict] = None) -> Dict:
                                           model.final_norm.scale)}}
 
 
-def from_jax_train_state(np_state, cfg: ArchConfig, device=None):
+def from_jax_train_state(np_state, cfg: ArchConfig, device=None,
+                         ctx=None):
     """The reference's ``TrainState(params, AdamState(step, m, v))``
     (numpy leaves, params, m and v in its stacked layout) -> the port's
     ``models.lm.TrainState`` on ``device`` (default: the card): a
-    ``Transformer`` and m and v keyed by its parameter names."""
+    ``Transformer`` and m and v keyed by its parameter names; laid out on
+    ``ctx``'s mesh when given."""
+    if ctx is not None:
+        from repro_torch.sharding import partitioning
+        return partitioning.shard_train_state(
+            ctx, from_jax_train_state(np_state, cfg, device))
     from repro_torch.models.lm import TrainState
     from repro_torch.optim.adam import AdamState
     dev = resolve_device(device)
@@ -211,9 +232,14 @@ def to_numpy_train_state(state, cfg: ArchConfig) -> Tuple:
 
 
 def from_jax_lm_caches(np_caches: List[Dict], cfg: ArchConfig,
-                       device=None) -> List[Dict]:
+                       device=None, ctx=None) -> List[Dict]:
     """The reference's stacked per-stage caches (numpy leaves) -> the
-    port's per-layer list on ``device`` (default: the card)."""
+    port's per-layer list on ``device`` (default: the card); laid out on
+    ``ctx``'s mesh when given."""
+    if ctx is not None:
+        from repro_torch.sharding import partitioning
+        return partitioning.shard_caches(
+            ctx, cfg, from_jax_lm_caches(np_caches, cfg, device))
     dev = resolve_device(device)
     return [{part: {name: _tensor(np.asarray(a)[r], dev)
                     for name, a in leaves.items()}

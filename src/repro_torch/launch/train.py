@@ -6,6 +6,8 @@ facade (the default).
         --steps 100 --batch 4 --seq 128 [--full-config]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --device cpu --steps 2 --batch 2 --seq 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
+        --mesh 2x2 --profile tp_fsdp --device cpu --steps 2 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.train --snn snn-mnist \
         --backend hopper --steps 50 --batch 256 --lr 1e-2
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
@@ -21,8 +23,16 @@ the reference's LM path: ``lm.init_train_state`` from ``--seed``,
 ``Checkpointer`` (keeps 2) in ``--ckpt-dir`` and a ``StragglerMonitor``,
 all run by ``ResilientLoop``, which resumes from the directory's latest
 checkpoint.  Each step's loss is read on the host (one sync a step), so
-the step times are the device's work.  ``--mesh`` is not taken with
-``--arch``: the sharded LM is ROADMAP queue 1, item 14f.
+the step times are the device's work.  With ``--mesh DxM`` (data x
+model) the LM trains sharded under ``--profile`` (a
+``sharding.context.RULE_PROFILES`` name, default ``tp_fsdp``): one
+process per mesh entry (``dist.spmd``: ``nccl`` on the cards
+``cuda:0..DxM-1``, or ``gloo`` host processes with ``--device cpu``),
+the state drawn on rank 0 and scattered leaf by leaf
+(``sharding.partitioning.init_train_state``), each rank's ``Prefetcher``
+copying its rows of the global batch, checkpoints written by rank 0.
+Rank 0 logs and returns the result, with ``mesh``, ``profile`` and each
+rank's peak memory.
 
 Otherwise the flags build one validated ``TrainSpec`` (backend,
 surrogate, lr, timesteps), or ``--spec-file`` loads one from JSON
@@ -47,6 +57,8 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import api
 from repro_torch.checkpoint import Checkpointer
@@ -54,15 +66,19 @@ from repro_torch.config import ArchConfig, SNNConfig, get_arch, get_snn, \
     reduced
 from repro_torch.core.snn_model import SNN_BACKENDS
 from repro_torch.core.surrogate import SURROGATE_KINDS
-from repro_torch.data.pipeline import Prefetcher
+from repro_torch.data.pipeline import Prefetcher, batch_rows
 from repro_torch.data.synthetic import mnist_like, token_batches
 from repro_torch.device import resolve_device
-from repro_torch.dist.mesh import parse_mesh
+from repro_torch.dist import spmd
+from repro_torch.dist.mesh import make_test_mesh, parse_mesh
 from repro_torch.launch.serve import device_name, load_spec_file
 from repro_torch.models import lm
 from repro_torch.obs.log import LOG_LEVELS, configure_logging, get_logger
 from repro_torch.runtime.fault_tolerance import LoopConfig, ResilientLoop
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.sharding import partitioning
+from repro_torch.sharding.context import RULE_PROFILES, ShardingCtx, \
+    make_rules, use_sharding
 
 log = get_logger("train")
 
@@ -70,23 +86,58 @@ EVAL_BATCH, EVAL_SEED = 256, 10_000
 # where --arch checkpoints by default: the reference's directory is
 # another, so a run here never resumes from one of its runs by accident
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_train")
+# the most seconds a sharded run may take, its group's collectives too
+MESH_TIMEOUT = 3600.0
+
+
+def parse_lm_mesh(text: str):
+    """``"DxM"`` -> (D, M): the data and model axes of an LM mesh."""
+    d, x, m = text.partition("x")
+    if not (x and d.isdigit() and m.isdigit() and int(d) and int(m)):
+        raise ValueError(f"--mesh {text!r} with --arch: expected DxM (data "
+                         f"x model, e.g. 2x2); the data=N form is the "
+                         f"SNN's")
+    return int(d), int(m)
+
+
+def _batch_shard(ctx, batch: int, seq: int):
+    """This rank's (index, count) among the shards of the batch axis."""
+    mesh = ctx.torch_mesh
+    index, count = 0, 1
+    for i, p in enumerate(ctx.placements(("batch", None), (batch, seq))):
+        if isinstance(p, Shard):
+            index = index * mesh.size(i) + mesh.get_local_rank(i)
+            count *= mesh.size(i)
+    return index, count
 
 
 def train_lm(cfg: ArchConfig, *, steps: int = 50, batch: int = 4,
              seq: int = 128, seed: int = 0, ckpt_dir: str = DEFAULT_CKPT_DIR,
-             checkpoint_every: int = 50, device=None) -> Dict:
+             checkpoint_every: int = 50, device=None, ctx=None) -> Dict:
     """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens
     through ``ResilientLoop`` (module doc).  Returns every step's loss (on
     the host), the median step and the trained tokens a second, the
     loop's ``resumed_from``, ``failures`` and ``steps_done``, the card's
-    peak memory and the final blocking save's seconds and bytes."""
+    peak memory and the final blocking save's seconds and bytes.  With
+    ``ctx`` (a ``ShardingCtx`` on the torch mesh of this process group)
+    this rank's part of a sharded run."""
     dev = resolve_device(device)
-    state = lm.init_train_state(torch.Generator(device=dev).manual_seed(seed),
-                                cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    host = token_batches(cfg.vocab_size, batch, seq, seed=seed)
+    if ctx is None:
+        state = lm.init_train_state(gen, cfg, device=dev)
+        batches = Prefetcher(host, device=dev)
+        ckpt = Checkpointer(ckpt_dir, keep=2)
+    else:
+        mesh = ctx.torch_mesh
+        state = partitioning.init_train_state(
+            ctx, gen if mesh.get_rank() == 0 else None, cfg, device=dev)
+        batches = Prefetcher(host, device=dev,
+                             shard=batch_rows(*_batch_shard(ctx, batch,
+                                                            seq)))
+        pl = list(ctx.placements(("batch", None), (batch, seq)))
+        ckpt = Checkpointer(ckpt_dir, keep=2, mesh=mesh)
     step_fn = lm.make_train_step(cfg, total_steps=steps)
-    batches = Prefetcher(token_batches(cfg.vocab_size, batch, seq,
-                                       seed=seed), device=dev)
-    ckpt = Checkpointer(ckpt_dir, keep=2)
     monitor = StragglerMonitor(num_hosts=1)
     losses, seconds = [], []
     t_last = [time.perf_counter()]
@@ -104,7 +155,13 @@ def train_lm(cfg: ArchConfig, *, steps: int = 50, batch: int = 4,
     loop = ResilientLoop(step_fn, ckpt, LoopConfig(
         checkpoint_every=checkpoint_every, max_steps=steps))
     try:
-        loop.run(state, batches, on_metrics=on_metrics)
+        if ctx is None:
+            loop.run(state, batches, on_metrics=on_metrics)
+        else:
+            with use_sharding(ctx):
+                loop.run(state, ({k: DTensor.from_local(
+                    v, mesh, pl, run_check=False) for k, v in b.items()}
+                    for b in batches), on_metrics=on_metrics)
     finally:
         batches.close()
     step_s = statistics.median(seconds) if seconds else 0.0
@@ -124,6 +181,22 @@ def train_lm(cfg: ArchConfig, *, steps: int = 50, batch: int = 4,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
+
+
+def _train_lm_rank(rank: int, cfg: ArchConfig, shape, profile: str,
+                   log_level: str, kw: Dict) -> Dict:
+    """One rank of ``--arch --mesh``: ``train_lm`` under a ``ShardingCtx``
+    of ``profile`` on this group's (data, model) mesh; rank 0's result
+    gains ``mesh``, ``profile`` and every rank's peak memory."""
+    if rank == 0:
+        configure_logging(log_level)
+    ctx = ShardingCtx(make_test_mesh(shape), make_rules(profile))
+    r = train_lm(cfg, ctx=ctx, **kw)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, r["peak_memory_bytes"])
+    r.update(mesh=f"{shape[0]}x{shape[1]}", profile=profile,
+             peak_memory_bytes_per_rank=peaks)
+    return r
 
 
 def train(cfg: SNNConfig, spec: Optional[api.TrainSpec] = None, *,
@@ -195,7 +268,12 @@ def main(argv=None) -> Dict:
     ap.add_argument("--mesh", default="",
                     help="repro_torch.dist mesh string, e.g. 'data=2' or "
                          "bare '2': data-sharded train step over the mesh's "
-                         "entries (with --device cpu, N host entries)")
+                         "entries (with --device cpu, N host entries); "
+                         "with --arch, DxM (data x model, e.g. 2x2): one "
+                         "process per entry")
+    ap.add_argument("--profile", default="tp_fsdp",
+                    choices=sorted(RULE_PROFILES),
+                    help="--arch --mesh: the sharding rules")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=None,
                     help="sequences (--arch, default 4) or frames (default "
@@ -207,17 +285,18 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
     configure_logging(args.log_level)
     if args.arch:
-        if args.mesh:
-            raise ValueError(
-                "--mesh with --arch: the sharded LM (partitioning, "
-                "shard_logical on a mesh) is ROADMAP queue 1, item 14f, "
-                "not ported; train the LM on one device")
         cfg = get_arch(args.arch)
         cfg = cfg if args.full_config else reduced(cfg)
-        r = train_lm(cfg, steps=args.steps, batch=args.batch or 4,
-                     seq=args.seq, seed=args.seed, ckpt_dir=args.ckpt_dir,
-                     checkpoint_every=args.checkpoint_every,
-                     device=args.device)
+        kw = dict(steps=args.steps, batch=args.batch or 4, seq=args.seq,
+                  seed=args.seed, ckpt_dir=args.ckpt_dir,
+                  checkpoint_every=args.checkpoint_every, device=args.device)
+        if args.mesh:
+            shape = parse_lm_mesh(args.mesh)
+            r = spmd.run(_train_lm_rank, shape[0] * shape[1], cfg, shape,
+                         args.profile, args.log_level, kw,
+                         device=args.device, timeout=MESH_TIMEOUT)
+        else:
+            r = train_lm(cfg, **kw)
         log.info("trained %d steps of %dx%d tokens (arch=%s, resumed_from="
                  "%s, failures=%d): loss %s -> %s, median step %.2f ms, "
                  "%.1f trained tokens/s, final save %.2f s, device=%s",

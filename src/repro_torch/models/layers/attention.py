@@ -31,11 +31,29 @@ import torch
 from repro_torch.config import ArchConfig, AttnConfig
 from repro_torch.models.layers.leaves import Leaves, normal
 from repro_torch.models.layers.rope import apply_rope
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import local_body, shard_logical
 
-__all__ = ["Q_CHUNK", "NEG_INF", "Attention", "attend",
+__all__ = ["Q_CHUNK", "NEG_INF", "Attention", "attend", "specs", "cache_specs",
            "apply_train", "init_cache", "apply_prefill", "apply_decode",
            "check_position"]
+
+
+def specs(cfg: ArchConfig) -> Dict:
+    s = {"wq": ("fsdp", "heads", None), "wk": ("fsdp", "kv_heads", None),
+         "wv": ("fsdp", "kv_heads", None), "wo": ("heads", None, "fsdp")}
+    if cfg.attn.qkv_bias:
+        s.update(bq=("heads", None), bk=("kv_heads", None),
+                 bv=("kv_heads", None))
+    return s
+
+
+def cache_specs(cfg: ArchConfig, *, sliding: bool, long_context: bool
+                ) -> Dict:
+    """The seq dim carries ``cache_seq`` (empty by default); sliding ring
+    buffers stay small: only batch and kv heads are sharded."""
+    del long_context
+    spec = ("batch", None if sliding else "cache_seq", "kv_heads", None)
+    return {"k": spec, "v": spec}
 
 Q_CHUNK = 1024
 NEG_INF = -1e30
@@ -156,8 +174,9 @@ def attend(q, k, v, a: AttnConfig, *, causal: bool) -> torch.Tensor:
 def apply_train(params, x: torch.Tensor, cfg: ArchConfig, *,
                 sliding: bool) -> torch.Tensor:
     """Full-sequence forward (training, encoding, the prefill trunk)."""
-    out, _, _ = _full_sequence(params, x, cfg, sliding)
-    return out
+    with local_body(params, x) as b:
+        out, _, _ = _full_sequence(b.params, b.x, cfg, sliding)
+        return b.out(out, ("batch", None, None))
 
 
 def _full_sequence(params, x, cfg: ArchConfig, sliding: bool):
@@ -187,13 +206,25 @@ def apply_decode(params, x: torch.Tensor, cache: Dict,
     integer tensor on x's device).  Writes the token's k/v into ``cache``
     and returns (out (B, 1, d), cache).  An int position past a full
     cache raises; a tensor one is clamped to its last slot, as the
-    reference's ``dynamic_update_slice`` does."""
+    reference's ``dynamic_update_slice`` does.  Under a mesh the body
+    runs on its shards of the heads and the caches (module doc of
+    ``sharding.context``)."""
+    if isinstance(pos, int) and not sliding:
+        check_position(pos, cache["k"].shape[1])
+    with local_body(params, x) as b:
+        local = {n: b.cache_in(cache[n], model_dim=2) for n in ("k", "v")}
+        out = _decode(b.params, b.x, local, pos, cfg, sliding)
+        for n in ("k", "v"):
+            b.cache_out(cache[n], local[n], model_dim=2)
+        return b.out(out, ("batch", None, None)), cache
+
+
+def _decode(params, x: torch.Tensor, cache: Dict, pos, cfg: ArchConfig,
+            sliding: bool) -> torch.Tensor:
     a = cfg.attn
     B = x.shape[0]
     dt = x.dtype
     size = cache["k"].shape[1]
-    if isinstance(pos, int) and not sliding:
-        check_position(pos, size)
     pos_t = torch.as_tensor(pos, device=x.device).reshape(())
     positions = pos_t.to(torch.int32).expand(B, 1)
     q, k_new, v_new = _project_qkv(params, x, a, positions)
@@ -203,7 +234,8 @@ def apply_decode(params, x: torch.Tensor, cache: Dict,
     k = cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
     v = cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
 
-    nkv, hd, nq = a.num_kv_heads, a.head_dim, a.num_q_heads
+    # this body's heads (all of them off a mesh)
+    nkv, hd, nq = k.shape[2], k.shape[3], q.shape[2]
     qg = q.reshape(B, 1, nkv, nq // nkv, hd)
     # ring slots written so far all lie within the window by construction;
     # for full caches this is plain causal validity
@@ -212,7 +244,7 @@ def apply_decode(params, x: torch.Tensor, cache: Dict,
         .to(torch.float32) * hd ** -0.5
     out = _softmax_attend(scores, valid, v.to(dt), dt).reshape(B, 1, nq, hd)
     out = torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(dt))
-    return out, cache
+    return shard_logical(out, ("batch", None, None))
 
 
 def check_position(pos: int, size: int) -> None:
@@ -228,19 +260,24 @@ def apply_prefill(params, x: torch.Tensor, cfg: ArchConfig, *,
     """Forward plus the decode cache: full k/v, or for sliding layers the
     ring of the last ``window`` tokens (when the prompt holds that many)."""
     a = cfg.attn
-    B, S, _ = x.shape
-    out, k, v = _full_sequence(params, x, cfg, sliding)
-    cdt = cache_dtype
-    if sliding and a.window and S >= a.window:
-        w = a.window
-        cache = {"k": torch.roll(k[:, S - w:], S % w, dims=1).to(cdt),
-                 "v": torch.roll(v[:, S - w:], S % w, dims=1).to(cdt)}
-    else:
-        size = max(cache_len, S)
-        cache = {}
-        for name, t in (("k", k), ("v", v)):
-            c = torch.zeros((B, size) + tuple(t.shape[2:]), dtype=cdt,
-                            device=x.device)
-            c[:, :S] = t
-            cache[name] = c
-    return out, cache
+    with local_body(params, x) as b:
+        x = b.x
+        B, S, _ = x.shape
+        out, k, v = _full_sequence(b.params, x, cfg, sliding)
+        cdt = cache_dtype
+        if sliding and a.window and S >= a.window:
+            w = a.window
+            cache = {"k": torch.roll(k[:, S - w:], S % w, dims=1).to(cdt),
+                     "v": torch.roll(v[:, S - w:], S % w, dims=1).to(cdt)}
+        else:
+            size = max(cache_len, S)
+            cache = {}
+            for name, t in (("k", k), ("v", v)):
+                c = torch.zeros((B, size) + tuple(t.shape[2:]), dtype=cdt,
+                                device=x.device)
+                c[:, :S] = t
+                cache[name] = c
+        spec = cache_specs(cfg, sliding=sliding, long_context=False)
+        cache = {n: b.cache_new(c, spec[n], model_dim=2)
+                 for n, c in cache.items()}
+        return b.out(out, ("batch", None, None)), cache

@@ -18,9 +18,20 @@ import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.models.layers.leaves import Leaves, normal
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import lay_out, local_body, shard_logical
 
-__all__ = ["Embedding", "embed", "logits"]
+__all__ = ["Embedding", "embed", "logits", "specs"]
+
+
+def specs(cfg: ArchConfig):
+    s = {}
+    if cfg.frontend in ("tokens", "patches+tokens"):
+        s["tok"] = ("vocab", "fsdp")
+    if cfg.frontend in ("frames", "patches+tokens"):
+        s["front_proj"] = (None, "fsdp")
+    if not cfg.tie_embeddings:
+        s["head"] = ("fsdp", "vocab")
+    return s
 
 
 class Embedding(Leaves):
@@ -52,28 +63,50 @@ class Embedding(Leaves):
 def embed(params, cfg: ArchConfig, tokens=None, frames=None, patches=None
           ) -> torch.Tensor:
     """Returns (B, S_total, d_model) input activations; ``tokens`` are
-    int32 ids, as in the reference."""
+    int32 ids, as in the reference.  Under a mesh, inputs every rank
+    holds whole are laid out over the batch axes first, and a table split
+    over ``model`` (the vocab) is looked up where it lives: each rank
+    gathers its own rows, zeros for ids it does not hold, and the
+    all-reduce over ``model`` sums the one row of each id with zeros."""
     parts = []
     if cfg.frontend == "frames":
-        proj = params["front_proj"]
-        parts.append(frames.to(proj.dtype) @ proj)
+        parts.append(_project(params, lay_out(frames, ("batch", None, None))))
     else:
         if cfg.frontend == "patches+tokens" and patches is not None:
-            proj = params["front_proj"]
-            parts.append(patches.to(proj.dtype) @ proj)
-        # torch indexes with int64: the ids are widened, not changed
-        emb = params["tok"][tokens.long()]
-        if cfg.family == "dense" and cfg.tie_embeddings:
-            emb = emb * _scalar(cfg.d_model ** 0.5, emb.dtype)
-        parts.append(emb)
+            parts.append(_project(params,
+                                  lay_out(patches, ("batch", None, None))))
+        with local_body({"tok": params["tok"]},
+                        lay_out(tokens, ("batch", None))) as b:
+            tok, ids = b.params["tok"], b.x.long()
+            # torch indexes with int64: the ids are widened, not changed
+            if b.model_parallel:
+                lo = b.mesh.get_local_rank("model") * tok.shape[0]
+                ids = ids - lo
+                held = (ids >= 0) & (ids < tok.shape[0])
+                emb = tok[torch.where(held, ids, 0)] * held[..., None]
+            else:
+                emb = tok[ids]
+            if cfg.family == "dense" and cfg.tie_embeddings:
+                emb = emb * _scalar(cfg.d_model ** 0.5, emb.dtype)
+            parts.append(b.out(emb, ("batch", None, None)))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return shard_logical(x, ("batch", "act_seq", None))
 
 
+def _project(params, feats):
+    with local_body({"front_proj": params["front_proj"]}, feats) as b:
+        proj = b.params["front_proj"]
+        return b.out(b.x.to(proj.dtype) @ proj, ("batch", None, None))
+
+
 def logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    w = params["tok"].T if cfg.tie_embeddings else params["head"]
-    out = x @ w.to(x.dtype)
-    return shard_logical(out, ("batch", None, "vocab"))
+    """Under a mesh, a vocab split over ``model`` stays split: each rank's
+    logits are its columns of the vocab."""
+    name = "tok" if cfg.tie_embeddings else "head"
+    with local_body({name: params[name]}, x) as b:
+        w = b.params[name].T if cfg.tie_embeddings else b.params[name]
+        return b.out(b.x @ w.to(b.x.dtype), ("batch", None, "vocab"),
+                     split_dim=2)
 
 
 def _scalar(value: float, dtype: torch.dtype) -> float:

@@ -9,9 +9,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.leaves import Leaves, normal
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import local_body, shard_logical
 
-__all__ = ["SwiGLU", "RWKVChannelMix", "swiglu_apply", "rwkv_cmix_apply"]
+__all__ = ["SwiGLU", "RWKVChannelMix", "swiglu_apply", "rwkv_cmix_apply",
+           "swiglu_specs", "rwkv_cmix_specs"]
+
+
+def swiglu_specs():
+    return {"w_gate": ("fsdp", "ffn"), "w_up": ("fsdp", "ffn"),
+            "w_down": ("ffn", "fsdp")}
+
+
+def rwkv_cmix_specs():
+    return {"mix_k": (None,), "w_k": ("fsdp", "ffn"), "w_v": ("ffn", "fsdp")}
 
 
 class SwiGLU(Leaves):
@@ -51,21 +61,25 @@ class RWKVChannelMix(Leaves):
 
 
 def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:
-    dt = x.dtype
-    h = F.silu(x @ params["w_gate"].to(dt)) * (x @ params["w_up"].to(dt))
-    h = shard_logical(h, ("batch", None, "ffn"))
-    return h @ params["w_down"].to(dt)
+    with local_body(params, x) as b:
+        p, x = b.params, b.x
+        dt = x.dtype
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        h = shard_logical(h, ("batch", None, "ffn"))
+        return b.out(h @ p["w_down"].to(dt), ("batch", None, None))
 
 
 def rwkv_cmix_apply(params, x: torch.Tensor, x_prev=None) -> torch.Tensor:
     """x: (B, S, D); x_prev: (B, 1, D), the last token of the previous
     segment (zeros at the start of a sequence)."""
-    dt = x.dtype
-    if x_prev is None:
-        x_prev = torch.zeros_like(x[:, :1])
-    shifted = torch.cat([x_prev, x[:, :-1]], dim=1)
-    mix = params["mix_k"].to(dt)
-    xk = x * mix + shifted * (1.0 - mix)
-    h = torch.square(torch.relu(xk @ params["w_k"].to(dt)))
-    h = shard_logical(h, ("batch", None, "ffn"))
-    return h @ params["w_v"].to(dt)
+    with local_body(params, x, replicated=("mix_k",)) as b:
+        p, x = b.params, b.x
+        dt = x.dtype
+        x_prev = (torch.zeros_like(x[:, :1]) if x_prev is None
+                  else b.local(x_prev))
+        shifted = torch.cat([x_prev, x[:, :-1]], dim=1)
+        mix = p["mix_k"].to(dt)
+        xk = x * mix + shifted * (1.0 - mix)
+        h = torch.square(torch.relu(xk @ p["w_k"].to(dt)))
+        h = shard_logical(h, ("batch", None, "ffn"))
+        return b.out(h @ p["w_v"].to(dt), ("batch", None, None))

@@ -30,10 +30,22 @@ from torch import nn
 
 from repro_torch.config import ArchConfig
 from repro_torch.models.layers.leaves import Leaves, normal
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import run_replicated, shard_logical
 
 __all__ = ["Mamba", "dt_rank", "chunk_length", "apply_train", "init_cache",
-           "apply_prefill", "apply_decode"]
+           "specs", "cache_specs", "apply_prefill", "apply_decode"]
+
+
+def specs(cfg: ArchConfig) -> Dict:
+    return {"in_proj": ("fsdp", "ffn"), "conv_w": (None, "ffn"),
+            "conv_b": ("ffn",), "x_proj": ("ffn", None),
+            "dt_proj": (None, "ffn"), "dt_bias": ("ffn",),
+            "A_log": ("ffn", None), "D": ("ffn",),
+            "out_proj": ("ffn", "fsdp")}
+
+
+def cache_specs(cfg: ArchConfig, **_) -> Dict:
+    return {"conv": ("batch", None, "ffn"), "ssm": ("batch", "ffn", None)}
 
 
 def dt_rank(cfg: ArchConfig) -> int:
@@ -94,15 +106,19 @@ class Mamba(Leaves):
         self.out_proj = normal((di, d), di ** -0.5, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_train(self, x, self.cfg)
+        return run_replicated(apply_train, self, x, self.cfg)
 
     def prefill(self, x: torch.Tensor, *, cache_len: int = 0,
                 cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-        return apply_prefill(self, x, self.cfg, cache_dtype=cache_dtype)
+        return run_replicated(
+            lambda p, x: apply_prefill(p, x, self.cfg,
+                                       cache_dtype=cache_dtype),
+            self, x, cache_specs=cache_specs(self.cfg))
 
     def decode(self, x: torch.Tensor, cache: Dict, pos=None
                ) -> Tuple[torch.Tensor, Dict]:
-        return apply_decode(self, x, cache, pos, self.cfg)
+        return run_replicated(apply_decode, self, x, pos, self.cfg,
+                              cache=cache)
 
 
 def _ssm_inputs(params, u: torch.Tensor, cfg: ArchConfig):

@@ -28,10 +28,22 @@ from repro_torch.models.layers.attention import NEG_INF, Q_CHUNK, \
     check_position
 from repro_torch.models.layers.leaves import Leaves, normal
 from repro_torch.models.layers.rope import apply_rope
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import run_replicated, shard_logical
 
-__all__ = ["MLA", "apply_train", "init_cache", "apply_prefill",
-           "apply_decode"]
+__all__ = ["MLA", "apply_train", "init_cache", "specs", "cache_specs",
+           "apply_prefill", "apply_decode"]
+
+
+def specs(cfg: ArchConfig) -> Dict:
+    return {"w_dq": ("fsdp", None), "q_norm": {"scale": (None,)},
+            "w_uq": ("fsdp", "heads", None), "w_dkv": ("fsdp", None),
+            "kv_norm": {"scale": (None,)}, "w_uk": ("fsdp", "heads", None),
+            "w_uv": ("fsdp", "heads", None), "wo": ("heads", None, "fsdp")}
+
+
+def cache_specs(cfg: ArchConfig, *, long_context: bool, **_) -> Dict:
+    return {"ckv": ("batch", "cache_seq", None),
+            "k_rope": ("batch", "cache_seq", None)}
 
 
 class MLA(Leaves):
@@ -60,16 +72,19 @@ class MLA(Leaves):
         self.wo = normal((nq, dv, d), (nq * dv) ** -0.5, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_train(self, x, self.cfg)
+        return run_replicated(apply_train, self, x, self.cfg)
 
     def prefill(self, x: torch.Tensor, *, cache_len: int,
                 cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-        return apply_prefill(self, x, self.cfg, cache_len=cache_len,
-                             cache_dtype=cache_dtype)
+        return run_replicated(
+            lambda p, x: apply_prefill(p, x, self.cfg, cache_len=cache_len,
+                                       cache_dtype=cache_dtype),
+            self, x, cache_specs=cache_specs(self.cfg, long_context=False))
 
     def decode(self, x: torch.Tensor, cache: Dict, pos
                ) -> Tuple[torch.Tensor, Dict]:
-        return apply_decode(self, x, cache, pos, self.cfg)
+        return run_replicated(apply_decode, self, x, pos, self.cfg,
+                              cache=cache)
 
 
 def _project_q(params, x: torch.Tensor, a: AttnConfig,

@@ -6,8 +6,17 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers.leaves import Leaves
+from repro_torch.sharding.context import local_body
 
-__all__ = ["RMSNorm", "rms_apply", "ln_apply"]
+__all__ = ["RMSNorm", "rms_apply", "ln_apply", "rms_specs", "ln_specs"]
+
+
+def rms_specs():
+    return {"scale": (None,)}
+
+
+def ln_specs():
+    return {"scale": (None,), "bias": (None,)}
 
 
 def rms_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -37,4 +46,11 @@ class RMSNorm(Leaves):
                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_apply(self, x, self.eps)
+        """Under a mesh, on x's local shards (``local_body``).  x enters
+        the norm through one view on a single device, as ``to_local``
+        hands it to the body on a mesh: the gradients of the norm's three
+        uses of x are summed before the residual's joins them on both, so
+        a group of one keeps the single device's bits."""
+        with local_body(self, x, split_model=False, keep_tokens=True) as b:
+            xl = x.view_as(x) if b.ctx is None else b.x
+            return b.out(rms_apply(b.params, xl, self.eps), None)

@@ -33,10 +33,24 @@ from repro_torch.config import ArchConfig
 from repro_torch.models.layers import norms
 from repro_torch.models.layers.leaves import Leaves, normal
 from repro_torch.models.layers.mamba import chunk_length
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import run_replicated, shard_logical
 
-__all__ = ["RWKV6", "LORA_RANK", "apply_train", "init_cache",
-           "apply_prefill", "apply_decode"]
+__all__ = ["RWKV6", "LORA_RANK", "apply_train", "init_cache", "specs",
+           "cache_specs", "apply_prefill", "apply_decode"]
+
+
+def specs(cfg: ArchConfig) -> Dict:
+    return {"mix": (None, None), "w0": (None,),
+            "w_lora_a": ("fsdp", None), "w_lora_b": (None, "fsdp"),
+            "wr": ("fsdp", "heads", None), "wk": ("fsdp", "heads", None),
+            "wv": ("fsdp", "heads", None), "wg": ("fsdp", "ffn"),
+            "u": ("heads", None), "out_norm": {"scale": (None,)},
+            "wo": ("heads", None, "fsdp")}
+
+
+def cache_specs(cfg: ArchConfig, **_) -> Dict:
+    return {"state": ("batch", "heads", None, None),
+            "shift": ("batch", None, None)}
 
 LORA_RANK = 64
 
@@ -72,15 +86,19 @@ class RWKV6(Leaves):
         self.wo = normal((H, hd, d), s, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_train(self, x, self.cfg)
+        return run_replicated(apply_train, self, x, self.cfg)
 
     def prefill(self, x: torch.Tensor, *, cache_len: int = 0,
                 cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-        return apply_prefill(self, x, self.cfg, cache_dtype=cache_dtype)
+        return run_replicated(
+            lambda p, x: apply_prefill(p, x, self.cfg,
+                                       cache_dtype=cache_dtype),
+            self, x, cache_specs=cache_specs(self.cfg))
 
     def decode(self, x: torch.Tensor, cache: Dict, pos=None
                ) -> Tuple[torch.Tensor, Dict]:
-        return apply_decode(self, x, cache, pos, self.cfg)
+        return run_replicated(apply_decode, self, x, pos, self.cfg,
+                              cache=cache)
 
 
 def _mix_projections(params, x: torch.Tensor, x_prev: torch.Tensor,

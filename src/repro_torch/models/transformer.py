@@ -26,6 +26,13 @@ were built with.
 Parameters are float32 by default, made where ``generator`` lives (the
 card by default: ``device=None`` means ``"cuda"``).  Caches are bfloat16
 by default; decode casts them to the activations' dtype.
+
+Under a ``ShardingCtx`` on a torch mesh the parameters and caches are
+DTensors laid out by ``param_specs`` and ``cache_specs``
+(``sharding.partitioning``), and the three modes run each layer's body on
+its shards (``sharding.context``); inputs that every rank holds whole are
+laid out over the batch axes, and the logits come out split over the
+vocab where the vocab is split over ``model``.
 """
 from __future__ import annotations
 
@@ -41,15 +48,63 @@ from repro_torch.config import (ATTN_FULL, ATTN_MLA, ATTN_SLIDING,
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import attention, embedding, ffn, mamba, \
     mla, moe, norms, rwkv
-from repro_torch.sharding.context import shard_logical
+from repro_torch.sharding.context import current_ctx, mesh_ops, \
+    shard_logical, use_sharding
 
 __all__ = ["Sublayer", "Transformer", "init_params", "forward",
-           "init_caches", "prefill", "decode_step"]
+           "init_caches", "prefill", "decode_step", "param_specs",
+           "cache_specs"]
 
 # each mixer kind's module, whose ``init_cache`` makes its decode cache
 _MIXERS = {ATTN_FULL: attention, ATTN_SLIDING: attention, ATTN_MLA: mla,
            MAMBA: mamba, RWKV6: rwkv}
 _FFNS = (FFN_DENSE, FFN_MOE)
+
+
+def _ffn_specs(cfg: ArchConfig, kind: str) -> Dict:
+    if kind == FFN_MOE:
+        return moe.specs(cfg)
+    return ffn.rwkv_cmix_specs() if cfg.rwkv is not None \
+        else ffn.swiglu_specs()
+
+
+def _flat(tree: Dict, prefix: str, out: Dict) -> Dict:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flat(v, f"{prefix}{k}.", out)
+        else:
+            out[prefix + k] = tuple(v)
+    return out
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, tuple]:
+    """Each parameter's logical spec, keyed by its ``named_parameters``
+    name (the reference's tree, one entry per layer: the stacked layer
+    axis, unsharded there, has no counterpart)."""
+    tree = {"embed": embedding.specs(cfg),
+            "final_norm": norms.rms_specs()}
+    for i, (m, f) in enumerate(cfg.pattern()):
+        _check_kinds(cfg, m, f)
+        tree[f"layers.{i}"] = {"norm1": norms.rms_specs(),
+                               "mixer": _MIXERS[m].specs(cfg),
+                               "norm2": norms.rms_specs(),
+                               "ffn": _ffn_specs(cfg, f)}
+    return _flat(tree, "", {})
+
+
+def cache_specs(cfg: ArchConfig, *, long_context: bool = False
+                ) -> List[Dict]:
+    """The logical specs of ``init_caches``' tree, layer by layer."""
+    out = []
+    for m, f in cfg.pattern():
+        _check_kinds(cfg, m, f)
+        c = {"mixer": _MIXERS[m].cache_specs(
+            cfg, sliding=m == ATTN_SLIDING, long_context=long_context),
+            "ffn": {}}
+        if cfg.rwkv is not None and f == FFN_DENSE:
+            c["ffn"] = {"shift": ("batch", None, None)}
+        out.append(c)
+    return out
 
 
 def _check_kinds(cfg: ArchConfig, mixer_kind: str, ffn_kind: str) -> None:
@@ -143,15 +198,21 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *,
                  generator: Optional[torch.Generator] = None,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, place=None):
+        """``place(prefix, module)``, when given, takes each submodule as
+        soon as it is drawn (``embed``, each layer, ``final_norm``) and
+        returns what the model keeps of it (``sharding.partitioning``
+        lays it out on a mesh)."""
         super().__init__()
         self.cfg = cfg
         kw = dict(generator=generator, dtype=dtype, device=device)
-        self.embed = embedding.Embedding(cfg, **kw)
-        self.layers = nn.ModuleList(Sublayer(cfg, m, f, **kw)
-                                    for m, f in cfg.pattern())
-        self.final_norm = norms.RMSNorm(cfg.d_model, cfg.norm_eps,
-                                        dtype=dtype, device=device)
+        put = place or (lambda prefix, module: module)
+        self.embed = put("embed.", embedding.Embedding(cfg, **kw))
+        self.layers = nn.ModuleList(
+            put(f"layers.{i}.", Sublayer(cfg, m, f, **kw))
+            for i, (m, f) in enumerate(cfg.pattern()))
+        self.final_norm = put("final_norm.", norms.RMSNorm(
+            cfg.d_model, cfg.norm_eps, dtype=dtype, device=device))
         self.groups: List[range] = []
         start = 0
         for repeats, sub in cfg.stage_list():
@@ -179,7 +240,13 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
 
 
 def _run_group(model: Transformer, group: range, x: torch.Tensor,
-               aux: torch.Tensor, cfg: ArchConfig):
+               aux: torch.Tensor, cfg: ArchConfig, ctx=None):
+    """Runs under ``ctx`` (a ``ShardingCtx``, or None): the backward
+    recomputes a checkpointed group in autograd's own thread, which does
+    not see the caller's thread-local context."""
+    if ctx is not None:
+        with use_sharding(ctx), mesh_ops():
+            return _run_group(model, group, x, aux, cfg)
     for i in group:
         x, a = model.layers[i](x, cfg)
         if a is not None:
@@ -195,6 +262,11 @@ def forward(params: Transformer, cfg: ArchConfig, *, tokens=None,
     recording, each repeat's activations are recomputed in the backward
     (``torch.utils.checkpoint``); under ``torch.inference_mode`` it has no
     effect."""
+    with mesh_ops():
+        return _forward(params, cfg, tokens, frames, patches, remat)
+
+
+def _forward(params, cfg, tokens, frames, patches, remat):
     x = embedding.embed(params.embed, cfg, tokens=tokens, frames=frames,
                         patches=patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -202,7 +274,7 @@ def forward(params: Transformer, cfg: ArchConfig, *, tokens=None,
     for group in params.groups:
         if remat:
             x, aux = checkpoint(_run_group, params, group, x, aux, cfg,
-                                use_reentrant=False)
+                                current_ctx(), use_reentrant=False)
         else:
             x, aux = _run_group(params, group, x, aux, cfg)
     x = params.final_norm(x)
@@ -239,6 +311,11 @@ def decode_step(params: Transformer, caches: List[Dict], cfg: ArchConfig, *,
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """token: (B, 1) int32; pos: an int or a 0-d integer tensor.  Writes
     the caches in place; returns (logits (B, 1, V), caches)."""
+    with mesh_ops():
+        return _decode_step(params, caches, cfg, token, pos)
+
+
+def _decode_step(params, caches, cfg, token, pos):
     x = embedding.embed(params.embed, cfg, tokens=token)
     if isinstance(pos, int):
         for (m, _), c in zip(cfg.pattern(), caches):
@@ -263,6 +340,12 @@ def prefill(params: Transformer, cfg: ArchConfig, *, tokens=None,
     decode steps).  ``remat`` is taken for the reference's signature and
     has no effect: a prefill serves, under ``torch.inference_mode``."""
     del remat
+    with mesh_ops():
+        return _prefill(params, cfg, tokens, frames, patches, max_len,
+                        cache_dtype)
+
+
+def _prefill(params, cfg, tokens, frames, patches, max_len, cache_dtype):
     x = embedding.embed(params.embed, cfg, tokens=tokens, frames=frames,
                         patches=patches)
     cache_len = max(max_len, x.shape[1])

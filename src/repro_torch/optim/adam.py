@@ -16,12 +16,23 @@ tensors, its leaves named by ``repro_torch.tree.flatten_with_paths``
 joined by ``.``; m, v and the grads are flat dicts keyed by those names,
 which for the LM are the reference's leaf names
 (``models.layers.leaves.Leaves``).
+
+On a mesh the leaves are DTensors (``sharding.partitioning``): each grad
+laid out as its m and v, the update runs on the local shards, and where
+the moments are split over axes the parameter is not (a profile with an
+``opt`` rule, ZeRO-1) each rank updates its slice of the parameter and
+the slices are all-gathered back into it.  ``global_norm`` counts every
+shard once: a leaf replicated over an axis adds its square sum from one
+coordinate of that axis only, then one all-reduce sums the leaves, so on
+a group of one it is the unsharded norm, bit for bit.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Union
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.tree import flatten_with_paths
 
@@ -94,6 +105,9 @@ def update(grads, state: AdamState, params, *,
                          f"their leaves: {sorted(set(g) ^ set(p))}, "
                          f"{sorted(set(state.m) ^ set(p))}")
     m, v = state.m, state.v
+    gathers = []
+    if any(isinstance(t, DTensor) for t in p.values()):
+        p, g, m, v, gathers = _local_leaves(p, g, m, v)
     step = state.step + 1
     sf = step.to(torch.float32)
     bc1 = 1.0 - b1 ** sf
@@ -152,27 +166,88 @@ def update(grads, state: AdamState, params, *,
                     # a Python lr takes the params' dtype (a weak type)
                     t.sub_(torch.tensor(lr, dtype=t.dtype,
                                         device=t.device) * d)
+    for whole, part in gathers:
+        whole.to_local().copy_(part.redistribute(
+            whole.device_mesh, whole.placements).to_local())
     state.step.copy_(step)
     return params, state
 
 
+def _local_leaves(p, g, m, v):
+    """The local shards of DTensor leaves, each parameter's the slice its
+    moments hold, and [(parameter, its updated slice as a DTensor)] for
+    the parameters that slice is gathered back into."""
+    P, G, M, V, gathers = {}, {}, {}, {}, []
+    for n, w in p.items():
+        mesh = w.device_mesh
+        if tuple(g[n].placements) != tuple(m[n].placements):
+            raise ValueError(f"adam.update: the grad of {n} is laid out "
+                             f"as {g[n].placements}, its moments as "
+                             f"{m[n].placements}")
+        G[n], M[n], V[n] = g[n].to_local(), m[n].to_local(), \
+            v[n].to_local()
+        local = w.to_local()
+        if tuple(w.placements) == tuple(m[n].placements):
+            P[n] = local
+            continue
+        # ZeRO-1: the moments split dims the parameter holds whole
+        part = local
+        for i, (pw, pm) in enumerate(zip(w.placements, m[n].placements)):
+            if pw == pm:
+                continue
+            if not (isinstance(pm, Shard) and not isinstance(pw, Shard)):
+                raise ValueError(f"adam.update: the moments of {n} "
+                                 f"({m[n].placements}) do not refine its "
+                                 f"placements ({w.placements})")
+            k = mesh.size(i)
+            size = part.shape[pm.dim] // k
+            part = part.narrow(pm.dim, mesh.get_local_rank(i) * size, size)
+        P[n] = part
+        gathers.append((w, DTensor.from_local(part, mesh, m[n].placements,
+                                              run_check=False)))
+    return P, G, M, V, gathers
+
+
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32 (0-d)."""
+    """sqrt of the sum of every leaf's squares, in float32 (0-d); DTensor
+    leaves count every shard once (module doc)."""
     leaves = list(flatten_with_paths(grads, ".").values())
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
-                          for t in leaves))
+    if not any(isinstance(t, DTensor) for t in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
+                              for t in leaves))
+    sums = torch.stack([_owned_square_sum(t) for t in leaves])
+    if leaves[0].device_mesh.size() != dist.get_world_size():
+        raise ValueError("adam.global_norm: the mesh is not the whole "
+                         "group")
+    dist.all_reduce(sums)
+    return torch.sqrt(sum(s for s in sums))
+
+
+def _owned_square_sum(t: DTensor) -> torch.Tensor:
+    """This rank's share of ``t``'s square sum: its shard's, or zero where
+    the rank is not the first along an axis that replicates ``t``."""
+    s = torch.sum(torch.square(t.to_local().to(torch.float32)))
+    mesh = t.device_mesh
+    for i, pl in enumerate(t.placements):
+        if not isinstance(pl, Shard) and mesh.get_local_rank(i) != 0:
+            return torch.zeros_like(s)
+    return s
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *,
+                        norm: Optional[torch.Tensor] = None):
     """Scales the grads in place by min(1, max_norm / (norm + 1e-9));
-    returns ``(grads, norm)``, the norm before the scaling."""
-    norm = global_norm(grads)
+    returns ``(grads, norm)``, the norm before the scaling
+    (``global_norm``'s unless given)."""
+    if norm is None:
+        norm = global_norm(grads)
     # a true division: ``max_norm / tensor`` is a reciprocal times max_norm
     scale = torch.clamp(torch.div(
         torch.full((), max_norm, dtype=torch.float32, device=norm.device),
         norm + 1e-9), max=1.0)
-    leaves = list(flatten_with_paths(grads, ".").values())
+    leaves = [t.to_local() if isinstance(t, DTensor) else t
+              for t in flatten_with_paths(grads, ".").values()]
     f32 = [t for t in leaves if t.dtype == torch.float32]
     if f32:
         torch._foreach_mul_(f32, scale)

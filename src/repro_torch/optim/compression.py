@@ -6,19 +6,20 @@ the next (error feedback), so the transmitted sum tracks the true one.
 ``compress``/``decompress`` are the quantizer (symmetric, per tensor;
 round half to even, as ``jnp.round`` does, so ``q`` and ``scale`` equal
 the reference's bit for bit), ``compress_with_error_feedback`` applies
-it with the residual over a tree of grads.  The reference's
-``compressed_psum``, a collective inside ``shard_map``, comes with the
-sharded LM (ROADMAP queue 1, item 14f).
+it with the residual over a tree of grads, and ``compressed_psum`` is an
+int8 all-reduce over a process group (the reference's, inside
+``shard_map``).
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 __all__ = ["EFState", "ef_init", "compress", "decompress",
-           "compress_with_error_feedback"]
+           "compress_with_error_feedback", "compressed_psum"]
 
 
 class EFState(NamedTuple):
@@ -59,3 +60,17 @@ def compress_with_error_feedback(grads, ef: EFState):
         residual.append(corrected - decompress(q, s))
     return (pytree.tree_unflatten(pairs, spec),
             EFState(residual=pytree.tree_unflatten(residual, spec)))
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (default: all), sent
+    as int8.  The ranks agree on one scale (a max all-reduce) before they
+    quantize, and the int8 values are summed as int32, so
+    sum(dequant(q_i)) == dequant(sum(q_i)) exactly."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(torch.amax(torch.abs(xf)), min=1e-12) / 127.0
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, group=group)
+    return total.to(torch.float32) * scale

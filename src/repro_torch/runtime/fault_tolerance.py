@@ -17,6 +17,14 @@ The port's train step writes its state in place, so a step that raises
 must do so before its first write (``models.lm.make_train_step``: every
 failure point precedes ``adam.update``); the state is then the one the
 step was given, as with the reference's functional step.
+
+On a mesh (one process per entry, each running this loop on its shards
+with a ``Checkpointer(mesh=...)``) the step's ranks agree before its first
+write, so a failure on one rank raises on all of them; each then asks the
+checkpointer, whose rank 0 answers for all, for the same latest step, and
+all restore it together (rank 0 reads the file and scatters it).  A rank
+that fails inside a collective leaves the others waiting there, which
+the group's timeout (``dist.spmd``) ends.
 """
 from __future__ import annotations
 

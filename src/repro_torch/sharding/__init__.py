@@ -1,15 +1,14 @@
-"""Logical-axis sharding rules and CBWS placement (the SNN half of the
-reference's ``repro.sharding``).
+"""Logical-axis sharding rules, the LM's placements on a torch mesh and
+CBWS placement (the reference's ``repro.sharding``).
 
-``context`` maps logical axis names (``batch``, ``channels``, ...) onto
-mesh axes; ``cbws_sharding`` carries the CBWS load-balanced placement
-helpers.  The live consumer is ``repro_torch.dist.MeshRunner``, which
-drives the ``batch`` -> ``data`` rule for sharded inference and training.
-``shard_logical`` (called only by LM layers) returns its input when no
-context is active and raises under one; the reference's ``partitioning``
-(param, optimizer and batch shardings of the LM) and ``shard_logical`` on
-a mesh are the LM half of ROADMAP item 11.  ``cbws_sharding`` loads lazily
-(PEP 562), as in the reference.
+``context`` maps logical axis names (``batch``, ``heads``, ...) onto mesh
+axes, turns them into DTensor placements and runs the LM layers' bodies on
+local shards (``shard_logical``, ``local_body``); ``partitioning`` lays
+the LM's parameters, optimizer state, caches and batches out on a mesh;
+``cbws_sharding`` carries the CBWS load-balanced placement helpers.
+``dist.MeshRunner`` drives the ``batch`` -> ``data`` rule for the SNN.
+``partitioning`` and ``cbws_sharding`` load lazily (PEP 562), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -28,6 +27,7 @@ __all__ = [
     "current_ctx",
     "expert_placement",
     "make_rules",
+    "partitioning",
     "placement_balance",
     "shard_logical",
     "snn_channel_permutation",
@@ -35,6 +35,7 @@ __all__ = [
 ]
 
 _LAZY = {
+    "partitioning": "repro_torch.sharding.partitioning",
     "apply_expert_permutation": "repro_torch.sharding.cbws_sharding",
     "expert_placement": "repro_torch.sharding.cbws_sharding",
     "placement_balance": "repro_torch.sharding.cbws_sharding",
@@ -47,4 +48,6 @@ def __getattr__(name):
     if mod is None:
         raise AttributeError(
             f"module 'repro_torch.sharding' has no attribute {name!r}")
+    if mod.endswith("." + name):
+        return importlib.import_module(mod)
     return getattr(importlib.import_module(mod), name)

@@ -3,32 +3,70 @@ reference's ``repro.sharding.context``, without JAX).
 
 Rules map logical axis names (``batch``, ``heads``, ...) onto mesh axes,
 with divisibility checks, so one set of annotations serves every mesh.
-``ShardingCtx`` reads the axis sizes from a ``dist.DeviceMesh`` or from a
-mesh description (a tuple of ``(name, size)`` pairs, or any form
+``ShardingCtx`` reads the axis sizes from a torch
+``torch.distributed.device_mesh.DeviceMesh`` (one process per entry, its
+``mesh_dim_names``), from a ``dist.DeviceMesh`` or from a mesh
+description (a tuple of ``(name, size)`` pairs, or any form
 ``dist.normalize_mesh`` takes); ``pspec`` returns the per-dimension
-entries the reference's ``PartitionSpec`` holds, as a plain tuple.  The
-live consumer is ``dist.MeshRunner``, which shards the batch axis over
-what ``axes_for("batch")`` resolves to.  ``use_sharding`` and
+entries the reference's ``PartitionSpec`` holds, as a plain tuple, and on
+a torch mesh ``placements`` turns them into DTensor placements (the
+counterpart of the reference's ``NamedSharding``).  A dimension split
+over several mesh axes is split in the mesh's order (DTensor's
+convention): the reference's ``("model", "data")`` entry of the
+``ep2d`` experts is model-major there and data-major here, which moves
+experts between cards but changes no result.  ``use_sharding`` and
 ``current_ctx`` thread a context to code below without plumbing it
 through every signature (thread-local, as in the reference).
 
 ``shard_logical`` is what the LM layers call on their activations.  With
-no active context it returns its input, as the reference does.  Under an
-active context the reference applies a GSPMD constraint; torch has none to
-apply, and ignoring the context would hide that the model is not sharded,
-so it raises until the LM half of ROADMAP item 11 (``partitioning``,
-``shard_logical`` on a mesh) is ported.
+no active context it returns its input.  Under one, a DTensor is
+redistributed to the resolved placements (what ``with_sharding_constraint``
+does in the reference), and a plain tensor raises, naming the call site:
+there it would be an activation that silently skips the sharding.
+
+The layers' bodies run on local shards (``local_body``): the activation
+keeps its batch shards, every weight is gathered over the axes that do
+not split the body (FSDP's all-gather, whose backward is a
+reduce-scatter), and where every weight is split over ``model`` the body
+is Megatron's column/row split, its output a partial sum that one
+all-reduce over ``model`` completes (after ``wo``, ``w_down`` and the
+vocab-parallel head).  These collectives are written out on the mesh
+axes' process groups (``local_view``, ``sharding.collectives``), each
+with its transpose as its backward; DTensor stays at the body's edges
+(``to_local`` in, ``from_local`` out, neither of which communicates), so
+the activations between layers, the parameters and the optimizer's state
+are DTensors.  Inside a body ``shard_logical`` returns a plain tensor as
+it is, since the body laid it out.  ``mesh_ops`` lets DTensors and plain
+tensors (positions, masks, constants) meet in one op outside the bodies
+(the residual adds, the loss), the plain ones read as replicated.
+
+The MLA, Mamba and RWKV6 bodies run replicated over ``model``
+(``run_replicated``): each card gathers the mixer's whole weights and
+computes the whole mixer, where the reference splits them over heads or
+``ffn``.  Their FFNs and MoEs are split as every arch's are.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh as TorchMesh
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.dist.mesh import DeviceMesh, normalize_mesh
+from repro_torch.sharding.collectives import all_gather, all_reduce, \
+    reduce_grad
 
 __all__ = ["DEFAULT_RULES", "RULE_PROFILES", "make_rules", "ShardingCtx",
-           "current_ctx", "use_sharding", "shard_logical"]
+           "current_ctx", "use_sharding", "shard_logical", "lay_out",
+           "mesh_ops", "local_body", "Body", "run_replicated",
+           "redistribute", "local_view"]
 
 _state = threading.local()
 
@@ -126,8 +164,12 @@ class ShardingCtx:
     def __init__(self, mesh, rules: Optional[Dict[str, Tuple[str, ...]]]
                  = None):
         self.mesh = mesh
-        axes = mesh.axes if isinstance(mesh, DeviceMesh) \
-            else normalize_mesh(mesh)
+        if isinstance(mesh, TorchMesh):
+            axes = tuple(zip(mesh.mesh_dim_names, mesh.shape))
+        elif isinstance(mesh, DeviceMesh):
+            axes = mesh.axes
+        else:
+            axes = normalize_mesh(mesh)
         if axes is None:
             raise ValueError("ShardingCtx needs a mesh, got None")
         self.axis_sizes: Dict[str, int] = dict(axes)
@@ -172,6 +214,24 @@ class ShardingCtx:
             entries.pop()
         return tuple(entries)
 
+    @property
+    def torch_mesh(self) -> TorchMesh:
+        if not isinstance(self.mesh, TorchMesh):
+            raise TypeError(f"this ShardingCtx holds a {type(self.mesh)}, "
+                            f"not a torch DeviceMesh: it has no placements")
+        return self.mesh
+
+    def placements(self, logical: Sequence[Optional[str]],
+                   dims: Optional[Sequence[int]] = None) -> tuple:
+        """The DTensor placements of ``pspec(logical, dims)``, one per
+        mesh axis (the counterpart of the reference's ``sharding``)."""
+        names = list(self.axis_sizes)
+        out = [Replicate()] * len(names)
+        for i, entry in enumerate(self.pspec(logical, dims)):
+            for a in (entry,) if isinstance(entry, str) else entry or ():
+                out[names.index(a)] = Shard(i)
+        return tuple(out)
+
 
 def current_ctx() -> Optional[ShardingCtx]:
     return getattr(_state, "ctx", None)
@@ -187,14 +247,294 @@ def use_sharding(ctx: Optional[ShardingCtx]):
         _state.ctx = prev
 
 
+def _call_site() -> str:
+    """file:line of the first caller outside this module and contextlib."""
+    f = sys._getframe(1)
+    while f.f_back is not None and f.f_code.co_filename in (
+            __file__, contextlib.__file__):
+        f = f.f_back
+    return f"{f.f_code.co_filename}:{f.f_lineno}"
+
+
+def redistribute(t: DTensor, placements) -> DTensor:
+    """``t`` laid out by ``placements``: ``t`` itself when it already is.
+    Under ``torch.inference_mode`` the redistribution runs outside it,
+    without autograd (torch 2.11's ``redistribute`` fails inside it, on
+    ``aten.detach_``)."""
+    if tuple(t.placements) == tuple(placements):
+        return t
+    if torch.is_inference_mode_enabled():
+        with torch.inference_mode(False), torch.no_grad():
+            return t.redistribute(t.device_mesh, tuple(placements))
+    return t.redistribute(t.device_mesh, tuple(placements))
+
+
+def local_view(t: DTensor, keep: Sequence, varies: Sequence[bool]):
+    """``t``'s local tensor laid out by ``keep`` (one placement a mesh
+    dim: ``t``'s own, or ``Replicate`` where ``t`` is split: gathered),
+    differentiable: its cotangent comes back in ``t``'s layout, summed
+    over the mesh dims along which the computation ``varies``.  The
+    collectives are ``sharding.collectives``' on the mesh dims' groups,
+    innermost dim first (a tensor dim split over several mesh dims is
+    split in the mesh's order); a move they do not cover (a split kept
+    inside one that is gathered, a partial or a new split) goes through
+    DTensor's ``redistribute``."""
+    mesh, src = t.device_mesh, tuple(t.placements)
+    moves = []
+    for i, (p, k) in enumerate(zip(src, keep)):
+        if p == k:
+            continue
+        if not (isinstance(p, Shard) and isinstance(k, Replicate)) or any(
+                keep[j] == p for j in range(i + 1, mesh.ndim)):
+            grad = [k if isinstance(k, Shard) else Partial() if v
+                    else Replicate() for k, v in zip(keep, varies)]
+            return redistribute(t, keep).to_local(grad_placements=grad)
+        moves.append(i)
+    x = t.to_local()
+    for i in reversed(range(mesh.ndim)):
+        if i in moves:
+            x = all_gather(x, mesh.get_group(i), src[i].dim, varies[i])
+        elif varies[i] and isinstance(src[i], Replicate):
+            x = reduce_grad(x, mesh.get_group(i))
+    return x
+
+
 def shard_logical(x, logical: Sequence[Optional[str]]):
-    """``x`` itself when no sharding context is active; under one, raises
-    ``NotImplementedError`` (the LM layers' sharding is not ported)."""
+    """``x`` itself with no active context; under one, a DTensor
+    redistributed to ``placements(logical, x.shape)``; a plain tensor
+    raises ``TypeError`` naming the call site, except inside a
+    ``local_body`` (its shards are laid out by the body)."""
     ctx = current_ctx()
     if ctx is None:
         return x
-    raise NotImplementedError(
-        f"shard_logical{tuple(logical)} under an active ShardingCtx over "
-        f"{ctx.axis_sizes}: the LM half of ROADMAP item 11 (partitioning, "
-        f"shard_logical on a mesh) is not ported; run the LM layers with no "
-        f"sharding context")
+    if isinstance(x, DTensor):
+        return redistribute(x, ctx.placements(logical, x.shape))
+    if getattr(_state, "bodies", 0):
+        return x
+    raise TypeError(
+        f"shard_logical{tuple(logical)} at {_call_site()}: a plain "
+        f"{type(x).__name__} under a ShardingCtx over {ctx.axis_sizes}; "
+        f"under a mesh the activations are DTensors (lay the inputs out "
+        f"with sharding.partitioning)")
+
+
+def lay_out(x: torch.Tensor, logical: Sequence[Optional[str]]):
+    """A plain tensor that every rank holds whole, as a DTensor laid out
+    by ``logical`` under the active context (each rank keeps its own
+    shard: no communication); a DTensor, or no context, passes through."""
+    ctx = current_ctx()
+    if ctx is None or isinstance(x, DTensor):
+        return x
+    return distribute_tensor(x, ctx.torch_mesh,
+                             ctx.placements(logical, x.shape),
+                             src_data_rank=None)
+
+
+_mesh_ops_lock = threading.Lock()
+_mesh_ops_open = []     # the outermost entered implicit_replication
+
+
+@contextlib.contextmanager
+def mesh_ops():
+    """A context in which ops may mix DTensors with plain tensors (read as
+    replicated) under an active torch mesh; nothing otherwise.  DTensor's
+    flag for it is process-wide (the backward's recomputed forwards run
+    in autograd's own threads), so the contexts nest across threads and
+    only the outermost one clears it."""
+    ctx = current_ctx()
+    if ctx is None or not isinstance(ctx.mesh, TorchMesh):
+        yield
+        return
+    with _mesh_ops_lock:
+        if not _mesh_ops_open:
+            cm = implicit_replication()
+            cm.__enter__()
+            _mesh_ops_open.append(cm)
+        _mesh_ops_open.append(None)
+    try:
+        yield
+    finally:
+        with _mesh_ops_lock:
+            _mesh_ops_open.pop()
+            if len(_mesh_ops_open) == 1:
+                _mesh_ops_open.pop().__exit__(None, None, None)
+
+
+def _tree(params, fn):
+    """``fn`` over the leaves of a layer's parameters (a ``Leaves``
+    module, or a dict of tensors and nested groups): a nested dict."""
+    if isinstance(params, nn.Module):
+        items = list(params._parameters.items()) \
+            + list(params._modules.items())
+    else:
+        items = list(params.items())
+    return {k: _tree(v, fn) if isinstance(v, (nn.Module, Mapping))
+            else fn(v) for k, v in items if v is not None}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+class Body:
+    """A layer body's local view: ``params`` (a nested dict of local
+    tensors) and ``x``, the activation's local shard.  With no context
+    both are what was given and ``out`` returns its argument."""
+
+    def __init__(self, params, x, ctx: Optional[ShardingCtx] = None, *,
+                 split_model: bool = True, keep_batch: bool = True,
+                 keep_tokens: bool = False, replicated: Sequence[str] = ()):
+        self.ctx = ctx
+        if ctx is None:
+            self.params, self.x, self.model_parallel = params, x, False
+            return
+        if not isinstance(x, DTensor):
+            raise TypeError(
+                f"a layer body at {_call_site()} got a plain "
+                f"{type(x).__name__} under a ShardingCtx over "
+                f"{ctx.axis_sizes}: under a mesh the activations are "
+                f"DTensors")
+        mesh = self.mesh = x.device_mesh
+        names = mesh.mesh_dim_names
+        self.mdim = names.index("model") if "model" in names else None
+        # the activation keeps its batch shards (with ``keep_tokens``,
+        # every shard but the features'); all else is gathered
+        last = x.ndim - 1 if keep_tokens else 1
+        self.layout = tuple(
+            p if keep_batch and isinstance(p, Shard) and p.dim < last
+            else Replicate() for p in x.placements)
+        params = _tree(params, lambda t: t)
+        md = self.mdim
+        self.model_parallel = bool(
+            split_model and md is not None
+            and not isinstance(self.layout[md], Shard)
+            and all(isinstance(t, DTensor) and isinstance(t.placements[md],
+                                                          Shard)
+                    for t in _leaves({k: v for k, v in params.items()
+                                      if k not in replicated})))
+        self.params = _tree(params, self._weight)
+        self.x = self.local(x)
+
+    def _varies(self, i: int) -> bool:
+        """Whether the body computes different things along mesh dim i."""
+        return isinstance(self.layout[i], Shard) or (
+            self.model_parallel and i == self.mdim)
+
+    def _weight(self, w):
+        if not isinstance(w, DTensor):
+            return w
+        md = self.mdim
+        keep = [w.placements[i] if self.model_parallel and i == md
+                else Replicate() for i in range(self.mesh.ndim)]
+        return local_view(w, keep, [self._varies(i)
+                                    for i in range(self.mesh.ndim)])
+
+    def local(self, t):
+        """Another activation of x's layout (an RWKV shift), local."""
+        if self.ctx is None:
+            return t
+        return local_view(t, self.layout, [
+            self.model_parallel and i == self.mdim
+            for i in range(self.mesh.ndim)])
+
+    def _model_layout(self, dim: Optional[int]):
+        """x's layout, with the model dim split at ``dim`` (None: not
+        split)."""
+        pl = list(self.layout)
+        if self.model_parallel and dim is not None:
+            pl[self.mdim] = Shard(dim)
+        return pl
+
+    def out(self, y, logical: Optional[Sequence[Optional[str]]], *,
+            split_dim: Optional[int] = None):
+        """The body's local output ``y`` as a DTensor, redistributed to
+        ``logical`` (None: left in x's layout).  ``split_dim``: the dim a
+        model-parallel body splits (a column-parallel output); without it
+        a model-parallel output is a partial sum over ``model``
+        (row-parallel), completed here."""
+        if self.ctx is None:
+            return y
+        if self.model_parallel and split_dim is None:
+            y = all_reduce(y, self.mesh.get_group(self.mdim))
+        t = DTensor.from_local(y, self.mesh, self._model_layout(split_dim),
+                               run_check=False)
+        return t if logical is None else shard_logical(t, logical)
+
+    def cache_in(self, c, model_dim: Optional[int] = None):
+        """A cache DTensor in the body's layout, local: its own storage
+        when the layouts agree (written in place), else a copy for
+        ``cache_out`` to write back."""
+        if self.ctx is None:
+            return c
+        return redistribute(c, self._model_layout(model_dim)).to_local()
+
+    def cache_out(self, c, local, model_dim: Optional[int] = None) -> None:
+        """Write a ``cache_in`` copy back into the cache's own shard."""
+        if self.ctx is None or tuple(c.placements) == tuple(
+                self._model_layout(model_dim)):
+            return
+        t = DTensor.from_local(local, self.mesh,
+                               self._model_layout(model_dim),
+                               run_check=False)
+        c.to_local().copy_(redistribute(t, c.placements).to_local())
+
+    def cache_new(self, local, logical: Sequence[Optional[str]],
+                  model_dim: Optional[int] = None):
+        """A new cache from its local part, laid out by ``logical``."""
+        if self.ctx is None:
+            return local
+        t = DTensor.from_local(local.contiguous(), self.mesh,
+                               self._model_layout(model_dim),
+                               run_check=False)
+        return shard_logical(t, logical)
+
+
+@contextlib.contextmanager
+def local_body(params, x, *, split_model: bool = True,
+               keep_batch: bool = True, keep_tokens: bool = False,
+               replicated: Sequence[str] = ()):
+    """The ``Body`` of a layer's ``params`` on activation ``x`` under the
+    active context (module doc).  The body splits over ``model`` when
+    every weight but those named in ``replicated`` is split there;
+    ``split_model=False`` gathers every weight (the body is replicated
+    over ``model``), ``keep_batch=False`` also gathers the batch and
+    ``keep_tokens`` keeps every split but the last dim's (a per-token
+    body: a norm).  Inside another body a plain ``x`` is already local:
+    the body is its own (no context)."""
+    ctx = current_ctx()
+    if getattr(_state, "bodies", 0) and not isinstance(x, DTensor):
+        ctx = None
+    body = Body(params, x, ctx, split_model=split_model,
+                keep_batch=keep_batch, keep_tokens=keep_tokens,
+                replicated=replicated)
+    _state.bodies = getattr(_state, "bodies", 0) + 1
+    try:
+        yield body
+    finally:
+        _state.bodies -= 1
+
+
+def run_replicated(fn, params, x, *args, cache: Optional[Dict] = None,
+                   cache_specs: Optional[Dict] = None):
+    """A mixer step ``fn`` on local shards, replicated over ``model`` (its
+    weights gathered; the MLA, Mamba and RWKV6 bodies): ``fn(params, x,
+    *args)`` returns the output (train), with ``cache_specs`` ``(output,
+    cache)`` whose cache is laid out by them (prefill), and with ``cache``
+    ``fn(params, x, cache, *args)`` updates the cache in place (decode).
+    Returns the output, or ``(output, cache)``."""
+    with local_body(params, x, split_model=False) as b:
+        if cache is not None:
+            local = {n: b.cache_in(c) for n, c in cache.items()}
+            out, _ = fn(b.params, b.x, local, *args)
+            for n, c in cache.items():
+                b.cache_out(c, local[n])
+            return b.out(out, ("batch", None, None)), cache
+        if cache_specs is not None:
+            out, c = fn(b.params, b.x, *args)
+            return b.out(out, ("batch", None, None)), {
+                n: b.cache_new(t, cache_specs[n]) for n, t in c.items()}
+        return b.out(fn(b.params, b.x, *args), ("batch", None, None))

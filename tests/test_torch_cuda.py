@@ -1299,3 +1299,20 @@ def test_prefetcher_puts_batches_on_the_card(card):
         for k in h:
             assert g[k].device.type == "cuda"
             assert torch.equal(g[k].cpu(), torch.from_numpy(h[k]))
+
+
+@pytest.mark.cuda
+def test_lm_on_a_mesh_of_one_card_equals_one_device(card):
+    """Phase ``lm_mesh`` (a) of ``chip_smoke.py`` in small form: reduced
+    qwen2.5-3b on a data=1 x model=1 mesh over a real NCCL group of one
+    (a spawned process), under ``serve`` and ``tp_fsdp``, against the
+    same weights unsharded: the leaf-by-leaf init, a prefill and 4 decode
+    steps' logits and 3 train steps' losses, bit for bit."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    from _rendezvous import group_of_one
+    from repro_torch.dist import spmd
+    got = spmd.run(group_of_one, 1, "qwen2.5-3b", "cuda", device="cuda",
+                   timeout=300)
+    assert got and all(got.values()), got

@@ -119,11 +119,16 @@ def test_shard_logical_raises_under_a_context():
         cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int32)
     with use_sharding(ShardingCtx((("data", 1),))):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # a plain tensor under a context: an activation that would skip
+        # the sharding; the message names this call site
+        with pytest.raises(TypeError, match=r"test_torch_lm_config\.py:\d+: "
+                           r"a plain Tensor under a ShardingCtx"):
             shard_logical(torch.ones(2), ("batch",))
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # a context on a mesh description has no placements to lay the
+        # LM's inputs out by
+        with pytest.raises(TypeError, match="not a torch DeviceMesh"):
             embedding.embed(model.embed, cfg, tokens=tokens)
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(TypeError, match="not a torch DeviceMesh"):
             transformer.forward(model, cfg, tokens=tokens)
     transformer.forward(model, cfg, tokens=tokens)
 

@@ -19,6 +19,7 @@ import torch
 
 from _lm_parity import (AUX_RTOL, TOL, aux_sums_match, cfgs, close,
                         load_leaves, quiet_logging, t)
+from _rendezvous import moe_route_check, run_ranks
 from repro.config import get_arch as jx_get_arch
 from repro.models.layers import moe as jx_moe
 from repro_torch.config import get_arch, reduced
@@ -157,13 +158,37 @@ def test_forward_sums_the_aux_losses():
 
 
 def test_apply_raises_under_a_sharding_context():
+    """Under a ``ShardingCtx`` on a torch mesh (two gloo processes, data 1
+    x model 2, ``tp_fsdp``) ``apply`` takes the sharded route
+    (``_apply_sharded``; ``test_torch_sharded.py`` holds both routes to
+    the reference's) and, at a capacity where nothing drops, computes
+    ``apply_local``'s function; on a mesh description it has no
+    placements and raises."""
     jcfg, cfg = _cfgs()
-    _, tp = _layer(jcfg, cfg)
-    x = t(_tokens(cfg.d_model, (1, 4), 6, 0.0))
-    with use_sharding(ShardingCtx((("data", 1),))):
-        with pytest.raises(NotImplementedError, match="item 14f"):
-            moe.apply(tp, x, cfg)
-    moe.apply(tp, x, cfg)
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, capacity_factor=8.0))
+    jp = jax.tree.map(np.asarray, jx_moe.init(jax.random.PRNGKey(1), jcfg))
+    x = _tokens(cfg.d_model, (2, 8), 2, 0.0)
+    calls, got = run_ranks(moe_route_check, _flat(jp), x, n=2)
+    assert calls == ["_apply_sharded"]
+    want, _ = jx_moe.apply_local(jax.tree.map(jnp.asarray, jp),
+                                 jnp.asarray(x), jcfg)
+    close(got, np.asarray(want))
+    _, tp = _layer(*_cfgs())
+    with use_sharding(ShardingCtx((("data", 1), ("model", 1)))):
+        with pytest.raises(TypeError, match="DTensors"):
+            moe.apply(tp, t(x), cfg)
+    moe.apply(tp, t(x), cfg)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
 
 
 def test_recorded_routes_give_each_calls_routing():

@@ -217,10 +217,20 @@ def test_launcher_arch_path_equals_the_raw_loop_and_resumes(
     assert len(r2["losses"]) == 2 and np.isfinite(r2["losses"]).all()
 
 
-def test_launcher_arch_refuses_mesh_and_keeps_snn_defaults(quiet_logging):
-    with pytest.raises(ValueError, match="14f"):
+def test_launcher_arch_refuses_mesh_and_keeps_snn_defaults(quiet_logging,
+                                                          tmp_path):
+    """``--arch`` refuses the SNN's ``data=2`` mesh form and runs the DxM
+    one (data 1 x model 2: two gloo processes); the SNN keeps its
+    defaults."""
+    with pytest.raises(ValueError, match="DxM"):
         train_launcher.main(["--arch", "qwen2.5-3b", "--device", "cpu",
                              "--mesh", "data=2", "--log-level", "error"])
+    r = train_launcher.main(["--arch", "qwen2.5-3b", "--device", "cpu",
+                             "--mesh", "1x2", "--steps", "1", "--batch", "2",
+                             "--seq", "8", "--ckpt-dir", str(tmp_path),
+                             "--log-level", "error"])
+    assert r["mesh"] == "1x2" and r["profile"] == "tp_fsdp"
+    assert r["steps_done"] == 1 and np.isfinite(r["losses"]).all()
     r = train_launcher.main(["--device", "cpu", "--steps", "1", "--batch",
                              "4", "--log-level", "error"])
     assert r["batch"] == 4 and len(r["losses"]) == 1
