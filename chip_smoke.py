@@ -224,6 +224,21 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           a checkpoint round trip into their own storage.  (d)
           ``Prefetcher(device="cuda")``: batches in order, equal to
           ``token_batches``' bits
+  dryrun  the LM accounting (``launch/cells.py``, ``dryrun.py``,
+          ``comm_analysis.py``; host-side, on ``meta`` tensors): (a)
+          qwen2.5-3b x train_4k on the production mesh (data=16,
+          model=16) as rank 0 of a fake group of 256, in two processes
+          of their own (``python -m repro_torch.launch.dryrun``, each
+          within ``DRYRUN_TIMEOUT``), one mesh typed ``cpu``, one
+          ``cuda``: both end ``ok`` with equal collectives, FLOPs and
+          memory, and the record is printed; (b) phase ``lm_train``'s
+          configuration (qwen2.5-3b whole, float32 params and moments,
+          batch 4, seq 256, remat) traced on one device: its argument
+          bytes equal the live state's and batch's on the card exactly,
+          its peak lies within ``DRYRUN_PEAK_BAND`` of the card's peak
+          over two raw train steps (``max_memory_allocated`` less what the
+          process held before), and its counted FLOPs over
+          ``counting.step_flops``
   lm_mesh  the sharded LM (``sharding.partitioning``, the bodies on
           local shards, ``dist.spmd``; no SNN kernel launches): (a)
           qwen2.5-3b at full width, 2 layers, on a mesh data=1 x model=1
@@ -3384,6 +3399,120 @@ def phase_lm_train(smi: str):
     emit("lm_train", part="phase", seconds=time.perf_counter() - t_phase)
 
 
+DRYRUN_CELL = ("qwen2.5-3b", "train_4k")
+DRYRUN_TIMEOUT = 300      # seconds a dry-run subprocess may take
+DRYRUN_PEAK_BAND = 0.2    # the traced peak against the card's, relative
+
+
+def _dryrun_cli(mesh_device: str):
+    """``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` (256
+    fake ranks, in its own process), its mesh typed ``mesh_device``."""
+    import os
+    arch, shape = DRYRUN_CELL
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh-device", mesh_device,
+         "--log-level", "error"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_record(proc, mesh_device: str):
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dryrun: the {mesh_device} mesh's dry run took more than "
+             f"{DRYRUN_TIMEOUT} s")
+    if proc.returncode:
+        fail(f"dryrun: the {mesh_device} mesh's dry run exited "
+             f"{proc.returncode}: {err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    if rec["status"] != "ok":
+        fail(f"dryrun: {DRYRUN_CELL} on the {mesh_device} mesh ended "
+             f"{rec['status']}: {rec.get('error')}")
+    return rec
+
+
+def phase_dryrun(smi: str):
+    """The LM accounting (module doc, phase ``dryrun``): host-side traces
+    on ``meta`` tensors, and one card measurement to hold them to."""
+    import torch
+    from repro_torch.config import ShapeConfig, get_arch
+    from repro_torch.launch import cells
+    from repro_torch.models import counting, lm
+    t_phase = time.perf_counter()
+    reset_counts()
+    # (a) a production cell at 256 fake ranks, on a cpu- and a cuda-typed
+    # mesh, side by side with (b)
+    procs = {kind: _dryrun_cli(kind) for kind in ("cpu", "cuda")}
+    # (b) phase lm_train's configuration on one device, traced ...
+    cfg = get_arch(LM_TRAIN_ARCH)
+    r = LM_TRAIN
+    shape = ShapeConfig("lm_train", r["seq"], r["batch"], "train")
+    prog = cells.build_cell(cfg, shape, None, param_dtype=torch.float32,
+                            opt_dtype=torch.float32, remat=True)
+    tr = prog.trace()
+    analytic = counting.step_flops(cfg, shape)["train"]
+    # ... and its steps on the card: the state's bytes and the peak of
+    # two raw train steps, less what the process held before
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = lm.init_train_state(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    tensors = (list(state.params.parameters()) + [state.opt.step]
+               + list(state.opt.m.values()) + list(state.opt.v.values()))
+    live_state = sum(t.numel() * t.element_size() for t in tensors)
+    b = _train_batch(cfg, r["batch"], r["seq"], SEED + 2)
+    live_batch = sum(t.numel() * t.element_size() for t in b.values())
+    step = lm.make_train_step(cfg, total_steps=100)
+    peaks = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, b)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+    card_peak = max(peaks)
+    del state, b, step, tensors
+    torch.cuda.empty_cache()
+    state_bytes, batch_bytes = tr.bytes_by_argument
+    rel = (tr.peak_bytes - card_peak) / card_peak
+    emit("dryrun", part=f"(b) {LM_TRAIN_ARCH} whole, float32 params and "
+         f"moments, batch {r['batch']}, seq {r['seq']}, remat, one device: "
+         f"the meta trace against the card", traced_state_bytes=state_bytes,
+         live_state_bytes=live_state, traced_batch_bytes=batch_bytes,
+         live_batch_bytes=live_batch, traced_peak_bytes=tr.peak_bytes,
+         card_peak_bytes=card_peak, card_step_peaks=peaks,
+         peak_rel_diff=rel, band=DRYRUN_PEAK_BAND,
+         traced_output_bytes=tr.output_bytes, counted_flops=tr.flops,
+         analytic_flops=analytic, counted_over_analytic=tr.flops / analytic,
+         trace_seconds=tr.seconds, nvidia_smi=smi)
+    if state_bytes != live_state or batch_bytes != live_batch:
+        fail(f"dryrun: traced argument bytes {state_bytes} + {batch_bytes} "
+             f"against the live state's {live_state} and batch's "
+             f"{live_batch}")
+    if abs(rel) > DRYRUN_PEAK_BAND:
+        fail(f"dryrun: the traced peak {tr.peak_bytes} B is {rel:+.1%} of "
+             f"the card's {card_peak} B (band {DRYRUN_PEAK_BAND:.0%})")
+    if tr.events:
+        fail(f"dryrun: one device issued {len(tr.events)} collectives")
+    recs = {kind: _dryrun_record(p, kind) for kind, p in procs.items()}
+    cpu, cuda = recs["cpu"], recs["cuda"]
+    emit("dryrun", part=f"(a) {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]}, 256 "
+         f"fake ranks, cuda-typed mesh", record=cuda,
+         cpu_mesh_trace_s=cpu["trace_s"])
+    for key in ("collectives", "cost", "memory"):
+        if cpu[key] != cuda[key]:
+            fail(f"dryrun: the cuda-typed mesh's {key} differ from the "
+                 f"cpu-typed mesh's: {cuda[key]} against {cpu[key]}")
+    counts = {k: v for k, v in read_counts().items() if v}
+    if counts:
+        fail(f"dryrun: the dry run launched SNN kernels {counts}")
+    emit("dryrun", part="phase", seconds=time.perf_counter() - t_phase)
+
+
 LM_MESH_ARCH = "qwen2.5-3b"
 LM_MESH = dict(batch=4, prompt=64, new=8, steps=3, seq=64)
 LM_MESH_TOL = 1e-6       # where the group of one's bits differ (module doc)
@@ -3701,6 +3830,7 @@ def main() -> int:
     # the LM substrate's serving path and its training (no SNN kernel)
     phase_lm()
     phase_lm_train(smi)
+    phase_dryrun(smi)
     phase_lm_mesh()
     kernels = []
     csrc, tpu = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"

@@ -12,19 +12,22 @@ e.g. ``{"data": 4}``) into execution on several devices:
   * ``placement``: CBWS device placement (Skydiver's SPE assignment at
     mesh-device granularity) for the serving engine's pinned lanes;
   * ``spmd``: one process per mesh entry for the sharded LM (``run``),
-    and ``mesh.make_test_mesh``, the torch ``DeviceMesh`` of its group.
+    and ``mesh.make_test_mesh``, the torch ``DeviceMesh`` of its group;
+  * ``mesh.make_production_mesh``: the reference's 256- and 512-rank
+    meshes over the default group (``launch.dryrun`` traces them on
+    ``meta`` tensors under a fake group of that size).
 
 ``MeshRunner``, the placement helpers and ``spmd`` load lazily (PEP 562),
 so spec validation (``normalize_mesh``) stays importable without the
 model code.  The reference's ``host_device_env`` and ``HOST_DEVICE_FLAG``
-have no counterpart (torch needs no flag for host entries); its
-256-chip ``make_production_mesh`` is ROADMAP item 14g's.
+have no counterpart (torch needs no flag for host entries).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.dist.mesh import (DeviceMesh, MeshAxes, make_test_mesh,
+from repro_torch.dist.mesh import (DeviceMesh, MeshAxes,
+                                   make_production_mesh, make_test_mesh,
                                    mesh_str, normalize_mesh, parse_mesh)
 
 __all__ = [
@@ -35,6 +38,7 @@ __all__ = [
     "assignment_balance",
     "device_placement",
     "fifo_placement",
+    "make_production_mesh",
     "make_test_mesh",
     "mesh_str",
     "normalize_mesh",

@@ -18,12 +18,13 @@ one level up the hardware.
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["MeshAxes", "parse_mesh", "normalize_mesh", "mesh_str",
-           "DeviceMesh", "make_test_mesh"]
+           "DeviceMesh", "make_production_mesh", "make_test_mesh"]
 
 MeshAxes = Tuple[Tuple[str, int], ...]
 
@@ -187,6 +188,33 @@ class DeviceMesh:
 
     def __repr__(self) -> str:
         return f"DeviceMesh({mesh_str(self.axes)}, devices={self.num_devices})"
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
+    """The torch ``DeviceMesh`` of the current default group at the
+    reference's production size: single pod (data=16, model=16), 256
+    ranks; multi-pod (pod=2, data=16, model=16), 512 ranks, ``pod`` the
+    data-parallel axis across pods.  A group of another size raises,
+    naming the size it needs; no smaller mesh is built.  ``device_type``:
+    the mesh's (default as ``make_test_mesh``: ``cuda`` under ``nccl``,
+    else ``cpu``); a ``fake`` group of that size (``launch.dryrun``)
+    serves for tracing on ``meta`` tensors."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise ValueError(
+            f"make_production_mesh(multi_pod={multi_pod}) needs a default "
+            f"process group of {need} ranks, "
+            + ("none is initialised" if have is None else f"this one has "
+               f"{have}"))
+    kind = device_type or ("cuda" if dist.get_backend() == "nccl"
+                           else "cpu")
+    return init_device_mesh(kind, shape, mesh_dim_names=axes)
 
 
 def make_test_mesh(shape: Sequence[int] = (2, 2),

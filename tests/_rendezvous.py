@@ -542,3 +542,29 @@ def group_of_one(rank, arch, device):
             got["whole"][0], got["mesh"][0]))
         out[f"{profile} losses"] = got["whole"][1] == got["mesh"][1]
     return out
+
+
+# ----------------------------------------------------------- the dry run
+def dryrun_ranks(rank, inputs):
+    """``test_torch_dryrun.py``'s real run: reduced qwen2.5-3b's train
+    step on the 2x2 mesh of four gloo ranks under each profile, traced by
+    ``comm_analysis.Recorder`` through ``CellProgram.trace`` (rank 0's
+    collective events in order, FLOPs, argument bytes), from a state
+    drawn on rank 0 and a batch every rank holds whole."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.launch.cells import CellProgram
+    from repro_torch.models import lm
+    from repro_torch.sharding import partitioning
+    cfg = reduced(get_arch("qwen2.5-3b"))
+    out = {}
+    for profile in inputs["profiles"]:
+        ctx = _mesh_ctx(profile)
+        gen = torch.Generator().manual_seed(0) if rank == 0 else None
+        state = partitioning.init_train_state(
+            ctx, gen, cfg, torch.bfloat16, torch.float32, device="cpu")
+        batch = partitioning.shard_batch(ctx, _batch(inputs["batch"]))
+        tr = CellProgram("train_step", lm.make_train_step(cfg),
+                         (state, batch), None, None, ctx=ctx).trace()
+        out[profile] = {"events": list(tr.events), "flops": tr.flops,
+                        "argument_bytes": tr.argument_bytes}
+    return out
