@@ -251,6 +251,10 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           decode step's ms, device ms and launches, sharded and not, and
           peak memory; then the train launcher's ``--mesh 1x1`` (reduced,
           its rank spawned on NCCL) against its one-device losses; (b)
+          the split mixers' code on the same group: jamba-v0.1-52b (its
+          first two layers: Mamba with a dense FFN and with the MoE) and
+          rwkv6-7b at full width, 2 layers, the same prefill and decode
+          steps and 3 raw train steps, bit for bit the same way; (c)
           with two or more cards, ``--mesh 1x2`` and ``2x1`` within 1e-5
 
 then the card's name and power limit as nvidia-smi gives them, the
@@ -3515,6 +3519,8 @@ def phase_dryrun(smi: str):
 
 LM_MESH_ARCH = "qwen2.5-3b"
 LM_MESH = dict(batch=4, prompt=64, new=8, steps=3, seq=64)
+# the split mixers on the group of one: Mamba (with jamba's MoE) and RWKV6
+LM_MESH_MIXERS = ("jamba-v0.1-52b", "rwkv6-7b")
 LM_MESH_TOL = 1e-6       # where the group of one's bits differ (module doc)
 
 
@@ -3645,6 +3651,37 @@ def _lm_mesh_train(cfg, ctx):
             "step_launches": {k: v[1] for k, v in prof.items()}, **kw}
 
 
+def _lm_mesh_train_bits(cfg, ctx):
+    """(b) ``LM_MESH["steps"]`` raw train steps of the whole model and of
+    its group-of-one layout from one generator: the losses and whether
+    they are equal bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.sharding import partitioning
+    from repro_torch.sharding.context import use_sharding
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_MESH["batch"], LM_MESH["seq"] + 1),
+        dtype=np.int32)).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].long()}
+    losses = {}
+    for name, c in (("whole", None), ("mesh", ctx)):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        state = (lm.init_train_state(g, cfg, device="cuda") if c is None
+                 else partitioning.init_train_state(c, g, cfg,
+                                                    device="cuda"))
+        step = lm.make_train_step(cfg)
+        with use_sharding(c):
+            losses[name] = [float(step(state, batch)[1]["loss"])
+                            for _ in range(LM_MESH["steps"])]
+        del state, step
+        torch.cuda.empty_cache()
+    w, m = losses["whole"], losses["mesh"]
+    return {"losses": losses, "bit_equal": w == m,
+            "max_loss_err": max(abs(a - b) / max(1.0, abs(b))
+                                for a, b in zip(m, w))}
+
+
 def _lm_mesh_step_profile(cfg, ctx):
     """(device ms, launches) of one train step (after a warm one), the
     profiler's, on the whole model or its layout under ``ctx``."""
@@ -3698,9 +3735,13 @@ def phase_lm_mesh():
     against the unsharded path on the same weights, bit for bit (a
     difference is named by its first tensor and held to
     ``LM_MESH_TOL`` x max(1, |ref|)); the launcher's ``--mesh 1x1``
-    through its spawned rank; (b) with two or more cards, the launcher
-    on 1x2 and 2x1 within the LM tolerance 1e-5; (c) each record's
-    launches, device ms and peak memory.  No SNN kernel runs in it."""
+    through its spawned rank; (b) the split mixers' code on the same
+    group: jamba-v0.1-52b (Mamba, MoE) and rwkv6-7b at full width, 2
+    layers, their prefill, decode steps and 3 raw train steps against
+    the unsharded path, bit for bit the same way; (c) with two or more
+    cards, the launcher on 1x2 and 2x1 within the LM tolerance 1e-5;
+    (d) each record's launches, device ms and peak memory.  No SNN
+    kernel runs in it."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -3730,14 +3771,36 @@ def phase_lm_mesh():
         emit("lm_mesh", part="(a) train_lm, 1x1 tp_fsdp against one "
              "device", arch=cfg.name, seconds=time.perf_counter() - t0,
              **train)
+        checks = [(cfg.name, "serve", serve["first_difference"]),
+                  (cfg.name, "train", None if train["bit_equal"] else
+                   ("losses", train["max_loss_err"]))]
+        del serve, train
+        for arch in LM_MESH_MIXERS:
+            full = get_arch(arch)
+            mcfg = _cut(full, full.pattern()[:2])
+            t0 = time.perf_counter()
+            r = _lm_mesh_serve(mcfg, ShardingCtx(mesh, make_rules("serve")))
+            emit("lm_mesh", part="(b) prefill and decode, 1x1 serve "
+                 "against one device", arch=mcfg.name,
+                 layers=mcfg.num_layers, kinds=list(mcfg.pattern()),
+                 seconds=time.perf_counter() - t0, **r)
+            checks.append((arch, "serve", r["first_difference"]))
+            t0 = time.perf_counter()
+            r = _lm_mesh_train_bits(mcfg, ShardingCtx(mesh, make_rules(
+                "tp_fsdp")))
+            emit("lm_mesh", part="(b) train steps, 1x1 tp_fsdp against "
+                 "one device", arch=mcfg.name,
+                 seconds=time.perf_counter() - t0, **r)
+            checks.append((arch, "train", None if r["bit_equal"] else
+                           ("losses", r["max_loss_err"])))
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    for what, r, err in (("serve", serve, serve["first_difference"]),
-                         ("train", train, None if train["bit_equal"] else
-                          ("losses", train["max_loss_err"]))):
+    for arch, what, err in checks:
         if err is not None and err[1] > LM_MESH_TOL:
-            fail(f"lm_mesh: the group of one's {what} differs from one "
-                 f"device at {err[0]} by {err[1]} > {LM_MESH_TOL}")
+            fail(f"lm_mesh: the group of one's {what} of {arch} differs "
+                 f"from one device at {err[0]} by {err[1]} > "
+                 f"{LM_MESH_TOL}")
     t0 = time.perf_counter()
     launcher = _lm_mesh_launcher("1x1")
     emit("lm_mesh", part="(a) the launcher --mesh 1x1 (reduced, spawned "
@@ -3750,13 +3813,13 @@ def phase_lm_mesh():
         for shape in ("1x2", "2x1"):
             t0 = time.perf_counter()
             r = _lm_mesh_launcher(shape)
-            emit("lm_mesh", part=f"(b) the launcher --mesh {shape}",
+            emit("lm_mesh", part=f"(c) the launcher --mesh {shape}",
                  seconds=time.perf_counter() - t0, **r)
             if r["max_loss_err"] > 1e-5:
                 fail(f"lm_mesh: --mesh {shape} losses differ by "
                      f"{r['max_loss_err']} > 1e-5")
     else:
-        emit("lm_mesh", part="(b) skipped: one card visible")
+        emit("lm_mesh", part="(c) skipped: one card visible")
     counts = {k: v for k, v in read_counts().items() if v}
     if counts:
         fail(f"lm_mesh: the sharded LM launched SNN kernels {counts}")

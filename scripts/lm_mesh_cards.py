@@ -27,6 +27,18 @@
            logits within 1e-5 x max(1, |ref|), the routing choice for
            choice with each layer's smallest gate margin; and each
            route's own prefill's dropped (token, choice) pairs
+  mixers   the bodies split over ``model`` as the reference splits them:
+           rwkv6-7b at full width and 4 layers trained on 2x2 under
+           ``tp_fsdp`` (losses within 1e-5 x max(1, |ref|) of one
+           card's); jamba-v0.1-52b's first 8 layers (Mamba, attention,
+           MoE) served on 1x4 under ``serve``, deepseek-v3-671b at depth 2
+           (MLA) on 1x4 under ``serve_ep2d``, and qwen2.5-3b whole on 1x4
+           with ``cache_seq`` over ``model`` (2 KV heads on 4 cards: the
+           distributed softmax), each a prefill into float32 caches and
+           8 decode steps fed one card's greedy tokens: logits within 1e-5 x max(1,
+           max|ref|) and the greedy tokens equal; step ms and peak
+           memory a card beside one card's (one spawn of four ranks for
+           the four)
 
 Each check prints one JSON line (also written to
 ``chiprun_out/lm_mesh_cards.jsonl``); then the cards' names and power
@@ -57,6 +69,17 @@ TRAIN = dict(batch=4, seq=256, steps=6)
 SERVE_PROMPT, SERVE_STEPS = 2048, 8
 MOE_PROMPT, MOE_STEPS, MOE_BATCH = 64, 8, 4
 F64_PROMPT, F64_STEPS = 64, 4
+# the split mixers: (arch, layers (None: all), mesh, profile, cache_seq),
+# prompt and cache lengths (full size, reduced); the qwen cache's shards
+# of 128 (8 reduced) positions put its decode steps across a boundary
+MIXER_SERVE = (("jamba-v0.1-52b", 8, (1, 4), "serve", ()),
+               ("deepseek-v3-671b", 2, (1, 4), "serve_ep2d", ()),
+               ("qwen2.5-3b", None, (1, 4), "serve", ("model",)))
+MIXER_PROMPT = {"jamba-v0.1-52b": (256, 32), "deepseek-v3-671b": (256, 32),
+                "qwen2.5-3b": (252, 28)}
+MIXER_MAX_LEN = {"qwen2.5-3b": (512, 64)}
+MIXER_BATCH, MIXER_STEPS = 2, 8
+MIXER_TRAIN = dict(arch="rwkv6-7b", layers=4, batch=4, seq=256, steps=3)
 OUT = ROOT / "chiprun_out" / "lm_mesh_cards.jsonl"
 RESULTS = []
 
@@ -543,12 +566,200 @@ def check_moe(reduced: bool, device: str):
     return ok
 
 
+# ---------------------------------------------------------------- mixers
+def mixer_cfg(name, layers, reduced):
+    cfg = arch(name, reduced)
+    if layers is None:
+        return cfg
+    kinds = cfg.pattern()
+    return cut(cfg, [kinds[i % len(kinds)] for i in range(layers)])
+
+
+def mixer_tokens(cfg, name, reduced, seed):
+    import numpy as np
+    prompt = MIXER_PROMPT[name][reduced]
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (MIXER_BATCH, prompt + MIXER_STEPS),
+        dtype=np.int32), prompt
+
+
+def mixer_decode(params, cfg, toks, prompt, max_len, device, ctx=None,
+                 greedy=None):
+    """Prefill ``toks[:, :prompt]`` into float32 caches (as the float32
+    checks here: a bfloat16 cache rounds the mesh's and one card's k/v,
+    which differ in their last bits, to neighbouring values) and
+    ``MIXER_STEPS`` decode steps, each
+    fed the previous step's greedy token (``greedy``: one card's, given;
+    else chosen here): the logits (host), the tokens, the decode steps'
+    median ms and the peak memory."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import transformer
+    from repro_torch.sharding.context import use_sharding
+
+    def host(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).cpu() \
+            .numpy()
+
+    t = torch.from_numpy(toks).to(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    logits, chosen, ms = [], [], []
+    with torch.inference_mode(), use_sharding(ctx):
+        lg, caches = transformer.prefill(params, cfg,
+                                         tokens=t[:, :prompt],
+                                         max_len=max_len,
+                                         cache_dtype=torch.float32)
+        for i in range(MIXER_STEPS):
+            out = host(lg)
+            logits.append(out)
+            tok = out[:, -1].argmax(-1) if greedy is None else greedy[i]
+            chosen.append(tok)
+            nxt = torch.from_numpy(tok.astype("int32")).to(device)[:, None]
+            sync(device)
+            t0 = time.perf_counter()
+            lg, caches = transformer.decode_step(params, caches, cfg,
+                                                 token=nxt, pos=prompt + i)
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(host(lg))
+    return {"logits": logits, "tokens": chosen,
+            "decode_step_ms": statistics.median(ms[1:]),
+            "peak_memory_bytes": peak(device)}
+
+
+def mixer_train(state, cfg, batch, ctx=None, device="cuda"):
+    """``MIXER_TRAIN["steps"]`` raw train steps: losses, median step ms
+    and peak memory."""
+    from repro_torch.models import lm
+    from repro_torch.sharding.context import use_sharding
+    step = lm.make_train_step(cfg, total_steps=MIXER_TRAIN["steps"])
+    losses, ms = [], []
+    with use_sharding(ctx):
+        for _ in range(MIXER_TRAIN["steps"]):
+            sync(device)
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch)[1]["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "median_step_ms": statistics.median(ms),
+            "peak_memory_bytes": peak(device)}
+
+
+def mixer_batch(cfg, reduced, device):
+    import numpy as np
+    import torch
+    seq = MIXER_TRAIN["seq"] if not reduced else 32
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (MIXER_TRAIN["batch"], seq + 1),
+        dtype=np.int32)).to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:].long()}
+
+
+def mixer_rank(rank, reduced, device, greedy):
+    """Every mesh side of ``check_mixers`` in one spawn: rwkv6-7b's train
+    steps on 2x2, then each ``MIXER_SERVE`` entry on its mesh."""
+    from repro_torch.sharding import partitioning
+    out = {}
+    t = MIXER_TRAIN
+    cfg = mixer_cfg(t["arch"], t["layers"], reduced)
+    ctx = mesh_ctx((2, 2), "tp_fsdp")
+    state = partitioning.init_train_state(ctx, gen(device, rank), cfg,
+                                          device=device)
+    r = mixer_train(state, cfg, mixer_batch(cfg, reduced, device), ctx,
+                    device)
+    out["train"] = dict(r, peak_memory_bytes=gather(r["peak_memory_bytes"]))
+    del state
+    _free(device)
+    for name, layers, shape, profile, seq in MIXER_SERVE:
+        cfg = mixer_cfg(name, layers, reduced)
+        ctx = mesh_ctx(shape, profile)
+        ctx.rules["cache_seq"] = seq
+        params = partitioning.init_params(ctx, gen(device, rank), cfg,
+                                          device=device)
+        toks, prompt = mixer_tokens(cfg, name, reduced, SEED + 4)
+        max_len = MIXER_MAX_LEN.get(name, (prompt + MIXER_STEPS,) * 2)[
+            reduced]
+        r = mixer_decode(params, cfg, toks, prompt, max_len, device, ctx,
+                         greedy[name])
+        out[name] = dict(r, peak_memory_bytes=gather(
+            r["peak_memory_bytes"]))
+        del params
+        _free(device)
+    return out
+
+
+def check_mixers(reduced: bool, device: str):
+    from repro_torch.dist import spmd
+    from repro_torch.models import lm, transformer
+    t0 = time.perf_counter()
+    t = MIXER_TRAIN
+    cfg = mixer_cfg(t["arch"], t["layers"], reduced)
+    state = lm.init_train_state(gen(device), cfg, device=device)
+    one = {"train": mixer_train(state, cfg, mixer_batch(cfg, reduced,
+                                                        device),
+                                device=device)}
+    del state
+    _free(device)
+    greedy = {}
+    for name, layers, *_ in MIXER_SERVE:
+        cfg = mixer_cfg(name, layers, reduced)
+        params = transformer.init_params(gen(device), cfg, device=device)
+        toks, prompt = mixer_tokens(cfg, name, reduced, SEED + 4)
+        max_len = MIXER_MAX_LEN.get(name, (prompt + MIXER_STEPS,) * 2)[
+            reduced]
+        one[name] = mixer_decode(params, cfg, toks, prompt, max_len,
+                                 device)
+        greedy[name] = one[name]["tokens"]
+        del params
+        _free(device)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = spmd.run(mixer_rank, 4, reduced, device, greedy, device=device,
+                    timeout=1800)
+    mesh_s = time.perf_counter() - t0
+    ok = True
+    w, m = one["train"], mesh["train"]
+    errs = [rel_err(a, b) for a, b in zip(m["losses"], w["losses"])]
+    good = len(errs) == t["steps"] and max(errs) <= TOL
+    ok &= good
+    emit("mixers", arch=t["arch"], layers=t["layers"], mesh="2x2",
+         profile="tp_fsdp", ok=good, losses=m["losses"],
+         one_card_losses=w["losses"], loss_rel_errs=errs,
+         median_step_ms=m["median_step_ms"],
+         one_card_median_step_ms=w["median_step_ms"],
+         peak_memory_bytes_per_card=m["peak_memory_bytes"],
+         one_card_peak_memory_bytes=w["peak_memory_bytes"],
+         batch=t["batch"], seq=t["seq"] if not reduced else 32)
+    for name, layers, shape, profile, seq in MIXER_SERVE:
+        w, m = one[name], mesh[name]
+        errs = [rel_err(a, b) for a, b in zip(m["logits"], w["logits"])]
+        same = all((a[:, -1].argmax(-1) == b).all()
+                   for a, b in zip(m["logits"][:-1], w["tokens"]))
+        good = (len(errs) == MIXER_STEPS + 1 and max(errs) <= TOL
+                and bool(same))
+        ok &= good
+        emit("mixers", arch=name, layers=layers,
+             mesh=f"{shape[0]}x{shape[1]}", profile=profile,
+             cache_seq=list(seq), ok=good, logits_rel_errs=errs,
+             greedy_tokens_equal=bool(same),
+             decode_step_ms=m["decode_step_ms"],
+             one_card_decode_step_ms=w["decode_step_ms"],
+             peak_memory_bytes_per_card=m["peak_memory_bytes"],
+             one_card_peak_memory_bytes=w["peak_memory_bytes"],
+             batch=MIXER_BATCH,
+             prompt=MIXER_PROMPT[name][reduced])
+    emit("mixers", part="seconds", one_card=one_s, mesh_with_spawn=mesh_s)
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true",
                     help="reduced() configs (a rehearsal)")
-    ap.add_argument("--only", default="train,serve,moe")
+    ap.add_argument("--only", default="train,serve,moe,mixers",
+                    help="a comma-separated subset of train, serve, moe "
+                         "and mixers")
     args = ap.parse_args(argv)
     import torch
     if args.device == "cuda":
@@ -557,7 +768,8 @@ def main(argv=None) -> int:
             return 2
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    checks = {"train": check_train, "serve": check_serve, "moe": check_moe}
+    checks = {"train": check_train, "serve": check_serve, "moe": check_moe,
+              "mixers": check_mixers}
     ok = True
     for name in args.only.split(","):
         try:

@@ -61,7 +61,8 @@ class RWKVChannelMix(Leaves):
 
 
 def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:
-    with local_body(params, x) as b:
+    with local_body(params, x,
+                    axes={"ffn": params["w_up"].shape[1]}) as b:
         p, x = b.params, b.x
         dt = x.dtype
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
@@ -72,7 +73,7 @@ def swiglu_apply(params, x: torch.Tensor) -> torch.Tensor:
 def rwkv_cmix_apply(params, x: torch.Tensor, x_prev=None) -> torch.Tensor:
     """x: (B, S, D); x_prev: (B, 1, D), the last token of the previous
     segment (zeros at the start of a sequence)."""
-    with local_body(params, x, replicated=("mix_k",)) as b:
+    with local_body(params, x, axes={"ffn": params["w_k"].shape[1]}) as b:
         p, x = b.params, b.x
         dt = x.dtype
         x_prev = (torch.zeros_like(x[:, :1]) if x_prev is None

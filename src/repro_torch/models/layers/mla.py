@@ -15,6 +15,15 @@ multiple of that count (the reference's reshape fails otherwise; here it
 raises).  The latent norms use ``rms_apply``'s default eps (1e-6), as the
 reference's do, not ``cfg.norm_eps``.  Decode writes the new latent into
 the cache in place (``index_copy_``) and returns the same dict.
+
+Under a mesh the body splits by heads as the reference's specs do:
+``w_uq``, ``w_uk``, ``w_uv`` and ``wo`` (by rows, its partial sum
+completed by the body's all-reduce) over ``model``, while ``w_dq``,
+``w_dkv`` and the two norms are whole on every card (the latent is the
+same on every card, and so is the cache, which has no heads).  The
+absorbed decode's ``q_lat`` and value absorption run on the card's
+heads; a cache whose sequence is split (``cache_seq``) is attended as
+``attention``'s is (its module doc).
 """
 from __future__ import annotations
 
@@ -24,11 +33,13 @@ import torch
 
 from repro_torch.config import ArchConfig, AttnConfig
 from repro_torch.models.layers import norms
+from torch.distributed.tensor import Shard
+
 from repro_torch.models.layers.attention import NEG_INF, Q_CHUNK, \
-    check_position
+    check_position, reduce_over, split_softmax, write_token
 from repro_torch.models.layers.leaves import Leaves, normal
 from repro_torch.models.layers.rope import apply_rope
-from repro_torch.sharding.context import run_replicated, shard_logical
+from repro_torch.sharding.context import local_body, shard_logical
 
 __all__ = ["MLA", "apply_train", "init_cache", "specs", "cache_specs",
            "apply_prefill", "apply_decode"]
@@ -72,19 +83,20 @@ class MLA(Leaves):
         self.wo = normal((nq, dv, d), (nq * dv) ** -0.5, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_replicated(apply_train, self, x, self.cfg)
+        return apply_train(self, x, self.cfg)
 
     def prefill(self, x: torch.Tensor, *, cache_len: int,
                 cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-        return run_replicated(
-            lambda p, x: apply_prefill(p, x, self.cfg, cache_len=cache_len,
-                                       cache_dtype=cache_dtype),
-            self, x, cache_specs=cache_specs(self.cfg, long_context=False))
+        return apply_prefill(self, x, self.cfg, cache_len=cache_len,
+                             cache_dtype=cache_dtype)
 
     def decode(self, x: torch.Tensor, cache: Dict, pos
                ) -> Tuple[torch.Tensor, Dict]:
-        return run_replicated(apply_decode, self, x, pos, self.cfg,
-                              cache=cache)
+        return apply_decode(self, x, cache, pos, self.cfg)
+
+
+def _body(params, x, cfg: ArchConfig):
+    return local_body(params, x, axes={"heads": cfg.attn.num_q_heads})
 
 
 def _project_q(params, x: torch.Tensor, a: AttnConfig,
@@ -148,7 +160,9 @@ def _full_sequence(params, x: torch.Tensor, cfg: ArchConfig):
 
 def apply_train(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence forward (training, the prefill trunk)."""
-    return _full_sequence(params, x, cfg)[0]
+    with _body(params, x, cfg) as b:
+        return b.out(_full_sequence(b.params, b.x, cfg)[0],
+                     ("batch", None, None))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
@@ -167,49 +181,84 @@ def apply_decode(params, x: torch.Tensor, cache: Dict,
     integer tensor on x's device.  An int position past the cache raises;
     a tensor one is clamped to its last slot, as the reference's
     ``dynamic_update_slice`` does."""
-    a = cfg.attn
-    B = x.shape[0]
-    dt = x.dtype
     size = cache["ckv"].shape[1]
     if isinstance(pos, int):
         check_position(pos, size)
+    with _body(params, x, cfg) as b:
+        pl = getattr(cache["ckv"], "placements", None)
+        offset, _, groups = b.chunk(pl, 1, size)
+        gather = b.model_parallel and pl[b.mdim] == Shard(1)
+        local = {n: b.cache_in(cache[n]) for n in ("ckv", "k_rope")}
+        out = _decode(b.params, b.x, local, pos, cfg, size=size,
+                      offset=offset, groups=groups,
+                      gather=b.gather_model if gather else None,
+                      q0=b.model_rank * b.params["w_uk"].shape[1])
+        return b.out(out, ("batch", None, None)), cache
+
+
+def _decode(params, x: torch.Tensor, cache: Dict, pos, cfg: ArchConfig, *,
+            size: int, offset: int = 0, groups=(), gather=None, q0: int = 0
+            ) -> torch.Tensor:
+    """The absorbed decode on this rank's heads and cache positions
+    offset .. offset + len - 1 of ``size`` (``attention._decode``)."""
+    a = cfg.attn
+    B = x.shape[0]
+    dt = x.dtype
     pos_t = torch.as_tensor(pos, device=x.device).reshape(())
     positions = pos_t.to(torch.int32).expand(B, 1)
     q_nope, q_rope = _project_q(params, x, a, positions)     # (B, 1, n, .)
     ckv_new, k_rope_new = _project_kv_latent(params, x, a, positions)
 
-    slot = pos_t.clamp(max=size - 1).reshape(1).long()
-    ckv = cache["ckv"].index_copy_(1, slot, ckv_new.to(cache["ckv"].dtype))
-    k_rope = cache["k_rope"].index_copy_(
-        1, slot, k_rope_new.to(cache["k_rope"].dtype))
+    slot = pos_t.clamp(max=size - 1)
+    ckv = write_token(cache["ckv"], ckv_new, slot, offset, bool(groups))
+    k_rope = write_token(cache["k_rope"], k_rope_new, slot, offset,
+                         bool(groups))
 
     # w_uk folded into the query: q_lat (B, 1, n, kv_rank)
     q_lat = torch.einsum("bqnh,rnh->bqnr", q_nope, params["w_uk"].to(dt))
+    n_own = q_lat.shape[2]
+    if gather is not None:
+        q_lat, q_rope = gather(q_lat, 2), gather(q_rope, 2)
     scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
     ckv_d = ckv.to(dt)
     scores = (torch.einsum("bqnr,bkr->bnqk", q_lat, ckv_d)
               + torch.einsum("bqnh,bkh->bnqk", q_rope, k_rope.to(dt))
               ).to(torch.float32) * scale
-    valid = torch.arange(size, device=x.device) <= pos_t
+    valid = offset + torch.arange(ckv.shape[1], device=x.device) <= pos_t
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    o_lat = torch.einsum("bnqk,bkr->bqnr", probs, ckv_d)
+    if groups:
+        o_lat = reduce_over(torch.einsum(
+            "bnqk,bkr->bqnr", split_softmax(scores, groups),
+            ckv.to(torch.float32)), groups).to(dt)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        o_lat = torch.einsum("bnqk,bkr->bqnr", probs, ckv_d)
+    if gather is not None:
+        o_lat = o_lat.narrow(2, q0, n_own)
     out = torch.einsum("bqnr,rnh->bqnh", o_lat, params["w_uv"].to(dt))
     out = torch.einsum("bsnh,nhd->bsd", out, params["wo"].to(dt))
-    return out, cache
+    return shard_logical(out, ("batch", None, None))
 
 
 def apply_prefill(params, x: torch.Tensor, cfg: ArchConfig, *,
                   cache_len: int, cache_dtype=torch.bfloat16
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Forward plus the latent cache of max(cache_len, S) positions."""
-    B, S, _ = x.shape
-    out, ckv, k_rope = _full_sequence(params, x, cfg)
-    size = max(cache_len, S)
-    cache = {}
-    for name, t in (("ckv", ckv), ("k_rope", k_rope)):
-        c = torch.zeros((B, size, t.shape[-1]), dtype=cache_dtype,
-                        device=x.device)
-        c[:, :S] = t
-        cache[name] = c
-    return out, cache
+    """Forward plus the latent cache of max(cache_len, S) positions (under
+    a mesh, each card's shard of it)."""
+    with _body(params, x, cfg) as b:
+        xl = b.x
+        Bl, S, _ = xl.shape
+        out, ckv, k_rope = _full_sequence(b.params, xl, cfg)
+        size = max(cache_len, S)
+        spec = cache_specs(cfg, long_context=False)
+        cache = {}
+        for name, t in (("ckv", ckv), ("k_rope", k_rope)):
+            shape = (x.shape[0], size, t.shape[-1])
+            offset, n, _ = b.chunk(b.cache_placements(spec[name], shape), 1,
+                                   size)
+            c = torch.zeros((Bl, n, t.shape[-1]), dtype=cache_dtype,
+                            device=xl.device)
+            held = max(0, min(S, offset + n) - offset)
+            c[:, :held] = t[:, offset:offset + held]
+            cache[name] = b.cache_new(c, spec[name], shape)
+        return b.out(out, ("batch", None, None)), cache

@@ -20,6 +20,16 @@ multiple of it (``mamba.chunk_length``; the reference asserts so).
 default eps (1e-6), as in the reference, not ``cfg.norm_eps``.  Decode
 writes the new state and shift token into the cache in place and returns
 the same dict; ``pos`` and ``cache_len`` are unused.
+
+Under a mesh the body splits by heads over ``model``, as the reference's
+specs do: ``wr``, ``wk``, ``wv``, ``u`` and the ``state`` cache hold the
+card's heads, ``wg`` its columns (the same channels), and ``wo`` splits
+by rows, its partial sum completed by the body's output.  ``mix``,
+``w0``, the decay LoRA and ``out_norm`` are whole on every card: the
+decay is computed for every channel and sliced to the card's, and
+``out_norm``, an RMS over the whole ``d``, all-reduces its local sum of
+squares over ``model`` before the scale.  The ``shift`` cache is whole
+on every card.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ from repro_torch.config import ArchConfig
 from repro_torch.models.layers import norms
 from repro_torch.models.layers.leaves import Leaves, normal
 from repro_torch.models.layers.mamba import chunk_length
-from repro_torch.sharding.context import run_replicated, shard_logical
+from repro_torch.sharding.context import local_body, shard_logical
 
 __all__ = ["RWKV6", "LORA_RANK", "apply_train", "init_cache", "specs",
            "cache_specs", "apply_prefill", "apply_decode"]
@@ -86,28 +96,49 @@ class RWKV6(Leaves):
         self.wo = normal((H, hd, d), s, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_replicated(apply_train, self, x, self.cfg)
+        return apply_train(self, x, self.cfg)
 
     def prefill(self, x: torch.Tensor, *, cache_len: int = 0,
                 cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
-        return run_replicated(
-            lambda p, x: apply_prefill(p, x, self.cfg,
-                                       cache_dtype=cache_dtype),
-            self, x, cache_specs=cache_specs(self.cfg))
+        return apply_prefill(self, x, self.cfg, cache_dtype=cache_dtype)
 
     def decode(self, x: torch.Tensor, cache: Dict, pos=None
                ) -> Tuple[torch.Tensor, Dict]:
-        return run_replicated(apply_decode, self, x, pos, self.cfg,
-                              cache=cache)
+        return apply_decode(self, x, cache, pos, self.cfg)
+
+
+def _body(params, x, cfg: ArchConfig):
+    d = cfg.d_model
+    return local_body(params, x, axes={"heads": d // cfg.rwkv.head_dim,
+                                       "ffn": d})
+
+
+def _channels(b, params):
+    """(first, count) of the channels of d this body's heads hold."""
+    n = params["wg"].shape[1]
+    return (b.model_rank * n if b.model_parallel else 0), n
+
+
+def _out_norm(b, params, y: torch.Tensor, c0: int) -> torch.Tensor:
+    """``rms_apply(out_norm, y)`` over the whole d, y holding channels c0
+    .. of it: the sum of squares all-reduced over ``model``."""
+    if not b.model_parallel:
+        return norms.rms_apply(params["out_norm"], y)
+    yf = y.to(torch.float32)
+    d = b.model_size * y.shape[-1]
+    var = b.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True)) / d
+    scale = params["out_norm"]["scale"].narrow(0, c0, y.shape[-1])
+    return (yf * torch.rsqrt(var + 1e-6)
+            * scale.to(torch.float32)).to(y.dtype)
 
 
 def _mix_projections(params, x: torch.Tensor, x_prev: torch.Tensor,
-                     cfg: ArchConfig):
+                     cfg: ArchConfig, c0: int = 0):
     """The token-shift lerp and the projections, x (B, S, d), x_prev (B, 1,
     d): r, k, v (B, S, H, hd), g (B, S, d) and log w (B, S, H, hd) in the
-    state's dtype."""
+    state's dtype; under a split body, the heads and channels from
+    channel ``c0`` (``wr``'s local heads)."""
     hd = cfg.rwkv.head_dim
-    H = cfg.d_model // hd
     dt = x.dtype
     shifted = torch.cat([x_prev, x[:, :-1]], dim=1)
     mix = params["mix"].to(dt)[:, None, None]               # (5, 1, 1, d)
@@ -119,8 +150,8 @@ def _mix_projections(params, x: torch.Tensor, x_prev: torch.Tensor,
     f = torch.promote_types(dt, torch.float32)
     w_raw = params["w0"] + (torch.tanh(xw @ params["w_lora_a"].to(dt))
                             @ params["w_lora_b"].to(dt)).to(f)
-    log_w = -torch.exp(w_raw)
-    return r, k, v, g, log_w.reshape(*log_w.shape[:-1], H, hd)
+    log_w = -torch.exp(w_raw.narrow(-1, c0, g.shape[-1]))
+    return r, k, v, g, log_w.reshape(*log_w.shape[:-1], r.shape[2], hd)
 
 
 def _chunk_wkv(r, k, v, log_w, u, S0):
@@ -146,15 +177,16 @@ def _chunk_wkv(r, k, v, log_w, u, S0):
     return (y_inter + y_intra).to(r.dtype), S1
 
 
-def _mix(params, x: torch.Tensor, cfg: ArchConfig):
+def _mix(params, x: torch.Tensor, cfg: ArchConfig, b):
     """(out (B, S, d), the last state) of the time-mix from a zero
-    previous token and a zero state."""
-    B, S, d = x.shape
+    previous token and a zero state, on ``b``'s heads."""
+    B, S, _ = x.shape
     hd = cfg.rwkv.head_dim
-    H = d // hd
+    c0, dl = _channels(b, params)
+    H = dl // hd
     L = chunk_length(cfg.rwkv.chunk, S, "rwkv6")
-    r, k, v, g, log_w = _mix_projections(params, x,
-                                          torch.zeros_like(x[:, :1]), cfg)
+    r, k, v, g, log_w = _mix_projections(
+        params, x, torch.zeros_like(x[:, :1]), cfg, c0)
     r = shard_logical(r, ("batch", None, "heads", None))
     state = torch.zeros((B, H, hd, hd), dtype=log_w.dtype, device=x.device)
     ys = []
@@ -163,8 +195,8 @@ def _mix(params, x: torch.Tensor, cfg: ArchConfig):
         y, state = _chunk_wkv(r[:, c], k[:, c], v[:, c], log_w[:, c],
                               params["u"], state)
         ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(B, S, d)
-    y = norms.rms_apply(params["out_norm"], y) * g
+    y = torch.cat(ys, dim=1).reshape(B, S, dl)
+    y = _out_norm(b, params, y, c0) * g
     out = torch.einsum("bsnh,nhd->bsd", y.reshape(B, S, H, hd),
                        params["wo"].to(x.dtype))
     return shard_logical(out, ("batch", None, None)), state
@@ -172,7 +204,8 @@ def _mix(params, x: torch.Tensor, cfg: ArchConfig):
 
 def apply_train(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence forward, x (B, S, d)."""
-    return _mix(params, x, cfg)[0]
+    with _body(params, x, cfg) as b:
+        return b.out(_mix(b.params, b.x, cfg, b)[0], ("batch", None, None))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int = 0, *,
@@ -190,30 +223,39 @@ def apply_decode(params, x: torch.Tensor, cache: Dict, pos,
     """One token, x (B, 1, d): y = r (S0 + u k v^T), S1 = w S0 + k v^T;
     the new shift is x."""
     del pos
-    B, _, d = x.shape
-    hd = cfg.rwkv.head_dim
-    H = d // hd
-    dt = x.dtype
-    r, k, v, g, log_w = _mix_projections(params, x,
-                                          cache["shift"].to(dt), cfg)
-    f = log_w.dtype
-    rf, kf, vf = (t[:, 0].to(f) for t in (r, k, v))        # (B, H, hd)
-    S0 = cache["state"]
-    kv = kf[..., :, None] * vf[..., None, :]                # (B, H, hd, hd)
-    y = torch.einsum("bnh,bnhe->bne", rf,
-                     S0 + params["u"].to(f)[None, :, :, None] * kv)
-    S1 = torch.exp(log_w[:, 0])[..., None] * S0 + kv
-    y = norms.rms_apply(params["out_norm"], y.reshape(B, 1, d).to(dt)) * g
-    out = torch.einsum("bsnh,nhd->bsd", y.reshape(B, 1, H, hd),
-                       params["wo"].to(dt))
-    cache["state"].copy_(S1)
-    cache["shift"].copy_(x)
-    return out, cache
+    with _body(params, x, cfg) as b:
+        p, x = b.params, b.x
+        state, shift = b.cache_in(cache["state"]), b.cache_in(cache["shift"])
+        B = x.shape[0]
+        hd = cfg.rwkv.head_dim
+        c0, dl = _channels(b, p)
+        dt = x.dtype
+        r, k, v, g, log_w = _mix_projections(p, x, shift.to(dt), cfg, c0)
+        f = log_w.dtype
+        rf, kf, vf = (t[:, 0].to(f) for t in (r, k, v))    # (B, H, hd)
+        kv = kf[..., :, None] * vf[..., None, :]            # (B, H, hd, hd)
+        y = torch.einsum("bnh,bnhe->bne", rf,
+                         state + p["u"].to(f)[None, :, :, None] * kv)
+        S1 = torch.exp(log_w[:, 0])[..., None] * state + kv
+        y = _out_norm(b, p, y.reshape(B, 1, dl).to(dt), c0) * g
+        out = torch.einsum("bsnh,nhd->bsd", y.reshape(B, 1, dl // hd, hd),
+                           p["wo"].to(dt))
+        state.copy_(S1)
+        shift.copy_(x)
+        return b.out(out, ("batch", None, None)), cache
 
 
 def apply_prefill(params, x: torch.Tensor, cfg: ArchConfig, *,
                   cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict]:
     """Forward plus the decode cache: the last state and the last input
     token."""
-    out, state = _mix(params, x, cfg)
-    return out, {"state": state, "shift": x[:, -1:].to(cache_dtype)}
+    d, hd = cfg.d_model, cfg.rwkv.head_dim
+    with _body(params, x, cfg) as b:
+        out, state = _mix(b.params, b.x, cfg, b)
+        B = x.shape[0]
+        spec = cache_specs(cfg)
+        cache = {"state": b.cache_new(state, spec["state"],
+                                      (B, d // hd, hd, hd)),
+                 "shift": b.cache_new(b.x[:, -1:].to(cache_dtype),
+                                      spec["shift"], (B, 1, d))}
+        return b.out(out, ("batch", None, None)), cache

@@ -13,6 +13,11 @@ them) and returns its input itself on a group of one.
     this rank's own slice of it;
   * ``all_reduce(t, group)``: the sum over the group; backward the
     identity (the cotangent of a replicated sum is whole on every rank);
+  * ``all_max(t, group)``: the elementwise maximum over the group, no
+    gradient (a softmax's shift);
+  * ``exchange(t, group, send, recv)``: an all-to-all along dim 0,
+    ``send[k]`` rows to group rank k and ``recv[k]`` rows from it, in
+    group-rank order; backward the same exchange the other way;
   * ``reduce_grad(t, group)``: the identity; backward the sum over the
     group (Megatron's f: a replicated input of a computation that differs
     along the group);
@@ -23,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "all_reduce", "reduce_grad", "scale_grad"]
+__all__ = ["all_gather", "all_reduce", "all_max", "exchange",
+           "reduce_grad", "scale_grad"]
 
 # torch 2.13 renames both; the arguments are the same
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
@@ -74,6 +80,24 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+def _exchange(t: torch.Tensor, group, send, recv) -> torch.Tensor:
+    out = t.new_empty((sum(recv),) + t.shape[1:])
+    dist.all_to_all_single(out, t.contiguous(), list(recv), list(send),
+                           group=group)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return _exchange(t, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.recv, ctx.send), None, None, None
+
+
 class _ReduceGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
@@ -110,6 +134,19 @@ def all_gather(t: torch.Tensor, group, dim: int,
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return t if _single(group) else _AllReduce.apply(t, group)
+
+
+def all_max(t: torch.Tensor, group) -> torch.Tensor:
+    if _single(group):
+        return t
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def exchange(t: torch.Tensor, group, send, recv) -> torch.Tensor:
+    return t if _single(group) else _Exchange.apply(t, group, tuple(send),
+                                                    tuple(recv))
 
 
 def reduce_grad(t: torch.Tensor, group) -> torch.Tensor:

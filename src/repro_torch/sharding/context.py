@@ -25,25 +25,39 @@ does in the reference), and a plain tensor raises, naming the call site:
 there it would be an activation that silently skips the sharding.
 
 The layers' bodies run on local shards (``local_body``): the activation
-keeps its batch shards, every weight is gathered over the axes that do
-not split the body (FSDP's all-gather, whose backward is a
-reduce-scatter), and where every weight is split over ``model`` the body
-is Megatron's column/row split, its output a partial sum that one
-all-reduce over ``model`` completes (after ``wo``, ``w_down`` and the
-vocab-parallel head).  These collectives are written out on the mesh
-axes' process groups (``local_view``, ``sharding.collectives``), each
-with its transpose as its backward; DTensor stays at the body's edges
-(``to_local`` in, ``from_local`` out, neither of which communicates), so
-the activations between layers, the parameters and the optimizer's state
-are DTensors.  Inside a body ``shard_logical`` returns a plain tensor as
-it is, since the body laid it out.  ``mesh_ops`` lets DTensors and plain
-tensors (positions, masks, constants) meet in one op outside the bodies
-(the residual adds, the loss), the plain ones read as replicated.
+keeps its batch shards, and a weight keeps its split over ``model``
+where its placement has one; every other split (FSDP's, over ``data``)
+is gathered (an all-gather whose backward is a reduce-scatter).  A body
+with at least one weight split over ``model`` is split there: Megatron's
+column/row split, its output a partial sum that one all-reduce over
+``model`` completes (after ``wo``, ``w_down``, ``out_proj`` and the
+vocab-parallel head).  Its other weights, those the reference's specs
+leave whole over ``model`` (K/V whose heads do not divide it, MLA's
+down-projections and norms, RWKV's mixes and decay LoRA), are whole on
+every card, their gradients summed over ``model``.  A partial sum needed
+inside the body (Mamba's ``x_proj`` output, RWKV's sum of squares in
+``out_norm``) goes through ``Body.all_reduce``.  These collectives are
+written out on the mesh axes' process groups (``local_view``,
+``sharding.collectives``), each with its transpose as its backward;
+DTensor stays at the body's edges (``to_local`` in, ``from_local`` out,
+neither of which communicates), so the activations between layers, the
+parameters and the optimizer's state are DTensors.  ``mesh_ops`` lets
+DTensors and plain tensors (positions, masks, constants) meet in one op
+outside the bodies (the residual adds, the loss), the plain ones read as
+replicated.
 
-The MLA, Mamba and RWKV6 bodies run replicated over ``model``
-(``run_replicated``): each card gathers the mixer's whole weights and
-computes the whole mixer, where the reference splits them over heads or
-``ffn``.  Their FFNs and MoEs are split as every arch's are.
+Inside a body ``shard_logical`` checks the reference's constraint
+instead of applying it: the body declares the global sizes of the
+logical axes it carries (``axes``), and a local tensor must be split
+over ``model`` on exactly the dims ``pspec(logical, global dims)``
+splits there, or it raises, naming the call site.  A body that runs
+whole where the reference splits cannot pass.
+
+A decode cache is used where it lives (``Body.cache_in``): its batch
+shards are the activation's, its heads or channels the body's, and a
+sequence split (``cache_seq``) is attended shard by shard with a
+softmax whose statistics are all-reduced (``models/layers/attention``,
+``mla``).
 """
 from __future__ import annotations
 
@@ -65,7 +79,7 @@ from repro_torch.sharding.collectives import all_gather, all_reduce, \
 
 __all__ = ["DEFAULT_RULES", "RULE_PROFILES", "make_rules", "ShardingCtx",
            "current_ctx", "use_sharding", "shard_logical", "lay_out",
-           "mesh_ops", "local_body", "Body", "run_replicated",
+           "mesh_ops", "local_body", "Body",
            "redistribute", "local_view"]
 
 _state = threading.local()
@@ -301,15 +315,19 @@ def local_view(t: DTensor, keep: Sequence, varies: Sequence[bool]):
 
 def shard_logical(x, logical: Sequence[Optional[str]]):
     """``x`` itself with no active context; under one, a DTensor
-    redistributed to ``placements(logical, x.shape)``; a plain tensor
-    raises ``TypeError`` naming the call site, except inside a
-    ``local_body`` (its shards are laid out by the body)."""
+    redistributed to ``placements(logical, x.shape)``; inside a
+    ``local_body``, a plain tensor checked against the reference's split
+    (``Body.check``) and returned as it is; any other plain tensor raises
+    ``TypeError`` naming the call site."""
     ctx = current_ctx()
     if ctx is None:
         return x
     if isinstance(x, DTensor):
         return redistribute(x, ctx.placements(logical, x.shape))
-    if getattr(_state, "bodies", 0):
+    stack = getattr(_state, "bodies", None)
+    if stack:
+        if stack[-1].ctx is not None:
+            stack[-1].check(x, logical)
         return x
     raise TypeError(
         f"shard_logical{tuple(logical)} at {_call_site()}: a plain "
@@ -380,15 +398,23 @@ def _leaves(tree):
             yield v
 
 
+def _entry_axes(entry: Entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
 class Body:
     """A layer body's local view: ``params`` (a nested dict of local
     tensors) and ``x``, the activation's local shard.  With no context
-    both are what was given and ``out`` returns its argument."""
+    both are what was given and ``out`` returns its argument.  ``axes``:
+    the global sizes of the logical axes the body's tensors carry
+    (``heads``, ``ffn``, ...), for ``check``."""
 
     def __init__(self, params, x, ctx: Optional[ShardingCtx] = None, *,
                  split_model: bool = True, keep_batch: bool = True,
-                 keep_tokens: bool = False, replicated: Sequence[str] = ()):
-        self.ctx = ctx
+                 keep_tokens: bool = False,
+                 axes: Optional[Mapping[str, int]] = None):
+        self.ctx, self.axes = ctx, dict(axes or {})
+        self.mdim, self.model_size, self.model_rank = None, 1, 0
         if ctx is None:
             self.params, self.x, self.model_parallel = params, x, False
             return
@@ -409,13 +435,16 @@ class Body:
             else Replicate() for p in x.placements)
         params = _tree(params, lambda t: t)
         md = self.mdim
+        # split over ``model`` where a weight is: the others are whole
         self.model_parallel = bool(
             split_model and md is not None
             and not isinstance(self.layout[md], Shard)
-            and all(isinstance(t, DTensor) and isinstance(t.placements[md],
-                                                          Shard)
-                    for t in _leaves({k: v for k, v in params.items()
-                                      if k not in replicated})))
+            and any(isinstance(t, DTensor)
+                    and isinstance(t.placements[md], Shard)
+                    for t in _leaves(params)))
+        if self.model_parallel:
+            self.model_size = mesh.size(md)
+            self.model_rank = mesh.get_local_rank(md)
         self.params = _tree(params, self._weight)
         self.x = self.local(x)
 
@@ -441,6 +470,25 @@ class Body:
             self.model_parallel and i == self.mdim
             for i in range(self.mesh.ndim)])
 
+    def _model_group(self):
+        return self.mesh.get_group(self.mdim)
+
+    def all_reduce(self, t):
+        """A partial sum over ``model`` inside the body, whole on every
+        card: the sum, whose cotangent (a partial sum too) is summed in
+        the backward.  ``t`` itself where the body is not split."""
+        if not self.model_parallel:
+            return t
+        g = self._model_group()
+        return reduce_grad(all_reduce(t, g), g)
+
+    def gather_model(self, t, dim: int):
+        """The card's split of ``t`` along ``dim`` joined over ``model``
+        (inference only: no cotangent flows back)."""
+        if not self.model_parallel:
+            return t
+        return all_gather(t, self._model_group(), dim, False)
+
     def _model_layout(self, dim: Optional[int]):
         """x's layout, with the model dim split at ``dim`` (None: not
         split)."""
@@ -459,82 +507,141 @@ class Body:
         if self.ctx is None:
             return y
         if self.model_parallel and split_dim is None:
-            y = all_reduce(y, self.mesh.get_group(self.mdim))
+            y = all_reduce(y, self._model_group())
         t = DTensor.from_local(y, self.mesh, self._model_layout(split_dim),
                                run_check=False)
         return t if logical is None else shard_logical(t, logical)
 
-    def cache_in(self, c, model_dim: Optional[int] = None):
-        """A cache DTensor in the body's layout, local: its own storage
-        when the layouts agree (written in place), else a copy for
-        ``cache_out`` to write back."""
+    def check(self, t: torch.Tensor, logical: Sequence[Optional[str]]
+              ) -> None:
+        """Raise unless the local ``t`` is split over ``model`` on exactly
+        the dims ``ctx.pspec(logical, global dims)`` splits there (the
+        reference's ``with_sharding_constraint`` at that site).  A dim of
+        a declared axis is whole at its global size and split at 1/m of
+        it; the batch dim is split as x's layout splits it."""
+        md = self.mdim
+        if md is None or self.mesh.size(md) == 1:
+            return
+        m = self.mesh.size(md)
+        dims, split = [], []
+        for i, name in enumerate(logical):
+            n = t.shape[i]
+            if name is None:
+                dims.append(n)
+                split.append(False)
+            elif name == "batch" and i == 0:
+                k = 1
+                for j, p in enumerate(self.layout):
+                    if p == Shard(0):
+                        k *= self.mesh.size(j)
+                dims.append(n * k)
+                split.append(self.layout[md] == Shard(0))
+            elif name in self.axes:
+                size = self.axes[name]
+                if n != size and n * m != size:
+                    raise ValueError(
+                        f"shard_logical{tuple(logical)} at {_call_site()}"
+                        f": dim {i} ({name}) holds {n} of {size}, neither "
+                        f"whole nor split {m} ways over model")
+                dims.append(size)
+                split.append(n != size)
+            else:
+                raise TypeError(
+                    f"shard_logical{tuple(logical)} at {_call_site()}: "
+                    f"the body declares no global size for {name!r}")
+        spec = self.ctx.pspec(logical, dims)
+        want = [i < len(spec) and "model" in _entry_axes(spec[i])
+                for i in range(len(dims))]
+        if want != split:
+            where = lambda f: [logical[i] for i, s in enumerate(f) if s]
+            raise ValueError(
+                f"shard_logical{tuple(logical)} at {_call_site()}: a local "
+                f"{tuple(t.shape)} split over model on {where(split)}, "
+                f"where the reference's {spec} splits {where(want)}")
+
+    # ------------------------------------------------------------ caches
+    def cache_in(self, c):
+        """A cache DTensor's local shard, used where it lives (its own
+        storage: writes land in place).  Its batch must be split as x's
+        is; its other splits are the layer's to read (``chunk``)."""
         if self.ctx is None:
             return c
-        return redistribute(c, self._model_layout(model_dim)).to_local()
+        for i, (p, q) in enumerate(zip(c.placements, self.layout)):
+            if (p == Shard(0)) != (q == Shard(0)):
+                raise ValueError(
+                    f"a cache laid out {tuple(c.placements)} in a body "
+                    f"at {_call_site()} whose activation is laid out "
+                    f"{self.layout}: mesh dim {i} splits one batch only")
+        return c.to_local()
 
-    def cache_out(self, c, local, model_dim: Optional[int] = None) -> None:
-        """Write a ``cache_in`` copy back into the cache's own shard."""
-        if self.ctx is None or tuple(c.placements) == tuple(
-                self._model_layout(model_dim)):
-            return
-        t = DTensor.from_local(local, self.mesh,
-                               self._model_layout(model_dim),
-                               run_check=False)
-        c.to_local().copy_(redistribute(t, c.placements).to_local())
+    def chunk(self, placements, dim: int, size: int):
+        """(offset, length, groups) of this rank's part of dim ``dim`` (of
+        global ``size``) of a tensor laid out by ``placements``: the
+        process groups of the mesh dims that split it, in mesh order
+        (none: the whole dim, offset 0)."""
+        if self.ctx is None:
+            return 0, size, []
+        idx, parts, groups = 0, 1, []
+        for j, p in enumerate(placements):
+            if p == Shard(dim):
+                n = self.mesh.size(j)
+                idx = idx * n + self.mesh.get_local_rank(j)
+                parts *= n
+                groups.append(self.mesh.get_group(j))
+        length = size // parts
+        return idx * length, length, groups
+
+    def cache_placements(self, logical: Sequence[Optional[str]],
+                         shape: Sequence[int]):
+        """The placements of a cache of global ``shape`` laid out by
+        ``logical`` (None with no context)."""
+        return None if self.ctx is None else self.ctx.placements(
+            logical, tuple(shape))
 
     def cache_new(self, local, logical: Sequence[Optional[str]],
-                  model_dim: Optional[int] = None):
-        """A new cache from its local part, laid out by ``logical``."""
+                  shape: Sequence[int]):
+        """A new cache of global ``shape`` from this rank's shard of it,
+        laid out by ``logical``; raises if ``local`` is not that shard's
+        size (a body split otherwise than the cache)."""
         if self.ctx is None:
             return local
-        t = DTensor.from_local(local.contiguous(), self.mesh,
-                               self._model_layout(model_dim),
-                               run_check=False)
-        return shard_logical(t, logical)
+        pl = self.ctx.placements(logical, tuple(shape))
+        want = list(shape)
+        for j, p in enumerate(pl):
+            if isinstance(p, Shard):
+                want[p.dim] //= self.mesh.size(j)
+        if list(local.shape) != want:
+            raise ValueError(
+                f"a cache shard of {tuple(local.shape)} at {_call_site()}"
+                f" where {tuple(logical)} lays {tuple(shape)} out as "
+                f"{tuple(want)} a rank")
+        return DTensor.from_local(local.contiguous(), self.mesh, pl,
+                                  run_check=False)
 
 
 @contextlib.contextmanager
 def local_body(params, x, *, split_model: bool = True,
                keep_batch: bool = True, keep_tokens: bool = False,
-               replicated: Sequence[str] = ()):
+               axes: Optional[Mapping[str, int]] = None):
     """The ``Body`` of a layer's ``params`` on activation ``x`` under the
-    active context (module doc).  The body splits over ``model`` when
-    every weight but those named in ``replicated`` is split there;
+    active context (module doc).  The body splits over ``model`` when a
+    weight is split there, and keeps the others whole;
     ``split_model=False`` gathers every weight (the body is replicated
     over ``model``), ``keep_batch=False`` also gathers the batch and
     ``keep_tokens`` keeps every split but the last dim's (a per-token
-    body: a norm).  Inside another body a plain ``x`` is already local:
-    the body is its own (no context)."""
+    body: a norm).  ``axes``: the global sizes of the logical axes that
+    ``shard_logical`` names inside (``Body.check``).  Inside another body
+    a plain ``x`` is already local: the body is its own (no context)."""
     ctx = current_ctx()
-    if getattr(_state, "bodies", 0) and not isinstance(x, DTensor):
+    stack = getattr(_state, "bodies", None)
+    if stack is None:
+        stack = _state.bodies = []
+    if stack and not isinstance(x, DTensor):
         ctx = None
     body = Body(params, x, ctx, split_model=split_model,
-                keep_batch=keep_batch, keep_tokens=keep_tokens,
-                replicated=replicated)
-    _state.bodies = getattr(_state, "bodies", 0) + 1
+                keep_batch=keep_batch, keep_tokens=keep_tokens, axes=axes)
+    stack.append(body)
     try:
         yield body
     finally:
-        _state.bodies -= 1
-
-
-def run_replicated(fn, params, x, *args, cache: Optional[Dict] = None,
-                   cache_specs: Optional[Dict] = None):
-    """A mixer step ``fn`` on local shards, replicated over ``model`` (its
-    weights gathered; the MLA, Mamba and RWKV6 bodies): ``fn(params, x,
-    *args)`` returns the output (train), with ``cache_specs`` ``(output,
-    cache)`` whose cache is laid out by them (prefill), and with ``cache``
-    ``fn(params, x, cache, *args)`` updates the cache in place (decode).
-    Returns the output, or ``(output, cache)``."""
-    with local_body(params, x, split_model=False) as b:
-        if cache is not None:
-            local = {n: b.cache_in(c) for n, c in cache.items()}
-            out, _ = fn(b.params, b.x, local, *args)
-            for n, c in cache.items():
-                b.cache_out(c, local[n])
-            return b.out(out, ("batch", None, None)), cache
-        if cache_specs is not None:
-            out, c = fn(b.params, b.x, *args)
-            return b.out(out, ("batch", None, None)), {
-                n: b.cache_new(t, cache_specs[n]) for n, t in c.items()}
-        return b.out(fn(b.params, b.x, *args), ("batch", None, None))
+        stack.pop()

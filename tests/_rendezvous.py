@@ -282,6 +282,44 @@ def _train(ctx, cfg, np_state, batches, dev="cpu"):
     return metrics, to_numpy_train_state(state, cfg)
 
 
+def one_kv_head(cfg):
+    """``cfg`` with a single KV head: KV heads that do not divide a model
+    axis of 2 (the reference's K/V then stay whole over ``model``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, num_kv_heads=1))
+
+
+def _decode_run(cfg, ctx, np_params, toks, S, steps, max_len):
+    """Prefill ``toks[:, :S]`` and ``steps`` decode steps under ``ctx``:
+    the logits, the caches (the reference's layout) and whether the first
+    full attention cache's sequence is split over ``model``."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.interop import from_jax_lm_params, to_numpy_lm_caches
+    from repro_torch.models import transformer
+    from repro_torch.sharding.context import use_sharding
+    params = from_jax_lm_params(np_params, cfg, "cpu", ctx)
+    toks = torch.from_numpy(toks)
+    logits = []
+    with use_sharding(ctx), torch.inference_mode():
+        lg, caches = transformer.prefill(params, cfg, tokens=toks[:, :S],
+                                         max_len=max_len,
+                                         cache_dtype=torch.float32)
+        logits.append(_numpy(lg))
+        for i in range(steps):
+            lg, caches = transformer.decode_step(
+                params, caches, cfg, token=toks[:, S + i:S + i + 1],
+                pos=S + i)
+            logits.append(_numpy(lg))
+    k = next(c["mixer"].get("k", c["mixer"].get("ckv")) for c in caches
+             if {"k", "ckv"} & set(c["mixer"]))
+    names = list(ctx.axis_sizes)
+    split = isinstance(k, DTensor) and k.placements[
+        names.index("model")] == Shard(1)
+    return {"logits": logits, "caches": to_numpy_lm_caches(caches, cfg),
+            "seq_split": split}
+
+
 def _same(a, b) -> bool:
     return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(
         torch.utils._pytree.tree_leaves(a),
@@ -331,6 +369,21 @@ def lm_mesh_ranks(rank, inputs):
             logits.append(_numpy(lg))
         out["decode"] = {"logits": logits,
                          "caches": to_numpy_lm_caches(caches, cfg)}
+
+    # qwen2.5-3b with one KV head: trained under tp_fsdp, decoded under
+    # serve with the cache's sequence whole and split over model
+    kv1 = inputs.get("kv1")
+    if kv1:
+        cfg = one_kv_head(reduced(get_arch("qwen2.5-3b")))
+        out["kv1_train"] = _train(_mesh_ctx("tp_fsdp"), cfg, kv1["init"],
+                                  kv1["batches"])
+        out["kv1_decode"] = {}
+        for seq in ((), ("model",)):
+            ctx = _mesh_ctx("serve")
+            ctx.rules["cache_seq"] = seq
+            out["kv1_decode"][seq] = _decode_run(
+                cfg, ctx, kv1["init"].params, kv1["tokens"], kv1["S"],
+                kv1["steps"], kv1["max_len"])
 
     # leaf-by-leaf init against init_params, bit for bit
     for arch in inputs["init_archs"]:
@@ -442,6 +495,75 @@ def mixer_mesh_ranks(rank, inputs):
                 logits.append(_numpy(lg))
             out["decode"][arch] = {"logits": logits,
                                    "caches": to_numpy_lm_caches(caches, cfg)}
+        if arch in inputs.get("seq_archs", ()):
+            ctx = _mesh_ctx("serve")
+            ctx.rules["cache_seq"] = ("model",)
+            out.setdefault("decode_seq", {})[arch] = _decode_run(
+                cfg, ctx, inputs["train_init"][arch].params,
+                inputs["decode_tokens"][arch], S, steps, S + steps + 2)
+        out.setdefault("flops", {})[arch] = _step_flops(
+            rank, cfg, inputs["train_init"][arch],
+            inputs["train_batches"][arch][0])
+        out.setdefault("whole_raises", {}).update(
+            _whole_bodies_raise(cfg, params))
+    return out
+
+
+def _step_flops(rank, cfg, np_state, batch):
+    """(rank 0's FLOPs in one train step on the 2x2 mesh under
+    ``tp_fsdp``, one device's in the same step), counted by
+    ``comm_analysis.Recorder`` (``CellProgram.trace``)."""
+    from repro_torch.interop import from_jax_train_state
+    from repro_torch.launch.cells import CellProgram
+    from repro_torch.models import lm
+    from repro_torch.sharding import partitioning
+    ctx = _mesh_ctx("tp_fsdp")
+    state = from_jax_train_state(np_state, cfg, "cpu", ctx=ctx)
+    mesh = CellProgram("train_step", lm.make_train_step(cfg),
+                       (state, partitioning.shard_batch(ctx, _batch(batch))),
+                       None, None, ctx=ctx).trace().flops
+    if rank:
+        return mesh, None
+    one = CellProgram("train_step", lm.make_train_step(cfg),
+                      (from_jax_train_state(np_state, cfg, "cpu"),
+                       _batch(batch)), None, None).trace().flops
+    return mesh, one
+
+
+def _whole_bodies_raise(cfg, params):
+    """Each mixer of ``params`` (laid out under ``serve``) run with a body
+    that gathers every weight (``split_model=False``), where the
+    reference splits it: the error each raises ({kind: message}), or
+    None where one runs."""
+    from repro_torch.models.layers import attention, mamba, mla, rwkv
+    from repro_torch.sharding import context
+    from repro_torch.sharding.context import lay_out, use_sharding
+    ctx = _mesh_ctx("serve")
+    x = torch.randn((4, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    out = {}
+    seen = set()
+    for layer in params.layers:
+        mixer = layer.mixer
+        kind = type(mixer).__name__
+        if kind in seen:
+            continue
+        seen.add(kind)
+        mod = {"Attention": attention, "MLA": mla, "Mamba": mamba,
+               "RWKV6": rwkv}[kind]
+        real = context.local_body
+
+        def whole(*a, **kw):
+            return real(*a, **dict(kw, split_model=False))
+        mod.local_body = whole
+        try:
+            with use_sharding(ctx), torch.inference_mode():
+                mixer(lay_out(x, ("batch", None, None)))
+            out[kind] = None
+        except ValueError as e:
+            out[kind] = str(e)
+        finally:
+            mod.local_body = real
     return out
 
 
@@ -494,10 +616,19 @@ def fault_ranks(rank, inputs, where):
     return str(err)
 
 
-def group_of_one(rank, arch, device):
-    """``arch`` at ``reduced()`` size on a (1, 1) mesh of this group of
-    one against the same weights unsharded: init, prefill, 4 decode steps
-    and 3 train steps; which of them are equal bit for bit."""
+def group_of_one(rank, archs, device):
+    """Each of ``archs`` (or one arch) at ``reduced()`` size on a (1, 1) mesh of this
+    group of one against the same weights unsharded: init, prefill, 4
+    decode steps and 3 train steps; which of them are equal bit for
+    bit."""
+    out = {}
+    for arch in (archs,) if isinstance(archs, str) else archs:
+        out.update({f"{arch} {k}": v for k, v in
+                    _group_of_one(arch, device).items()})
+    return out
+
+
+def _group_of_one(arch, device):
     from repro_torch.config import get_arch, reduced
     from repro_torch.models import lm, transformer
     from repro_torch.sharding import partitioning
