@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from repro_torch import obs
 from repro_torch.api.specs import ExecutionSpec, ServeSpec, TrainSpec
 from repro_torch.config import SNNConfig, get_snn
 from repro_torch.device import resolve_device
@@ -173,17 +174,24 @@ class Session:
 
         With a mesh in the spec, the batch is sharded over the mesh's batch
         axes by the session's ``MeshRunner`` (``bucket`` is its pad target):
-        the logits equal the unsharded ones bit for bit."""
-        frames = np.asarray(frames, dtype=np.float32)
-        n = frames.shape[0]
-        if bucket is not None and bucket < n:
-            raise ValueError(f"bucket={bucket} cannot hold a batch of {n}")
-        runner = self._runner()
-        if runner is not None:
-            return runner.infer(self.params, frames, pad_to=bucket)
-        eng = self._single_shot_engine(n if bucket is None
-                                       else max(n, int(bucket)))
-        return eng.infer(frames, bucket=bucket)
+        the logits equal the unsharded ones bit for bit.
+
+        Under a profiler, the call is the root span ``repro_torch.infer``
+        and its stages (``infer.stage``, ``infer.forward``, ``infer.wait``,
+        ``infer.readback``) are spans inside it (``obs.spans``)."""
+        with obs.span("infer", root=True):
+            with obs.span("infer.stage"):
+                frames = np.asarray(frames, dtype=np.float32)
+            n = frames.shape[0]
+            if bucket is not None and bucket < n:
+                raise ValueError(
+                    f"bucket={bucket} cannot hold a batch of {n}")
+            runner = self._runner()
+            if runner is not None:
+                return runner.infer(self.params, frames, pad_to=bucket)
+            eng = self._single_shot_engine(n if bucket is None
+                                           else max(n, int(bucket)))
+            return eng.infer(frames, bucket=bucket)
 
     def serve(self, frames, *, steps: int = 1) -> Dict[str, float]:
         """Single-shot serving: ``steps`` iterations of one fixed batch, each
@@ -239,24 +247,33 @@ class Session:
 
         With a mesh, the step runs through the session's ``MeshRunner``:
         per-example gradient rows, combined on the host in a fixed order,
-        so the new params are bit-identical at every shard count."""
+        so the new params are bit-identical at every shard count.
+
+        Under a profiler, the step is the root span
+        ``repro_torch.train_step``, with ``train.stage``, ``train.forward``,
+        ``train.backward`` (the weight gradient, ``train.wgrad``, inside
+        it), ``train.update`` and ``train.wait`` (``obs.spans``)."""
         from repro_torch.core.snn_train import make_train_step
-        if self._mom is None:
-            self._mom = tree_map(torch.zeros_like, self.params)
-        runner = self._runner()
-        if runner is not None:
-            self.params, self._mom, loss = runner.train_step(
-                self.params, self._mom, x, y)
-        else:
-            if self._train_step is None:
-                self._train_step = make_train_step(
-                    self.cfg, spec=self._as_train_spec())
-            x, y = to_device((x, y), self.device)
-            self.params, self._mom, loss = self._train_step(
-                self.params, self._mom, x, y)
-        for eng in self._engines.values():
-            eng.update_params(self.params)
-        return float(loss)
+        with obs.span("train_step", root=True):
+            if self._mom is None:
+                self._mom = tree_map(torch.zeros_like, self.params)
+            runner = self._runner()
+            if runner is not None:
+                self.params, self._mom, loss = runner.train_step(
+                    self.params, self._mom, x, y)
+            else:
+                if self._train_step is None:
+                    self._train_step = make_train_step(
+                        self.cfg, spec=self._as_train_spec())
+                with obs.span("train.stage"):
+                    x, y = to_device((x, y), self.device)
+                self.params, self._mom, loss = self._train_step(
+                    self.params, self._mom, x, y)
+            with obs.span("train.update"):
+                for eng in self._engines.values():
+                    eng.update_params(self.params)
+            with obs.span("train.wait"):
+                return float(loss)
 
     def evaluate(self, x, y) -> float:
         """Classification accuracy through the spec-selected backend, on

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.config import SNNConfig
 from repro_torch.core import snn_layers as L
 from repro_torch.core.neuron import LIFState
@@ -403,13 +404,26 @@ def _apply_time_batched(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         params, frames, cfg, surrogate_alpha=surrogate_alpha,
         surrogate_kind=surrogate_kind, use_kernels=use_kernels,
         schedule=schedule, carry=carry, t_chunk=T, logits_only=logits_only)
+    logits = finalize_logits(carry.readout_v, cfg, cfg.timesteps)
+    spike_counts, spike_totals = _sum_counts(counts_t, frames)
     return SNNOutputs(
-        logits=finalize_logits(carry.readout_v, cfg, cfg.timesteps),
-        spike_counts=tuple(c.sum(dim=0) for c in counts_t),
-        spike_totals=tuple(c.sum() for c in counts_t),
+        logits=logits,
+        spike_counts=spike_counts,
+        spike_totals=spike_totals,
         timestep_counts=tuple(counts_t),
         skip_fractions=tuple(skips),
     )
+
+
+def _sum_counts(counts_t: Sequence[torch.Tensor], frames: torch.Tensor):
+    """The outputs' spike counts (over t) and totals of each layer's
+    (t, Cout) counts, in a ``model.counts`` span (nothing to sum, and no
+    span, under ``logits_only``)."""
+    if not counts_t:
+        return (), ()
+    with obs.span("model.counts", device=frames):
+        return (tuple(c.sum(dim=0) for c in counts_t),
+                tuple(c.sum() for c in counts_t))
 
 
 def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
@@ -442,10 +456,12 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     inv_perms: List[Optional[torch.Tensor]] = [None] * n_conv
     if use_kernels and schedule is not None:
         from repro_torch.core.scheduler import permute_conv_params
-        params = permute_conv_params(params, list(schedule))
-        if not logits_only:
-            inv_perms = [torch.as_tensor(s.out_perm, device=frames.device)
-                         .argsort() for s in schedule]
+        with obs.span("model.schedule"):
+            params = permute_conv_params(params, list(schedule))
+            if not logits_only:
+                inv_perms = [torch.as_tensor(s.out_perm,
+                                             device=frames.device)
+                             .argsort() for s in schedule]
     count = not logits_only
 
     counts_t: List[torch.Tensor] = []      # per layer (t_chunk, Cout)
@@ -459,14 +475,18 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         # observability: the fused kernel's skip-table sparsity, computed on
         # the train the kernel sees
         if count and use_kernels and train.dim() == 5:
-            skips.append(skip_table_fraction(train, r, aprc=cfg.aprc))
+            with obs.span("model.skip_table", device=train):
+                skips.append(skip_table_fraction(train, r, aprc=cfg.aprc))
 
     for i in range(n_conv):
         p = params["conv"][i]
         w, b = p["w"].contiguous(), p["b"].contiguous()
         # a layer after the first is fed a spike train: no value check
         binary = True if i else None
-        cnt = None
+        # the layer's (t, Cout) counts: the plain LIF scan gives them, the
+        # kernels' spikes are summed below; the readout counts its
+        # membranes ``vs`` above threshold
+        cnt, vs = None, None
         if i == n_conv - 1 and head_dim is None:
             # segmentation: non-firing conv readout — membrane accumulates
             # via a sequential loop over t
@@ -474,59 +494,66 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                 x = x.unsqueeze(0).expand((T,) + x.shape)
                 hoist = False
             note_skip(x, w.shape[0])
-            z = _conv_folded(x, p, cfg, use_kernels, binary)
-            v, cnts = carry.readout_v, []
-            for z_t in z:
-                v = v + z_t
-                if count:
-                    cnts.append((v >= v_th).to(z_t.dtype).sum(dim=(0, 1, 2)))
+            with obs.span(f"model.conv{i}"):
+                z = _conv_folded(x, p, cfg, use_kernels, binary)
+                v, vs = carry.readout_v, []
+                for z_t in z:
+                    v = v + z_t
+                    if count:
+                        vs.append(v)
             new_readout = v
-            if count:
-                cnt = torch.stack(cnts)
         elif hoist and i == 0:
             # direct coding: input constant over T -> conv once, reuse
-            if use_kernels:
-                # kernel A's hoisted mode: the conv and all T LIF steps in
-                # one launch
-                x, v0 = x.contiguous(), carry.conv_v[i].contiguous()
-                if needs_grad(x, v0, w, b):
-                    s, v_fin = HoistedConvLIFFn.apply(
-                        x, v0, w, b, T, float(v_th), cfg.aprc,
-                        float(surrogate_alpha), surrogate_kind)
+            with obs.span(f"model.conv{i}"):
+                if use_kernels:
+                    # kernel A's hoisted mode: the conv and all T LIF steps
+                    # in one launch
+                    x, v0 = x.contiguous(), carry.conv_v[i].contiguous()
+                    if needs_grad(x, v0, w, b):
+                        s, v_fin = HoistedConvLIFFn.apply(
+                            x, v0, w, b, T, float(v_th), cfg.aprc,
+                            float(surrogate_alpha), surrogate_kind)
+                    else:
+                        s, v_fin = spiking_conv_lif_hoisted(
+                            x, v0, w, b, t=T, v_th=float(v_th),
+                            aprc=cfg.aprc)
                 else:
-                    s, v_fin = spiking_conv_lif_hoisted(
-                        x, v0, w, b, t=T, v_th=float(v_th), aprc=cfg.aprc)
-                if count:
-                    cnt = s.sum(dim=(1, 2, 3))
-            else:
-                z1 = _conv_plain(x, p, cfg.aprc)
-                s, cnt, v_fin = _lif_scan(z1, v_th, surrogate_alpha,
-                                          surrogate_kind, carry.conv_v[i],
-                                          const_t=T, count=count)
+                    z1 = _conv_plain(x, p, cfg.aprc)
+                    s, cnt, v_fin = _lif_scan(z1, v_th, surrogate_alpha,
+                                              surrogate_kind,
+                                              carry.conv_v[i], const_t=T,
+                                              count=count)
             new_conv_v.append(v_fin)
             x = s
         else:
             if use_kernels:
                 x = x.contiguous()
                 note_skip(x, w.shape[0])
-                s, v_fin = spiking_conv_lif(
-                    x, carry.conv_v[i].contiguous(), w, b, v_th=float(v_th),
-                    aprc=cfg.aprc, surrogate_alpha=surrogate_alpha,
-                    surrogate_kind=surrogate_kind)
-                if count:
-                    cnt = s.sum(dim=(1, 2, 3))
+                with obs.span(f"model.conv{i}"):
+                    s, v_fin = spiking_conv_lif(
+                        x, carry.conv_v[i].contiguous(), w, b,
+                        v_th=float(v_th), aprc=cfg.aprc,
+                        surrogate_alpha=surrogate_alpha,
+                        surrogate_kind=surrogate_kind)
             else:
-                z = _conv_folded(x, p, cfg, use_kernels, binary)
-                s, cnt, v_fin = _lif_scan(z, v_th, surrogate_alpha,
-                                          surrogate_kind, carry.conv_v[i],
-                                          count=count)
+                with obs.span(f"model.conv{i}"):
+                    z = _conv_folded(x, p, cfg, use_kernels, binary)
+                    s, cnt, v_fin = _lif_scan(z, v_th, surrogate_alpha,
+                                              surrogate_kind,
+                                              carry.conv_v[i], count=count)
             new_conv_v.append(v_fin)
             x = s
         if not count:
             continue
-        if inv_perms[i] is not None:
-            cnt = cnt[:, inv_perms[i]]
-        counts_t.append(cnt.float())
+        with obs.span("model.counts", device=frames):
+            if vs is not None:
+                cnt = torch.stack([(v_t >= v_th).to(z.dtype)
+                                   .sum(dim=(0, 1, 2)) for v_t in vs])
+            elif cnt is None:
+                cnt = x.sum(dim=(1, 2, 3))
+            if inv_perms[i] is not None:
+                cnt = cnt[:, inv_perms[i]]
+            counts_t.append(cnt.float())
 
     if head_dim is not None:
         # each dense layer's product for the whole chunk in one GEMM (its
@@ -593,9 +620,10 @@ def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
     else:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {SNN_BACKENDS}")
+    spike_counts, spike_totals = _sum_counts(counts_t, frames)
     return ChunkOutputs(
-        spike_counts=tuple(c.sum(dim=0) for c in counts_t),
-        spike_totals=tuple(c.sum() for c in counts_t),
+        spike_counts=spike_counts,
+        spike_totals=spike_totals,
         timestep_counts=tuple(counts_t),
         skip_fractions=tuple(skips),
     ), carry

@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from repro_torch import obs
 from repro_torch.config import SNNConfig
 from repro_torch.core.snn_model import snn_apply
 
@@ -109,12 +110,16 @@ def make_loss_fn(cfg: SNNConfig, *, backend=_UNSET, surrogate_alpha=_UNSET,
 def _value_and_grad(loss_fn: Callable, params: Dict, *args
                     ) -> Tuple[torch.Tensor, Dict]:
     """The loss and its gradient with respect to every leaf of ``params``.
-    A leaf the loss does not reach raises, rather than reading as zero."""
+    A leaf the loss does not reach raises, rather than reading as zero.
+    The two halves are the spans ``train.forward`` and ``train.backward``
+    (``obs.spans``)."""
     leaves, spec = tree_flatten(params)
     leaves = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(leaves, spec), *args)
-        grads = torch.autograd.grad(loss, leaves)
+        with obs.span("train.forward"):
+            loss = loss_fn(tree_unflatten(leaves, spec), *args)
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten(list(grads), spec)
 
 
@@ -167,7 +172,7 @@ def make_train_step(cfg: SNNConfig, *, backend=_UNSET, lr=_UNSET,
     def step(params: Dict, mom: Dict, x: torch.Tensor, y: torch.Tensor
              ) -> Tuple[Dict, Dict, torch.Tensor]:
         loss, g = _value_and_grad(loss_fn, params, x, y)
-        with torch.no_grad():
+        with torch.no_grad(), obs.span("train.update"):
             mom = tree_map(lambda m, gg: mom_v * m + gg, mom, g)
             params = tree_map(lambda w, m: w - lr_v * m, params, mom)
         return params, mom, loss

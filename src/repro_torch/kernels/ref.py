@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core.snn_layers import conv2d
 from repro_torch.core.surrogate import surrogate_grad
 from repro_torch.device import full_fp32
@@ -118,18 +119,21 @@ def conv_grad_weights(x: torch.Tensor, dz: torch.Tensor, *, aprc: bool,
     (the reference computes it outside any Pallas kernel too).
 
     x: (N, H, W, Cin) forward input;  dz: (N, E_h, E_w, Cout).
+    The call is the span ``train.wgrad``, timed on the device
+    (``obs.spans``).
     """
     lo, hi = conv_pads(r, aprc)
     n, e_h, e_w, cout = dz.shape
     cin = x.shape[-1]
-    xp = F.pad(x.float(), (0, 0, lo, hi, lo, hi))
-    gz = dz.float().reshape(n * e_h * e_w, cout)
-    with full_fp32():
-        dw = torch.stack([
-            torch.stack([xp[:, dy:dy + e_h, dx:dx + e_w].reshape(-1, cin).T
-                         @ gz for dx in range(r)])
-            for dy in range(r)])
-    return dw, dz.float().sum(dim=(0, 1, 2))
+    with obs.span("train.wgrad", device=dz):
+        xp = F.pad(x.float(), (0, 0, lo, hi, lo, hi))
+        gz = dz.float().reshape(n * e_h * e_w, cout)
+        with full_fp32():
+            dw = torch.stack([
+                torch.stack([xp[:, dy:dy + e_h, dx:dx + e_w]
+                             .reshape(-1, cin).T @ gz for dx in range(r)])
+                for dy in range(r)])
+        return dw, dz.float().sum(dim=(0, 1, 2))
 
 
 # -- the tensor-core kernels' operand splits ----------------------------------

@@ -4,9 +4,8 @@
 lock.  The engine holds exactly one recorder and calls ``emit`` at every
 lifecycle point unconditionally — a disabled recorder (``EngineConfig.trace``
 off, the default) returns after a single attribute check, which keeps the
-call sites branch-free and the disabled overhead unmeasurable (the
-``serve/obs/trace_overhead`` BENCH row keeps the *enabled* overhead under
-5% too).
+call sites branch-free.  The port holds no gate on the *enabled* overhead:
+an enabled recorder takes a lock and appends a tuple per event.
 
 Timestamps come from the engine's ``Clock`` (``bind_clock``): under a
 ``VirtualClock`` the single-threaded scheduler emits a deterministic
@@ -20,6 +19,11 @@ in *exactly one* event from ``TERMINAL_KINDS`` — ``complete``, ``reject``,
 ``deadline``, ``cancel`` or ``failed`` — mirroring the engine's
 exactly-once future resolution (tests/test_obs.py asserts conservation,
 including under sampled FaultPlan chaos).
+
+The ``span`` kind is not the engine's: ``obs.spans`` keeps one
+process-level recorder of the program's stage spans (``KIND_SPAN``), each
+event stamped at the span's start on ``time.perf_counter``'s clock, with
+its root call's id as ``rid``.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ __all__ = ["TraceEvent", "TraceRecorder", "TERMINAL_KINDS",
            "KIND_COMPLETE", "KIND_REJECT", "KIND_DEADLINE", "KIND_CANCEL",
            "KIND_FAILED", "KIND_SWEEP", "KIND_LANE_DEATH", "KIND_HANG",
            "KIND_LANE_RESTART", "KIND_ROUND", "KIND_DRAIN", "KIND_SHUTDOWN",
-           "KIND_CHUNK_START", "KIND_CHUNK_DONE", "KIND_MID_EVICT"]
+           "KIND_CHUNK_START", "KIND_CHUNK_DONE", "KIND_MID_EVICT",
+           "KIND_SPAN"]
 
 # -- lifecycle event kinds ---------------------------------------------------
 KIND_SUBMIT = "submit"            # request entered the queue
@@ -64,6 +69,9 @@ KIND_CHUNK_DONE = "chunk_done"    # a request finished a chunk (t_served)
 KIND_MID_EVICT = "mid_evict"      # partially-served request evicted at a
 #                                 # chunk boundary (cancel/deadline); the
 #                                 # matching TERMINAL event still fires
+# the program's stage spans (``obs.spans``), in a recorder of their own
+KIND_SPAN = "span"                # a span closed (name, start/end ns,
+#                                 # parent, thread; rid = root call id)
 
 #: The kinds that resolve a request; each rid gets exactly one of these.
 TERMINAL_KINDS = frozenset(

@@ -30,8 +30,9 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
+from repro_torch import obs
 from repro_torch.serving.request import Request
 
 __all__ = ["DEFAULT_BUCKETS", "bucket_for", "pad_frames", "ExecCache",
@@ -60,12 +61,28 @@ def pad_frames(frames: Sequence[np.ndarray], bucket: int) -> np.ndarray:
     return x
 
 
+def _copy_to_host(tree):
+    return tree_map(lambda a: a.detach().cpu().numpy()
+                    if isinstance(a, torch.Tensor) else a, tree)
+
+
 def to_host(tree):
     """Every tensor of ``tree`` (an output or carry NamedTuple, a tensor)
     as a host numpy array.  The copy waits for the device, so a wall clock
-    read after it sees finished work."""
-    return tree_map(lambda a: a.detach().cpu().numpy()
-                    if isinstance(a, torch.Tensor) else a, tree)
+    read after it sees finished work.
+
+    Under a profiler the wait is a span of its own: ``infer.wait``
+    synchronizes the outputs' stream once, the wait the first copy would
+    make, and ``infer.readback`` holds the copies after it."""
+    if not obs.tracing():
+        return _copy_to_host(tree)
+    with obs.span("infer.wait"):
+        dev = next((a.device for a in tree_leaves(tree)
+                    if isinstance(a, torch.Tensor) and a.is_cuda), None)
+        if dev is not None:
+            torch.cuda.current_stream(dev).synchronize()
+    with obs.span("infer.readback"):
+        return _copy_to_host(tree)
 
 
 def to_device(tree, device: torch.device):
@@ -201,7 +218,10 @@ class ExecCache:
     def _entry(run, device: torch.device):
         def call(*args):
             with torch.inference_mode():
-                return run(*to_device(args, device))
+                with obs.span("infer.stage"):
+                    args = to_device(args, device)
+                with obs.span("infer.forward"):
+                    return run(*args)
         return call
 
     def run(self, frames: np.ndarray, backend: str,

@@ -85,6 +85,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.config import SNNConfig
 from repro_torch.core.balance import balance_ratio
 from repro_torch.core.snn_model import ChunkCarry
@@ -603,7 +604,8 @@ class ServingEngine:
         elif bucket < len(frames):
             raise ValueError(
                 f"bucket={bucket} cannot hold a batch of {len(frames)}")
-        x = pad_frames(frames, bucket)
+        with obs.span("infer.stage"):
+            x = pad_frames(frames, bucket)
         return to_host(cache.run(x, self.ecfg.backend, timesteps=timesteps))
 
     # -- chunked execution (EngineConfig.chunk_timesteps) --------------------
@@ -1849,7 +1851,9 @@ class ServingEngine:
         *canonical-bucket* option.  A row's logits do not depend on its
         batchmates or the bucket (``core.snn_layers``), so every bucket
         gives the same bits."""
-        frames = np.asarray(frames, dtype=np.float32)
+        with obs.span("infer.stage"):
+            frames = np.asarray(frames, dtype=np.float32)
+            rows = list(frames)
         n = frames.shape[0]
         if bucket is not None:
             bucket = int(bucket)
@@ -1860,7 +1864,7 @@ class ServingEngine:
             if bucket < n:
                 raise ValueError(
                     f"bucket={bucket} cannot hold a batch of {n}")
-        out = self._run_batch(list(frames), bucket=bucket)
+        out = self._run_batch(rows, bucket=bucket)
         return out._replace(logits=out.logits[:n])
 
     def infer_pipelined(self, frames: np.ndarray, steps: int) -> float:
