@@ -32,8 +32,17 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           aprc+cbws schedule against backend="batched" (plain ops), both
           on the card; each layer's threshold flips (none in layer 0,
           whose kernel gives the plain path's bits); kernel launch counts
-          per forward; the logits-only forward (``logits_only=True``)
-          gives the same logits bits
+          per forward (every inference launch counting, and the
+          skip-table finisher once a fused layer); the logits-only forward
+          (``logits_only=True``) gives the same logits bits
+  counts  the counting launches at the benchmark's shapes (snn-mnist at
+          batch 1024, snn-seg at 16, skewed weights, CBWS-permuted): each
+          layer's counting launch (hoisted mode, B) gives the bits of its
+          launch without counts and counts equal to the reductions of its
+          own train, whole and in two chunks; the finisher the bits of its
+          plain version on the same row counts and of skip_table_fraction
+          on the train; the epilogue's cost (counting against plain
+          launches, device time); one forward counting through them alone
   profile one hopper forward's device time by kernel (torch.profiler)
           against its time between CUDA events: the device's idle share;
           the same for the logits-only forward and the batched one
@@ -823,6 +832,11 @@ def phase_kernels(cfg, params, frames, trains):
             got = spiking_conv_lif_hoisted(x, v0, w, b, **kw)
             check_exact(f"spiking_conv_lif_hoisted {case}", got,
                         spiking_conv_lif_hoisted_plain(x, v0, w, b, **kw))
+            if not save_u:
+                check_counted(f"spiking_conv_lif_hoisted {case}",
+                              spiking_conv_lif_hoisted(x, v0, w, b,
+                                                       count=True, **kw),
+                              *got)
             spiked = float(got[0].sum())
             if case == "all-zero frames" and not spiked > 0:
                 fail("spiking_conv_lif_hoisted: the bias-only skip path "
@@ -882,6 +896,8 @@ def phase_kernels(cfg, params, frames, trains):
         e_h, e_w = conv_out_hw(x.shape[2], x.shape[3], w.shape[0], aprc)
         v0 = rand(x.shape[1], e_h, e_w, w.shape[-1], scale=0.3)
         s, v = spiking_conv_lif(x, v0, w, b, v_th=v_th, aprc=aprc)
+        check_counted(f"spiking_conv_lif {case}", spiking_conv_lif(
+            x, v0, w, b, v_th=v_th, aprc=aprc, count=True), s, v)
         if out_perm is None:
             s_p, v_p, u_p = spiking_conv_lif_plain(
                 x, v0, w, b, v_th=v_th, aprc=aprc, save_u=True)
@@ -1087,9 +1103,9 @@ def phase_model(cfg, params, frames, trains):
     got = snn_apply(params, frames, cfg, backend="hopper", schedule=sched)
     torch.cuda.synchronize()
     launches = {k: v for k, v in read_counts().items() if v}
-    if launches != {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 2}:
+    if launches != counted_forwards(1, 2):
         fail(f"one hopper forward launched {launches}, expected the "
-             f"hoisted mode 1 and B 2")
+             f"hoisted mode 1 and B 2, all counting, and the finisher 2")
     want = snn_apply(params, frames, cfg, backend="batched")
     want_skips = [float(skip_table_fraction(t, cfg.kernel_size))
                   for t in trains]
@@ -1162,6 +1178,204 @@ def phase_model(cfg, params, frames, trains):
                   batched_ms, "batched forward")
 
 
+COUNT_BATCHES = {"snn-mnist": 1024, "snn-seg": 16}   # the benchmark's
+
+
+def check_counted(name, outs, want_s, want_v):
+    """A counting launch's (s, v, TrainCounts): the train and membrane of
+    the same launch without counts, bit for bit, and counts equal to
+    torch's reductions of that train (``train_counts_plain``).  Returns
+    the counts."""
+    import torch
+    from repro_torch.kernels.spiking_conv import train_counts_plain
+    s, v, c = outs
+    check_exact(f"{name}, counting", [s, v], [want_s, want_v])
+    plain = train_counts_plain(s)
+    for part in ("t", "rows"):
+        a, b = getattr(c, part), getattr(plain, part)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"{name}: the launch's {part} counts differ from the "
+                 f"reductions of its train at "
+                 f"{int((a != b).sum()) if a.shape == b.shape else -1} "
+                 f"entries")
+    return c
+
+
+def phase_counts():
+    """The counting launches at the benchmark's shapes (snn-mnist at batch
+    1024 on ``mnist_like`` digits, snn-seg at batch 16 on ``road_like``
+    frames, skewed weights through an aprc+cbws schedule's permutation):
+    every layer's counting launch (the hoisted mode, B) gives the bits of
+    the launch without counts, and counts equal to the reductions of its
+    own train, whole T and as two chunks; the finisher gives the bits of
+    its plain version on the same row counts and of ``skip_table_fraction``
+    on the train; the epilogue's device cost (counted against plain
+    launches, device time by the profiler); then one hopper
+    forward counts through these launches alone (launches per forward,
+    ``skip_table_fraction.calls`` unchanged, its counts and skip fractions
+    those of the layers' trains bit for bit).  Returns the summary entries
+    of the counting instances and the finisher."""
+    import torch
+    from repro_torch.config import get_snn
+    from repro_torch.core import build_schedule, init_snn, layer_shapes
+    from repro_torch.core.scheduler import permute_conv_params
+    from repro_torch.core.snn_model import skew_channels, snn_apply
+    from repro_torch.data.synthetic import mnist_like, road_like
+    from repro_torch.kernels.spiking_conv import (
+        BLOCK_ROWS, _skip_fraction, skip_fraction_from_rows,
+        skip_table_blocks, skip_table_fraction, spiking_conv_lif_hoisted,
+        spiking_conv_lif_hoisted_plain, train_counts_plain)
+    from repro_torch.kernels.spiking_conv_lif import (spiking_conv_lif,
+                                                      spiking_conv_lif_plain)
+    summary = {"spiking_conv_lif_hoisted_counted": [],
+               "spiking_conv_lif_counted": [], "skip_fraction_from_rows": []}
+    for net in ("snn-mnist", "snn-seg"):
+        cfg, batch = get_snn(net), COUNT_BATCHES[net]
+        params = skew_channels(init_snn(torch.Generator().manual_seed(SEED),
+                                        cfg, device="cuda"), 1.0, seed=SEED)
+        h, w = cfg.input_hw
+        frames = (mnist_like(batch, seed=SEED) if cfg.dense_units else
+                  road_like(batch, h=h, w=w, seed=SEED))[0]
+        x = torch.from_numpy(frames).cuda()
+        dev = x.device
+        sched = build_schedule(params, cfg, "aprc+cbws")
+        conv = permute_conv_params(params, list(sched))["conv"]
+        shapes, T, r = layer_shapes(cfg), cfg.timesteps, cfg.kernel_size
+        n_spiking = len(conv) - (0 if cfg.dense_units else 1)
+        kw = dict(v_th=cfg.v_threshold, aprc=cfg.aprc)
+        trains, counts, inp = [], [], x
+        for i in range(n_spiking):
+            w, b = conv[i]["w"].contiguous(), conv[i]["b"].contiguous()
+            v0 = torch.zeros((batch,) + shapes[i], device=dev)
+            hoisted = i == 0
+            if hoisted:
+                name = "spiking_conv_lif_hoisted_counted"
+
+                def run(count, steps=T, v=v0, xs=inp, w=w, b=b):
+                    return spiking_conv_lif_hoisted(xs, v, w, b, t=steps,
+                                                    count=count, **kw)
+
+                def plain(xs=inp, v=v0, w=w, b=b):
+                    return train_counts_plain(spiking_conv_lif_hoisted_plain(
+                        xs, v, w, b, t=T, **kw)[0])
+                nbytes, flops = hoisted_work(inp, w, T, cfg.aprc, False)
+                taps, peak = None, None
+            else:
+                name = "spiking_conv_lif_counted"
+
+                def run(count, steps=T, v=v0, xs=inp, w=w, b=b):
+                    return spiking_conv_lif(xs, v, w, b, count=count, **kw)
+
+                def plain(xs=inp, v=v0, w=w, b=b):
+                    return train_counts_plain(spiking_conv_lif_plain(
+                        xs, v, w, b, **kw)[0])
+                nbytes, flops, taps = conv_work(inp, w, cfg.aprc, lif=True)
+                peak = PEAK_BF16
+            case = f"{net} layer {i}"
+            s, v = run(False)
+            c = check_counted(f"{name} {case}", run(True), s, v)
+            # two chunks threading the membrane: their counts, joined, are
+            # the whole run's
+            half = T // 2
+            if hoisted:
+                s1, v1, c1 = run(True, steps=half)
+                s2, v2, c2 = run(True, steps=T - half, v=v1)
+            else:
+                s1, v1, c1 = run(True, xs=inp[:half].contiguous())
+                s2, v2, c2 = run(True, v=v1, xs=inp[half:].contiguous())
+            if not (torch.equal(torch.cat([c1.t, c2.t]), c.t) and
+                    torch.equal(torch.cat([c1.rows, c2.rows]), c.rows)):
+                fail(f"{name} {case}: the counts of two chunks differ from "
+                     f"the whole run's")
+            del s1, v1, c1, s2, v2, c2
+            count_bytes = 4 * (c.t.numel() + c.rows.numel())
+            # the device's time (the profiler's: a seg layer's launch is
+            # shorter than the host's), the counts' zero fill included
+            dev_ms = device_ms(lambda: run(True))
+            dev_ms_plain = device_ms(lambda: run(False))
+            rec = {"shape": list(inp.shape), "timesteps": T,
+                   "spikes": int(c.t.sum()), "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: run(True)),
+                   "ms_without_count": cuda_ms(lambda: run(False)),
+                   "device_ms": dev_ms,
+                   "device_ms_without_count": dev_ms_plain,
+                   "epilogue_share": dev_ms / dev_ms_plain - 1.0,
+                   "count_bytes": count_bytes,
+                   # what the model ran before the counting launches: the
+                   # reductions of the train and its next skip table
+                   "reductions_ms": cuda_ms(lambda: (
+                       train_counts_plain(s),
+                       skip_table_fraction(s, r, aprc=cfg.aprc)), reps=5),
+                   "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+                   "library_ms": None}
+            set_bounds(rec, nbytes + count_bytes, flops, taps, peak)
+            emit("kernel", name=name, case=case, **rec)
+            summary[name].append(rec)
+            trains.append(s)
+            counts.append(c)
+            del v
+            inp = s
+
+        # the finisher on each fused layer's input (every conv layer's
+        # after the first; snn-mnist's last train feeds its dense layers):
+        # the plain version's bits on the same row counts, and
+        # skip_table_fraction's on the train
+        fused = len(cfg.conv_channels) - 1
+        for i, (s, c) in enumerate(zip(trains[:fused], counts[:fused])):
+            t, n, h = c.rows.shape
+            got = skip_fraction_from_rows(c, r, aprc=cfg.aprc)
+            want = _skip_fraction(c.rows.reshape(t * n, h), r, cfg.aprc,
+                                  BLOCK_ROWS)
+            from_train = skip_table_fraction(s, r, aprc=cfg.aprc)
+            if not (torch.equal(got, want) and torch.equal(got, from_train)):
+                fail(f"skip_fraction_from_rows {net} layer {i + 1}: "
+                     f"{float(got)!r}, plain {float(want)!r}, from the "
+                     f"train {float(from_train)!r}")
+            cells = t * n * skip_table_blocks(h, r, aprc=cfg.aprc)
+            rec = {"shape": list(c.rows.shape), "cells": cells,
+                   "skip_fraction": float(got), "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: skip_fraction_from_rows(
+                       c, r, aprc=cfg.aprc)),
+                   "device_ms": device_ms(lambda: skip_fraction_from_rows(
+                       c, r, aprc=cfg.aprc)),
+                   "plain_ms": cuda_ms(lambda: _skip_fraction(
+                       c.rows.reshape(t * n, h), r, cfg.aprc, BLOCK_ROWS)),
+                   "library_ms": None}
+            set_bounds(rec, 4 * c.rows.numel() + 4, float(cells))
+            emit("kernel", name="skip_fraction_from_rows",
+                 case=f"{net} layer {i + 1}'s input", **rec)
+            summary["skip_fraction_from_rows"].append(rec)
+
+        # one forward: it counts through the launches above alone
+        calls = skip_table_fraction.calls
+        reset_counts()
+        out = snn_apply(params, x, cfg, backend="hopper", schedule=sched)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items() if v}
+        readout = {} if cfg.dense_units else {"spiking_conv": 1}
+        if launches != counted_forwards(1, n_spiking - 1, **readout):
+            fail(f"one {net} forward at batch {batch} launched {launches}")
+        if skip_table_fraction.calls != calls:
+            fail(f"one {net} forward called skip_table_fraction")
+        for i, c in enumerate(counts):
+            inv = torch.as_tensor(sched[i].out_perm, device=dev).argsort()
+            if not torch.equal(out.timestep_counts[i],
+                               c.t[:, inv].float()):
+                fail(f"{net} forward: layer {i}'s counts are not its "
+                     f"counting launch's")
+        if len(out.skip_fractions) != fused or any(
+                not torch.equal(f, skip_table_fraction(s, r, aprc=cfg.aprc))
+                for f, s in zip(out.skip_fractions, trains)):
+            fail(f"{net} forward: its skip fractions are not those of its "
+                 f"layers' trains")
+        emit("counts", config=net, batch=batch, timesteps=T,
+             launches_per_forward=launches,
+             skip_fractions=[float(f) for f in out.skip_fractions],
+             spike_totals=[float(v) for v in out.spike_totals])
+        del trains, counts, out
+    return summary
+
+
 def device_time(call, reps: int):
     """Device ms per call of ``call`` by kernel name, and its device
     launches, from the profiler's CUDA activity over ``reps`` calls."""
@@ -1218,7 +1432,7 @@ def phase_serve(cfg, steps: int = 8):
          timed_requests=steps, frames=s["frames"], seconds=s["seconds"],
          fps=s["fps"], spikes_per_frame=s["spikes_per_frame"],
          device=s["device"], launches=launches)
-    path = ("spiking_conv_lif_hoisted", "spiking_conv_lif")
+    path = tuple(counted_forwards(1, 2))
     if any(launches[k] == 0 for k in path):
         fail(f"the serve run did not go through every kernel: {launches}")
     return {k: launches[k] for k in path}, s["fps"]
@@ -1226,20 +1440,42 @@ def phase_serve(cfg, steps: int = 8):
 
 def _counters():
     """Each kernel's launch counter: (wrapper, attribute).  The hoisted
-    mode's wrapper counts its two kernel instances apart."""
+    mode's wrapper counts its kernel instances apart; the counting
+    instances of the hoisted mode and of B are counted in ``*_counted``
+    besides their plain ``launches``."""
     from repro_torch.kernels import lif as f
     from repro_torch.kernels import spiking_conv as a
     from repro_torch.kernels import spiking_conv_lif as b
     return {"spiking_conv": (a.spiking_conv, "launches"),
             "spiking_conv_lif_hoisted": (a.spiking_conv_lif_hoisted,
                                          "launches"),
+            "spiking_conv_lif_hoisted_counted": (a.spiking_conv_lif_hoisted,
+                                                 "launches_counted"),
             "spiking_conv_lif_hoisted_save_u": (a.spiking_conv_lif_hoisted,
                                                 "launches_save_u"),
             "spiking_conv_lif": (b.spiking_conv_lif, "launches"),
+            "spiking_conv_lif_counted": (b.spiking_conv_lif,
+                                         "launches_counted"),
+            "skip_fraction_from_rows": (a.skip_fraction_from_rows,
+                                        "launches"),
             "spiking_conv_lif_fwd": (b.spiking_conv_lif_fwd, "launches"),
             "lif_bwd": (b.lif_bwd, "launches"),
             "conv_grad_input": (a.conv_grad_input, "launches"),
             "lif_fused": (f.lif_fused, "launches")}
+
+
+def counted_forwards(n: int, b_layers: int, **more):
+    """The launches of ``n`` forwards that report counts: the hoisted mode
+    and each of the ``b_layers`` layers of kernel B in their counting
+    instances, and the skip-table finisher once a fused layer (the B layers
+    and a readout conv, given in ``more`` as ``spiking_conv``)."""
+    fused = b_layers + more.get("spiking_conv", 0)
+    return {"spiking_conv_lif_hoisted": n,
+            "spiking_conv_lif_hoisted_counted": n,
+            "spiking_conv_lif": b_layers * n,
+            "spiking_conv_lif_counted": b_layers * n,
+            "skip_fraction_from_rows": fused * n,
+            **{k: v * n for k, v in more.items()}}
 
 
 def reset_counts():
@@ -1413,10 +1649,13 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
         fail(f"the hopper loss fell by {h[0] - h[-1]} (< {MIN_LOSS_DROP})")
     # per step the hoisted mode's SAVE_U 1, C 2, D 3 (layer 0 too), E 2
     # (never for the frames), and the held-out evaluation's forward: the
-    # hoisted mode 1, B 2
+    # hoisted mode 1, B 2, none counting (it reads only the logits)
     want = {"spiking_conv": 0, "spiking_conv_lif_hoisted": 1,
+            "spiking_conv_lif_hoisted_counted": 0,
             "spiking_conv_lif_hoisted_save_u": steps,
-            "spiking_conv_lif": 2, "spiking_conv_lif_fwd": 2 * steps,
+            "spiking_conv_lif": 2, "spiking_conv_lif_counted": 0,
+            "skip_fraction_from_rows": 0,
+            "spiking_conv_lif_fwd": 2 * steps,
             "lif_bwd": 3 * steps, "conv_grad_input": 2 * steps,
             "lif_fused": 0}
     if counts["hopper"] != want:
@@ -1760,8 +1999,7 @@ def phase_seg(cfg, batch: int = SEG_BATCH):
     out = sess.infer(frames_np)
     torch.cuda.synchronize()
     fwd_launches = {k: v for k, v in read_counts().items() if v}
-    want = {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 4,
-            "spiking_conv": 1}
+    want = counted_forwards(1, 4, spiking_conv=1)
     if fwd_launches != want:
         fail(f"one snn-seg forward launched {fwd_launches}, expected {want}")
     if out.logits.shape != out_shape or not np.isfinite(out.logits).all():
@@ -2135,7 +2373,7 @@ def phase_api(cfg, frames):
          live_equals_infer=live_equal, train_losses=losses,
          first_loss_equals_raw_step=losses[0] == float(raw_loss),
          accuracy=acc, accuracy_raw=raw_acc)
-    if launches != {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 2}:
+    if launches != counted_forwards(1, 2):
         fail(f"Session.infer launched {launches}")
     if not infer_equal:
         fail("Session.infer's logits differ from snn_apply's")
@@ -2227,7 +2465,7 @@ def phase_mesh(cfg, frames):
          skip_fractions=[float(f) for f in got.skip_fractions])
     if not infer_equal:
         fail("mesh infer (data=1) differs from the unsharded Session.infer")
-    if launches != {"spiking_conv_lif_hoisted": 1, "spiking_conv_lif": 2}:
+    if launches != counted_forwards(1, 2):
         fail(f"mesh infer launched {launches}")
 
     # (b) the shard split of a forward, through the kernels
@@ -2434,8 +2672,7 @@ def phase_entry(cfg, train_losses):
         if not equal:
             fail("the serve launcher's --spec-file predictions differ from "
                  "Session.infer's")
-        if launches != {"spiking_conv_lif_hoisted": steps + 1,
-                        "spiking_conv_lif": 2 * (steps + 1)}:
+        if launches != counted_forwards(steps + 1, 2):
             fail(f"the serve launcher launched {launches}")
         trace_path = tmp / "trace.json"
         n_req = ENTRY_ENGINE_STEPS * ENTRY_ENGINE_BATCH
@@ -2527,8 +2764,7 @@ def phase_entry(cfg, train_losses):
         runs[backend]["seconds"] = seconds
         if backend == "hopper":
             add(launches)
-            want = {"spiking_conv_lif_hoisted": 3, "spiking_conv_lif": 12,
-                    "spiking_conv": 3}
+            want = counted_forwards(3, 4, spiking_conv=1)
             if launches != want:
                 fail(f"the ablation's three hopper forwards launched "
                      f"{launches}, expected {want}")
@@ -3864,6 +4100,7 @@ def main() -> int:
         summary.update(phase_train_kernels(cfg, params, frames, trains))
         phase_model(cfg, params, frames, trains)
         del trains
+        summary.update(phase_counts())
         # the hoisted mode and kernel B count the serve run; the hoisted
         # mode's SAVE_U and C, D and E the train run; A's dV mode and F
         # the two-kernel path of the ops layer
@@ -3905,8 +4142,14 @@ def main() -> int:
                                      tpu + "spiking_conv.py:184"),
         "spiking_conv_lif_hoisted_save_u": (csrc + "spiking_conv.cu",
                                             tpu + "spiking_conv.py:184"),
+        "spiking_conv_lif_hoisted_counted": (csrc + "spiking_conv.cu",
+                                             tpu + "spiking_conv.py:184"),
         "spiking_conv_lif": (csrc + "spiking_conv_lif.cu",
                              tpu + "spiking_conv_lif.py:181"),
+        "spiking_conv_lif_counted": (csrc + "spiking_conv_lif.cu",
+                                     tpu + "spiking_conv_lif.py:181"),
+        # no TPU kernel: the reference builds the table with XLA ops
+        "skip_fraction_from_rows": (csrc + "skip_table.cu", None),
         "spiking_conv_lif_fwd": (csrc + "spiking_conv_lif.cu",
                                  tpu + "spiking_conv_lif.py:181"),
         "lif_bwd": (csrc + "lif_bwd.cu", tpu + "spiking_conv_lif.py:329"),

@@ -27,13 +27,17 @@ all three backends train to the same gradient.
 
 Both orders compute the same math and also count per-layer per-channel
 spikes, the actual-workload signal CBWS/balance evaluation consumes (paper
-Fig. 2/7).  A caller that reads only the logits (the serving cache's
-``"logits"`` entries, the training loss) passes ``logits_only=True``: the
-forward then skips every count, the skip table and the casts and copies
-that feed them, returns empty observability fields, and gives the same
-logits bits (and so the same gradients).  Whole-T execution is one chunk
-started from the zero carry, and every readout is a sequential loop over
-t, so a chunked run only has to thread the carry.
+Fig. 2/7).  On the card the hopper backend's kernels count the spikes they
+fire (``count=True``: per step and channel, and per output row for the next
+layer's skip table), so no layer's train is read again to count it;
+elsewhere, and for a train the caller hands in, the counts are torch's
+reductions of the train.  A caller that reads only the logits (the serving
+cache's ``"logits"`` entries, the training loss) passes
+``logits_only=True``: the forward then skips every count, the skip table and
+the casts and copies that feed them, returns empty observability fields, and
+gives the same logits bits (and so the same gradients).  Whole-T execution
+is one chunk started from the zero carry, and every readout is a sequential
+loop over t, so a chunked run only has to thread the carry.
 
 This is the counterpart of ``repro.core.snn_model``: same layouts (NHWC,
 RRIO conv weights, (din, dout) dense weights), same names, same outputs.
@@ -441,6 +445,7 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     per-fused-layer skip fractions, new carry); under ``logits_only`` both
     lists are empty and nothing that feeds them is computed."""
     from repro_torch.kernels.spiking_conv import (needs_grad,
+                                                  skip_fraction_from_rows,
                                                   skip_table_fraction,
                                                   spiking_conv_lif_hoisted)
     from repro_torch.kernels.spiking_conv_lif import (HoistedConvLIFFn,
@@ -463,6 +468,9 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                                              device=frames.device)
                              .argsort() for s in schedule]
     count = not logits_only
+    # the kernels count the trains they fire (on the card only: on the CPU
+    # the wrappers' plain versions would count with torch ops anyway)
+    kernel_count = count and use_kernels and frames.device.type == "cuda"
 
     counts_t: List[torch.Tensor] = []      # per layer (t_chunk, Cout)
     skips: List[torch.Tensor] = []         # per fused layer: skip-cell fraction
@@ -470,13 +478,17 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     new_dense_v: List[torch.Tensor] = []   # per hidden dense layer: final v
     new_readout = carry.readout_v
     x = frames                             # (B,...) analog | (t,B,...) spikes
+    made = None                            # x's TrainCounts, if counted
 
-    def note_skip(train, r):
-        # observability: the fused kernel's skip-table sparsity, computed on
-        # the train the kernel sees
+    def note_skip(train, r, train_counts):
+        # observability: the fused kernel's skip-table sparsity of the train
+        # the kernel sees, from the counts of the launch that fired it
         if count and use_kernels and train.dim() == 5:
             with obs.span("model.skip_table", device=train):
-                skips.append(skip_table_fraction(train, r, aprc=cfg.aprc))
+                skips.append(
+                    skip_table_fraction(train, r, aprc=cfg.aprc)
+                    if train_counts is None else
+                    skip_fraction_from_rows(train_counts, r, aprc=cfg.aprc))
 
     for i in range(n_conv):
         p = params["conv"][i]
@@ -484,8 +496,9 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         # a layer after the first is fed a spike train: no value check
         binary = True if i else None
         # the layer's (t, Cout) counts: the plain LIF scan gives them, the
-        # kernels' spikes are summed below; the readout counts its
-        # membranes ``vs`` above threshold
+        # counting kernels give ``made``, other kernel calls' spikes are
+        # summed below; the readout counts its membranes ``vs`` above
+        # threshold
         cnt, vs = None, None
         if i == n_conv - 1 and head_dim is None:
             # segmentation: non-firing conv readout — membrane accumulates
@@ -493,7 +506,8 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
             if hoist and i == 0:        # degenerate single-layer net
                 x = x.unsqueeze(0).expand((T,) + x.shape)
                 hoist = False
-            note_skip(x, w.shape[0])
+            note_skip(x, w.shape[0], made)
+            made = None
             with obs.span(f"model.conv{i}"):
                 z = _conv_folded(x, p, cfg, use_kernels, binary)
                 v, vs = carry.readout_v, []
@@ -514,9 +528,10 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                             x, v0, w, b, T, float(v_th), cfg.aprc,
                             float(surrogate_alpha), surrogate_kind)
                     else:
-                        s, v_fin = spiking_conv_lif_hoisted(
+                        s, v_fin, *rest = spiking_conv_lif_hoisted(
                             x, v0, w, b, t=T, v_th=float(v_th),
-                            aprc=cfg.aprc)
+                            aprc=cfg.aprc, count=kernel_count)
+                        made = rest[0] if kernel_count else None
                 else:
                     z1 = _conv_plain(x, p, cfg.aprc)
                     s, cnt, v_fin = _lif_scan(z1, v_th, surrogate_alpha,
@@ -527,14 +542,17 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
             x = s
         else:
             if use_kernels:
-                x = x.contiguous()
-                note_skip(x, w.shape[0])
+                x, v0 = x.contiguous(), carry.conv_v[i].contiguous()
+                note_skip(x, w.shape[0], made)
+                # a forward that builds a gradient runs C, which does not
+                # count: its spikes are summed below
+                layer_count = kernel_count and not needs_grad(x, v0, w, b)
                 with obs.span(f"model.conv{i}"):
-                    s, v_fin = spiking_conv_lif(
-                        x, carry.conv_v[i].contiguous(), w, b,
-                        v_th=float(v_th), aprc=cfg.aprc,
+                    s, v_fin, *rest = spiking_conv_lif(
+                        x, v0, w, b, v_th=float(v_th), aprc=cfg.aprc,
                         surrogate_alpha=surrogate_alpha,
-                        surrogate_kind=surrogate_kind)
+                        surrogate_kind=surrogate_kind, count=layer_count)
+                    made = rest[0] if layer_count else None
             else:
                 with obs.span(f"model.conv{i}"):
                     z = _conv_folded(x, p, cfg, use_kernels, binary)
@@ -549,6 +567,8 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
             if vs is not None:
                 cnt = torch.stack([(v_t >= v_th).to(z.dtype)
                                    .sum(dim=(0, 1, 2)) for v_t in vs])
+            elif made is not None:
+                cnt = made.t
             elif cnt is None:
                 cnt = x.sum(dim=(1, 2, 3))
             if inv_perms[i] is not None:

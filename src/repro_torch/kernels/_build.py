@@ -37,7 +37,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "entry", "launch",
 
 # one library per source; spiking_conv_lif.cu holds kernels B and C
 KERNELS = ("spiking_conv", "spiking_conv_lif", "lif_bwd", "conv_grad_input",
-           "lif_fused")
+           "lif_fused", "skip_table")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

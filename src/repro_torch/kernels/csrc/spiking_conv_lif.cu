@@ -10,7 +10,11 @@
 // hold no spike; then u = v + dV_t; s = u >= v_th; v = u - v_th * s.  The
 // membrane stays on chip from v0 to v_final.  With SAVE_U the kernel also
 // stores the pre-reset membrane u of every step: the residual of the
-// surrogate backward (lif_bwd.cu).
+// surrogate backward (lif_bwd.cu).  With COUNT (kernel B for a caller that
+// reports counts) it also writes the train's spike counts, as kernel A's
+// hoisted mode does (spiking_conv.cu): t_counts (T, Cout), the spikes of
+// every step and channel, and row_nz (T, N, E_h), those of every output
+// row of every step and image.
 //
 // On the main path it runs snn-mnist layers 1 and 2 (T = 8, float32, NHWC,
 // APRC full padding):
@@ -60,6 +64,20 @@
 // lo, mid, hi), with no atomics and no split of K across blocks, so a split
 // of T into chunks that threads v_final into v0 gives the same bits as one
 // call, and an image's bits do not depend on the batch.
+//
+// The counts (COUNT).  In the epilogue each lane packs its spikes of the
+// step into fields, 8 bits a channel pair slot (nt, h) and 16 a pixel
+// (mi, jh); three xor shuffles sum the channel fields over the eight lanes
+// of a channel pair (lane = 4 g + tq), two sum the pixel fields over the
+// four lanes of a pixel and three more over the eight pixels of (mi, jh),
+// and one lane adds each to the block's count of its channel or row in
+// shared memory (where the eight pixels span two rows, one lane a
+// pixel).  At the next step's
+// barrier the block adds each channel's count to t_counts with one
+// atomic, and stores each row's count (an atomic where several channel
+// groups share the row); two count buffers alternate between the steps.
+// The sums are of integers, exact in any order, so the float bits do not
+// change; the counts add 0.28 MB to layer 2's 363.1 MB at batch 256.
 #include "mma_tile.cuh"
 
 namespace {
@@ -157,13 +175,34 @@ __device__ __forceinline__ void load_frags(
       snn::ldsm_x4(a_at + a_off[mi], f.a[mi]);
 }
 
-template <int NT, bool SAVE_U>
+// COUNT: add the block's count buffer cb of step t to t_counts and row_nz,
+// and zero it for step t + 2 (after a barrier).
+__device__ __forceinline__ void flush_counts(
+    int* cb, int* __restrict__ t_counts, int* __restrict__ row_nz, int t,
+    int N, const ConvShape& s, const Dims& d, int n, int i, int c0) {
+  for (int e = threadIdx.x; e < d.nc + s.BR; e += blockDim.x) {
+    const int k = cb[e];
+    cb[e] = 0;
+    if (e < d.nc) {
+      if (k) atomicAdd(t_counts + (size_t)t * s.Cout + c0 + e, k);
+    } else if (i * s.BR + e - d.nc < s.E_h) {
+      int* dst = row_nz + ((size_t)t * N + n) * s.E_h + i * s.BR + e - d.nc;
+      if (gridDim.z == 1)
+        *dst = k;
+      else if (k)
+        atomicAdd(dst, k);
+    }
+  }
+}
+
+template <int NT, bool SAVE_U, bool COUNT>
 __global__ void __launch_bounds__(snn::kMmaThreads, 2)
 spiking_conv_lif_kernel(const float* __restrict__ x,
                         const float* __restrict__ v0,
                         const float* __restrict__ w,
                         const float* __restrict__ b, float* __restrict__ s_out,
                         float* __restrict__ v_out, float* __restrict__ u_out,
+                        int* __restrict__ t_counts, int* __restrict__ row_nz,
                         int T, int N, ConvShape s, float v_th) {
   constexpr int MT = snn::kMmaTiles;
   const Dims d(s, 8 * NT);
@@ -173,6 +212,10 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
   float* xs = reinterpret_cast<float*>(hs + d.halo_elems());
   // the membrane of this thread's site k lives at vs[k * threads + tid]
   float* vs = xs + d.stage_floats() + threadIdx.x;
+  // COUNT: two count buffers, each [channel of the group, then row]
+  int* cnt = reinterpret_cast<int*>(xs + d.stage_floats() +
+                                    d.membrane_floats());
+  const int n_cnt = d.nc + s.BR;
   const int n = blockIdx.x, i = blockIdx.y, c0 = blockIdx.z * d.nc;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t img_size = (size_t)s.H * s.W * s.Cin;
@@ -185,6 +228,8 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
     float4* z = reinterpret_cast<float4*>(hs);
     for (size_t k = threadIdx.x; k < n4; k += blockDim.x)
       z[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (COUNT)
+      for (int e = threadIdx.x; e < 2 * n_cnt; e += blockDim.x) cnt[e] = 0;
   }
   __syncthreads();
   snn::issue_halo(xs, d.cin4, x + (size_t)n * img_size, s, i);
@@ -195,7 +240,7 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
   // no output), channels c0 + nt*8 + 2*tq + {0, 1}; site
   // ((mi * NT + nt) * 4 + 2 * jh + h)
   const int g = lane >> 2, tq = lane & 3;
-  int out[MT][2];
+  int out[MT][2], ly[MT][2];
   uint32_t a_off[MT];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi) {
@@ -205,6 +250,7 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
     for (int jh = 0; jh < 2; ++jh) {
       const snn::Pixel px(s, d.m, i, tile * 16 + g + 8 * jh);
       out[mi][jh] = px.active ? (n * s.E_h + px.y) * s.E_w + px.lx : -1;
+      ly[mi][jh] = px.ly;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -217,6 +263,18 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
         }
     }
   }
+  // COUNT: bit mi * 2 + jh when the eight pixels of (mi, jh) that are
+  // outputs lie in one row
+  int one_row = 0;
+  if (COUNT)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh) {
+        const int first = __shfl_sync(~0u, ly[mi][jh], 0);
+        if (__all_sync(~0u, out[mi][jh] < 0 || ly[mi][jh] == first))
+          one_row |= 1 << (mi * 2 + jh);
+      }
   const uint32_t hs_base = snn::smem_u32(hs);
   const uint32_t ws_base =
       snn::smem_u32(ws) + snn::b_row_offset<true>(d.cs, lane);
@@ -226,6 +284,9 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
     // step t's rows have landed, and every warp is done with step t-1's halo
     snn::cp_async_wait_all();
     __syncthreads();
+    if (COUNT && t > 0)
+      flush_counts(cnt + ((t - 1) & 1) * n_cnt, t_counts, row_nz, t - 1, N, s,
+                   d, n, i, c0);
     const int flags = convert_halo(hs, xs, d);
     const int nonzero = __syncthreads_or(flags & 1);
     const int other = __syncthreads_or(flags & 2);
@@ -291,7 +352,11 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
           for (int j = 0; j < 4; ++j) acc[mi][nt][j] += low[mi][nt][j];
     }
 
-    // integrate, fire, reset; store s (and u) of step t
+    // integrate, fire, reset; store s (and u) of step t; COUNT: this
+    // lane's spikes, of channel pair slot nt * 2 + h in 8-bit field
+    // nt % 2 * 2 + h of chan[nt / 2], of pixel (mi, jh) in 16-bit field jh
+    // of pixel[mi]
+    int chan[(NT + 1) / 2] = {}, pixel[MT] = {};
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -309,12 +374,55 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
             u[h] = v + (acc[mi][nt][2 * jh + h] + bias);   // integrate
             sp[h] = u[h] >= v_th ? 1.f : 0.f;              // fire
             v = u[h] - v_th * sp[h];                       // reset
+            if (COUNT && co + h < s.Cout && sp[h] != 0.f) {
+              chan[nt >> 1] += 1 << (16 * (nt & 1) + 8 * h);
+              pixel[mi] += 1 << (16 * jh);
+            }
           }
           const size_t at = (size_t)t * frame + pix + co;
           if (SAVE_U) snn::store_pair(u_out + at, u[0], u[1], co, s.Cout);
           snn::store_pair(s_out + at, sp[0], sp[1], co, s.Cout);
         }
       }
+    if (COUNT) {
+      int* cb = cnt + (t & 1) * n_cnt;
+      // a channel field sums at most 4 sites of 8 lanes (32), a pixel field
+      // 2 * NT channels of 4 lanes of 8 pixels (256): no carries
+#pragma unroll
+      for (int j = 0; j < (NT + 1) / 2; ++j)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          chan[j] += __shfl_xor_sync(~0u, chan[j], off);
+      if (g == 0)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = chan[nt >> 1] >> (16 * (nt & 1) + 8 * h) & 255;
+            if (k) atomicAdd(cb + nt * 8 + 2 * tq + h, k);
+          }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        pixel[mi] += __shfl_xor_sync(~0u, pixel[mi], 1);
+        pixel[mi] += __shfl_xor_sync(~0u, pixel[mi], 2);
+        const int own = pixel[mi];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          pixel[mi] += __shfl_xor_sync(~0u, pixel[mi], off);
+#pragma unroll
+        for (int jh = 0; jh < 2; ++jh) {
+          const bool one = one_row >> (mi * 2 + jh) & 1;
+          const int k = (one ? pixel[mi] : own) >> (16 * jh) & 0xffff;
+          if (k && (one ? lane == 0 : tq == 0))
+            atomicAdd(cb + d.nc + ly[mi][jh], k);
+        }
+      }
+    }
+  }
+  if (COUNT) {
+    __syncthreads();
+    flush_counts(cnt + ((T - 1) & 1) * n_cnt, t_counts, row_nz, T - 1, N, s, d,
+                 n, i, c0);
   }
 
 #pragma unroll
@@ -333,40 +441,48 @@ spiking_conv_lif_kernel(const float* __restrict__ x,
     }
 }
 
-template <int NT, bool SAVE_U>
+// What a launch writes besides s and v: u (SAVE_U) or the counts (COUNT).
+struct Extra {
+  float* u;
+  int* t_counts;
+  int* row_nz;
+};
+
+template <int NT, bool SAVE_U, bool COUNT>
 int launch(const float* x, const float* v0, const float* w, const float* b,
-           float* s_out, float* v_out, float* u_out, int T, int N,
+           float* s_out, float* v_out, const Extra& e, int T, int N,
            const ConvShape& s, float v_th, cudaStream_t stream) {
   const Dims d(s, 8 * NT);
   if (d.m_tiles > snn::kMaxMTiles)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = d.smem_bytes();
-  auto kernel = spiking_conv_lif_kernel<NT, SAVE_U>;
+  const size_t smem =
+      d.smem_bytes() + (COUNT ? 2 * (d.nc + s.BR) * sizeof(int) : 0);
+  auto kernel = spiking_conv_lif_kernel<NT, SAVE_U, COUNT>;
   cudaError_t err = snn::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(N, (s.E_h + s.BR - 1) / s.BR, (s.Cout + d.nc - 1) / d.nc);
-  kernel<<<grid, snn::kMmaThreads, smem, stream>>>(x, v0, w, b, s_out, v_out,
-                                                   u_out, T, N, s, v_th);
+  kernel<<<grid, snn::kMmaThreads, smem, stream>>>(
+      x, v0, w, b, s_out, v_out, e.u, e.t_counts, e.row_nz, T, N, s, v_th);
   return (int)cudaGetLastError();
 }
 
-template <bool SAVE_U>
+template <bool SAVE_U, bool COUNT>
 int dispatch(const float* x, const float* v0, const float* w, const float* b,
-             float* s_out, float* v_out, float* u_out, int T, int N,
+             float* s_out, float* v_out, const Extra& e, int T, int N,
              const ConvShape& s, int cout_tile, float v_th, cudaStream_t st) {
   switch (cout_tile) {
     case 8:
-      return launch<1, SAVE_U>(x, v0, w, b, s_out, v_out, u_out, T, N, s,
-                               v_th, st);
+      return launch<1, SAVE_U, COUNT>(x, v0, w, b, s_out, v_out, e, T, N, s,
+                                      v_th, st);
     case 16:
-      return launch<2, SAVE_U>(x, v0, w, b, s_out, v_out, u_out, T, N, s,
-                               v_th, st);
+      return launch<2, SAVE_U, COUNT>(x, v0, w, b, s_out, v_out, e, T, N, s,
+                                      v_th, st);
     case 24:
-      return launch<3, SAVE_U>(x, v0, w, b, s_out, v_out, u_out, T, N, s,
-                               v_th, st);
+      return launch<3, SAVE_U, COUNT>(x, v0, w, b, s_out, v_out, e, T, N, s,
+                                      v_th, st);
     case 32:
-      return launch<4, SAVE_U>(x, v0, w, b, s_out, v_out, u_out, T, N, s,
-                               v_th, st);
+      return launch<4, SAVE_U, COUNT>(x, v0, w, b, s_out, v_out, e, T, N, s,
+                                      v_th, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -375,18 +491,27 @@ int dispatch(const float* x, const float* v0, const float* w, const float* b,
 
 // x (T, N, H, W, Cin), v0 (N, E_h, E_w, Cout), w (R, R, Cin, Cout),
 // b (Cout,) -> s (T, N, E_h, E_w, Cout), v (N, E_h, E_w, Cout); float32,
-// contiguous, on the stream's device.  cout_tile is the channel group of a
-// block, 8, 16, 24 or 32 (plan_mma_tiles).  Returns a cudaError_t.
+// contiguous, on the stream's device; and, when t_counts is not null, the
+// counts (COUNT): t_counts (T, Cout) int32, zero at launch, and row_nz
+// (T, N, E_h) int32, zero at launch where the layer has several channel
+// groups.  cout_tile is the channel group of a block, 8, 16, 24 or 32
+// (plan_mma_tiles).  Returns a cudaError_t.
 extern "C" int spiking_conv_lif_launch(const float* x, const float* v0,
                                        const float* w, const float* b,
-                                       float* s_out, float* v_out, int T,
+                                       float* s_out, float* v_out,
+                                       int* t_counts, int* row_nz, int T,
                                        int N, int H, int W, int Cin, int Cout,
                                        int R, int pad_lo, int E_h, int E_w,
                                        int block_rows, int cout_tile,
                                        float v_th, void* stream) {
   const ConvShape s{H, W, Cin, Cout, R, pad_lo, E_h, E_w, block_rows};
-  return dispatch<false>(x, v0, w, b, s_out, v_out, nullptr, T, N, s,
-                         cout_tile, v_th, static_cast<cudaStream_t>(stream));
+  const Extra e{nullptr, t_counts, row_nz};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t_counts && !row_nz) return (int)cudaErrorInvalidValue;
+  return t_counts ? dispatch<false, true>(x, v0, w, b, s_out, v_out, e, T, N,
+                                          s, cout_tile, v_th, st)
+                  : dispatch<false, false>(x, v0, w, b, s_out, v_out, e, T, N,
+                                           s, cout_tile, v_th, st);
 }
 
 // The training forward: as spiking_conv_lif_launch, plus the pre-reset
@@ -397,6 +522,8 @@ extern "C" int spiking_conv_lif_fwd_launch(
     int Cin, int Cout, int R, int pad_lo, int E_h, int E_w, int block_rows,
     int cout_tile, float v_th, void* stream) {
   const ConvShape s{H, W, Cin, Cout, R, pad_lo, E_h, E_w, block_rows};
-  return dispatch<true>(x, v0, w, b, s_out, v_out, u_out, T, N, s,
-                        cout_tile, v_th, static_cast<cudaStream_t>(stream));
+  const Extra e{u_out, nullptr, nullptr};
+  return dispatch<true, false>(x, v0, w, b, s_out, v_out, e, T, N, s,
+                               cout_tile, v_th,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -25,13 +25,23 @@ The skip table counts *nonzero* inputs, not a value sum: the first layer
 feeds the analog direct-coded frame through the same conv, and a faint
 block must not be skipped.  The kernel takes its skip per thread block
 (one output row-block of one image); ``row_block_counts`` and
-``skip_table_fraction`` compute the same table in PyTorch for the model's
-``skip_fractions`` and for the tests.
+``skip_table_fraction`` compute the same table in PyTorch from a train.
+
+A caller that reports counts asks the hoisted mode (and kernel B,
+``kernels.spiking_conv_lif``) for them with ``count=True``: the launch
+that fires the train also writes its ``TrainCounts``, the spikes of each
+step and channel and of each output row, so that nothing reads the train
+again to count it.  ``skip_fraction_from_rows`` finishes the next layer's
+skip table from those row counts (kernel ``csrc/skip_table.cu`` on the
+card) with ``skip_table_fraction``'s bits.  Launches that count are
+counted in ``.launches_counted`` besides ``.launches``; calls of
+``skip_table_fraction``, the path for a train no launch counted, in its
+``.calls``.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -44,11 +54,14 @@ __all__ = ["spiking_conv", "spiking_conv_plain", "SpikingConvFn",
            "spiking_conv_lif_hoisted", "spiking_conv_lif_hoisted_plain",
            "conv_grad_input", "conv_grad_input_plain", "conv_grad_weights",
            "conv_pads", "row_block_counts", "skip_table_blocks",
-           "skip_table_fraction", "plan_tiles", "MmaPlan", "plan_mma_tiles"]
+           "skip_table_fraction", "TrainCounts", "train_counts_plain",
+           "skip_fraction_from_rows", "plan_tiles", "MmaPlan",
+           "plan_mma_tiles"]
 
 _MAX_THREADS = 512        # the kernels' __launch_bounds__
 _MAX_SMEM = 227 * 1024    # bytes a block may use on sm_90
 BLOCK_ROWS = 8            # output rows per thread block (and per skip cell)
+COUNT_STEPS = 8           # steps of kernel A's count slots (kCountSteps)
 MMA_WARPS = 8             # warps of a tensor-core kernel block (mma_tile.cuh)
 MMA_TILES = 2             # m16 tiles one warp holds
 
@@ -71,9 +84,10 @@ def plan_tiles(e_w: int, r: int, cin: int, cout: int) -> Tuple[int, int]:
     multiple of 4; wider layers add channel groups on the grid), at most
     ``_MAX_THREADS`` threads.  The channel tile takes as many quads of a
     row as fit, split evenly over the groups; rows then grow up to
-    ``BLOCK_ROWS`` while the threads and the shared memory (halo rows plus
-    the weight tile, the formula of the source note) fit.  Cached per
-    shape: the wrappers plan every call."""
+    ``BLOCK_ROWS`` while the threads and the shared memory (halo rows, the
+    weight tile and the counting mode's count slots, the formula of the
+    source note) fit.  Cached per shape: the wrappers plan every
+    call."""
     quads = -(-cout // 4)
     fit = min(quads, _MAX_THREADS // e_w)
     if fit >= 1:
@@ -81,7 +95,8 @@ def plan_tiles(e_w: int, r: int, cin: int, cout: int) -> Tuple[int, int]:
         qt = -(-quads // groups)
         w_pad, cin_p = e_w + r - 1, cin | 1
         for br in range(min(BLOCK_ROWS, _MAX_THREADS // (e_w * qt)), 0, -1):
-            smem = 4 * ((br + r - 1) * w_pad * cin_p + r * r * cin * 4 * qt)
+            smem = 4 * ((br + r - 1) * w_pad * cin_p + r * r * cin * 4 * qt
+                        + 2 * COUNT_STEPS * (4 * qt + br))
             if smem <= _MAX_SMEM:
                 return br, 4 * qt
     raise ValueError(f"no tiling fits one thread block: E_w={e_w}, R={r}, "
@@ -114,9 +129,10 @@ def plan_mma_tiles(e_w: int, r: int, cin: int, cout: int, *,
     (256 pixels).  K is Cin padded to 16 (bf16) or 8 (TF32).  Shared
     memory holds the weight planes and the halo rows, each row ``k_pad``
     plus 16 bytes, and for B and C a float32 staging copy of the raw rows
-    and the membrane, one float a thread and accumulator site.  Rows
-    shrink from ``BLOCK_ROWS`` one at a time until the m-tiles and the
-    shared memory fit, and where not even one row fits, the channel group
+    and the membrane, one float a thread and accumulator site (``smem_bytes``),
+    and for B's counting instance two count buffers besides.  Rows shrink
+    from ``BLOCK_ROWS`` one at a time until the m-tiles and the shared
+    memory fit, and where not even one row fits, the channel group
     shrinks."""
     if split not in ("bf16x3", "tf32x3"):
         raise ValueError(f"unknown operand split {split!r}")
@@ -130,10 +146,13 @@ def plan_mma_tiles(e_w: int, r: int, cin: int, cout: int, *,
             halo_pix = (br + r - 1) * w_pad
             m_tiles = -(-br * e_w // 16)
             smem = (planes * r * r * 8 * nt * cs + halo_pix * cs) * elt
+            counts = 0
             if bf16:
                 smem += 4 * (halo_pix * _round_up(cin, 4)
                              + 32 * MMA_WARPS * MMA_TILES * 4 * nt)
-            if m_tiles <= MMA_WARPS * MMA_TILES and smem <= _MAX_SMEM:
+                counts = 4 * 2 * (8 * nt + br)
+            if m_tiles <= MMA_WARPS * MMA_TILES and \
+                    smem + counts <= _MAX_SMEM:
                 return MmaPlan(br, 8 * nt, nt, kp, m_tiles, smem)
     raise ValueError(f"no tiling fits one thread block: E_w={e_w}, R={r}, "
                      f"Cin={cin}, Cout={cout}")
@@ -177,19 +196,103 @@ def skip_table_fraction(spikes: torch.Tensor, r: int, *, aprc: bool = True,
     The reference pads the train and counts rows of the padded copy; the
     padding rows hold no spikes, so this counts the unpadded rows and
     places them at their padded offsets — the same table, without the
-    padded copy."""
+    padded copy.  Calls are counted in ``.calls``."""
+    skip_table_fraction.calls += 1
     t, b, h, w, cin = spikes.shape
+    row_tot = spikes.reshape(t * b, h, w * cin).count_nonzero(dim=2)
+    return _skip_fraction(row_tot, r, aprc, block_rows)
+
+
+skip_table_fraction.calls = 0
+
+
+def _skip_fraction(row_tot: torch.Tensor, r: int, aprc: bool,
+                   block_rows: int) -> torch.Tensor:
+    """The skip fraction of the (planes, H) nonzero counts of a train's
+    rows: the rows placed at their padded offsets, a window of
+    ``block_rows + r - 1`` padded rows a cell."""
+    planes, h = row_tot.shape
     pad_lo, _ = conv_pads(r, aprc)
     n_blocks = skip_table_blocks(h, r, aprc=aprc, block_rows=block_rows)
     h_pad = n_blocks * block_rows + r - 1
-    row_tot = spikes.reshape(t * b, h, w * cin).count_nonzero(dim=2)
-    padded = row_tot.new_zeros((t * b, h_pad))
+    padded = row_tot.new_zeros((planes, h_pad))
     padded[:, pad_lo:pad_lo + h] = row_tot
     counts = _window_counts(padded, r, block_rows, n_blocks)
-    # the reference's mean: the float32 sum times the float32 reciprocal
-    # (a 0-d host tensor: a launch argument, no copy to the card)
-    inv = torch.tensor(1.0 / counts.numel(), dtype=torch.float32)
-    return (counts == 0).float().sum() * inv
+    # the reference's mean: the skipped cells, an exact integer rounded once
+    # to float32 (the reference's float32 sum of ones, the same bits below
+    # 2^24 cells), times the float32 reciprocal (a 0-d host tensor: a
+    # launch argument, no copy to the card); an empty table's mean is NaN
+    inv = torch.tensor(1.0 / counts.numel() if counts.numel() else
+                       float("nan"), dtype=torch.float32)
+    return (counts == 0).sum().float() * inv
+
+
+class TrainCounts(NamedTuple):
+    """The spike counts of a train (T, B, E_h, E_w, C), as the launch that
+    fired it writes them (``count=True``)."""
+    t: torch.Tensor       # (T, C) int32: the spikes of each step and channel
+    rows: torch.Tensor    # (T, B, E_h) int32: those of each output row
+    # (2,) int32, zero: the card's finisher's sum and ticket (None: it
+    # makes its own)
+    scratch: Optional[torch.Tensor] = None
+
+
+def train_counts_plain(spikes: torch.Tensor) -> TrainCounts:
+    """The plain version of the counting launches: torch's reductions of
+    the 0/1 train ``spikes`` (T, B, E_h, E_w, C)."""
+    return TrainCounts(spikes.count_nonzero(dim=(1, 2, 3)).int(),
+                       spikes.count_nonzero(dim=(3, 4)).int())
+
+
+def _count_buffers(t: int, n: int, e_h: int, cout: int, cout_tile: int,
+                   dev: torch.device) -> TrainCounts:
+    """A counting launch's outputs in one int32 buffer: the step-channel
+    counts and the finisher's scratch zeroed (atomics add to them), the row
+    counts too where several channel groups of ``cout_tile`` add to each
+    row (one group stores them)."""
+    n_t = t * cout
+    buf = torch.empty(n_t + 2 + t * n * e_h, dtype=torch.int32, device=dev)
+    (buf if cout > cout_tile else buf[:n_t + 2]).zero_()
+    return TrainCounts(buf[:n_t].view(t, cout), buf[n_t + 2:].view(t, n, e_h),
+                       buf[n_t:n_t + 2])
+
+
+def skip_fraction_from_rows(counts: TrainCounts, r: int, *,
+                            aprc: bool = True,
+                            block_rows: int = BLOCK_ROWS) -> torch.Tensor:
+    """``skip_table_fraction`` of the train whose ``TrainCounts`` these are
+    (the input of a fused layer of kernel size ``r``), from its row counts
+    alone, with the same bits: on the card kernel ``csrc/skip_table.cu``,
+    one launch (counted in ``.launches``); on the CPU its plain version in
+    torch ops.  An empty table's fraction is NaN, as the reference's mean
+    of no cells, and needs no launch."""
+    rows = counts.rows
+    t, b, h = rows.shape
+    if rows.device.type == "cpu":
+        return _skip_fraction(rows.reshape(t * b, h), r, aprc, block_rows)
+    fn = "skip_fraction_from_rows"
+    n_blocks = skip_table_blocks(h, r, aprc=aprc, block_rows=block_rows)
+    cells = t * b * n_blocks
+    if cells >= 1 << 31:
+        raise ValueError(f"{fn}: {cells} skip-table cells; the finisher "
+                         f"counts them in int32")
+    scratch = counts.scratch
+    if scratch is None:
+        scratch = torch.zeros(2, dtype=torch.int32, device=rows.device)
+    dev = _build.check_cuda_args(fn, (torch.int32,), rows=rows,
+                                 scratch=scratch)
+    if cells == 0:
+        return torch.full((), float("nan"), device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    pad_lo, _ = conv_pads(r, aprc)
+    _build.launch(dev, fn, _build.entry("skip_table"), rows.data_ptr(),
+                  scratch.data_ptr(), out.data_ptr(), t * b, h, pad_lo,
+                  block_rows, r, n_blocks, 1.0 / cells)
+    skip_fraction_from_rows.launches += 1
+    return out
+
+
+skip_fraction_from_rows.launches = 0
 
 
 def _conv_dims(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -273,17 +376,22 @@ def spiking_conv_lif_hoisted_plain(
 def spiking_conv_lif_hoisted(frames: torch.Tensor, v0: torch.Tensor,
                              w: torch.Tensor, bias: torch.Tensor, *, t: int,
                              v_th: float = 1.0, aprc: bool = True,
-                             save_u: bool = False
+                             save_u: bool = False, count: bool = False
                              ) -> Tuple[torch.Tensor, ...]:
     """The hoisted first layer (kernel A's hoisted mode): frames (B, H, W,
     Cin), constant over the ``t`` steps; v0 (B, E_h, E_w, Cout) the
     membrane it starts from (the chunk carry).  Returns (spike train (t, B,
     E_h, E_w, Cout), final membrane), and with ``save_u`` (the training
-    forward) also the pre-reset membrane train u.  It builds no autograd
-    graph: training goes through ``HoistedConvLIFFn``.  Launches are
-    counted in ``.launches`` (inference) and ``.launches_save_u``
-    (training forward), two kernel instances, as kernels B and C are."""
+    forward) also the pre-reset membrane train u, or with ``count`` the
+    train's ``TrainCounts`` (on the CPU ``train_counts_plain``).  It builds
+    no autograd graph: training goes through ``HoistedConvLIFFn``.
+    Launches are counted in ``.launches`` (inference, ``.launches_counted``
+    those with ``count``) and ``.launches_save_u`` (training forward),
+    kernel instances as kernels B and C are."""
     fn = "spiking_conv_lif_hoisted"
+    if save_u and count:
+        raise ValueError(f"{fn}: save_u and count are two instances; ask "
+                         f"for one")
     if frames.dim() != 4:
         raise ValueError(f"{fn}: frames must be (B, H, W, Cin), got "
                          f"{tuple(frames.shape)}")
@@ -296,33 +404,46 @@ def spiking_conv_lif_hoisted(frames: torch.Tensor, v0: torch.Tensor,
     if t < 0:
         raise ValueError(f"{fn}: t must be >= 0, got {t}")
     if frames.device.type == "cpu":
-        return spiking_conv_lif_hoisted_plain(frames, v0, w, bias, t=t,
+        outs = spiking_conv_lif_hoisted_plain(frames, v0, w, bias, t=t,
                                               v_th=v_th, aprc=aprc,
                                               save_u=save_u)
+        return outs + (train_counts_plain(outs[0]),) if count else outs
     dev = _build.check_cuda_args(fn, frames=frames, v0=v0, w=w, bias=bias)
     block_rows, cout_tile = plan_tiles(e_w, r, cin, cout)
     s = torch.empty((t, n, e_h, e_w, cout), dtype=torch.float32, device=dev)
     v = torch.empty_like(v0)
-    outs = (s, v, torch.empty_like(s)) if save_u else (s, v)
+    if save_u:
+        outs = (s, v, torch.empty_like(s))
+    elif count:
+        outs = (s, v, _count_buffers(t, n, e_h, cout, cout_tile, dev))
+    else:
+        outs = (s, v)
     if t == 0 or v.numel() == 0:
         v.copy_(v0)
+        if count:
+            outs[2].rows.zero_()
         return outs
     _build.launch(dev, fn, _build.entry(
                       "spiking_conv", "spiking_conv_lif_hoisted_launch"),
                   frames.data_ptr(), v0.data_ptr(), w.data_ptr(),
                   bias.data_ptr(), s.data_ptr(), v.data_ptr(),
-                  outs[2].data_ptr() if save_u else None, t, n, h, wd, cin,
-                  cout, r, pad_lo, e_h, e_w, block_rows, cout_tile,
+                  outs[2].data_ptr() if save_u else None,
+                  outs[2].t.data_ptr() if count else None,
+                  outs[2].rows.data_ptr() if count else None, t, n, h, wd,
+                  cin, cout, r, pad_lo, e_h, e_w, block_rows, cout_tile,
                   float(v_th))
     if save_u:
         spiking_conv_lif_hoisted.launches_save_u += 1
     else:
         spiking_conv_lif_hoisted.launches += 1
+        if count:
+            spiking_conv_lif_hoisted.launches_counted += 1
     return outs
 
 
 spiking_conv_lif_hoisted.launches = 0
 spiking_conv_lif_hoisted.launches_save_u = 0
+spiking_conv_lif_hoisted.launches_counted = 0
 
 
 def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,

@@ -23,6 +23,9 @@ input train needs a gradient, and ``conv_grad_weights``.
 forward is kernel A's hoisted mode (``spiking_conv.spiking_conv_lif_hoisted``)
 and whose input current is constant over T.
 
+With ``count=True`` kernel B also writes the train's ``TrainCounts``
+(``kernels.spiking_conv``), as the hoisted first layer does.
+
 Given CPU tensors every wrapper computes through its plain version; given
 CUDA tensors it launches its kernel or raises.
 """
@@ -36,10 +39,12 @@ from torch.autograd.function import once_differentiable
 from repro_torch.core.surrogate import SURROGATE_KINDS
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import lif_bwd_ref, spiking_conv_lif_ref
-from repro_torch.kernels.spiking_conv import (_conv_dims, conv_grad_input,
+from repro_torch.kernels.spiking_conv import (_conv_dims, _count_buffers,
+                                              conv_grad_input,
                                               conv_grad_weights, needs_grad,
                                               plan_mma_tiles,
-                                              spiking_conv_lif_hoisted)
+                                              spiking_conv_lif_hoisted,
+                                              train_counts_plain)
 
 __all__ = ["spiking_conv_lif", "spiking_conv_lif_plain",
            "spiking_conv_lif_fwd", "lif_bwd", "lif_bwd_plain",
@@ -54,8 +59,10 @@ lif_bwd_plain = lif_bwd_ref
 
 def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
                   bias: torch.Tensor, v_th: float, aprc: bool,
-                  save_u: bool) -> Tuple[torch.Tensor, ...]:
-    """Kernel B (``save_u=False``) or C (``save_u=True``) on CUDA tensors."""
+                  save_u: bool, count: bool = False
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Kernel B (``save_u=False``; with ``count`` its counting instance) or
+    C (``save_u=True``) on CUDA tensors."""
     fn = "spiking_conv_lif_fwd" if save_u else "spiking_conv_lif"
     dev = _build.check_cuda_args(fn, spikes=spikes, v0=v0, w=w, bias=bias)
     if spikes.dim() != 5:
@@ -70,22 +77,32 @@ def _launch_fused(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
     plan = plan_mma_tiles(e_w, r, cin, cout)
     s = torch.empty((t, n, e_h, e_w, cout), dtype=torch.float32, device=dev)
     v = torch.empty_like(v0)
-    outs = (s, v, torch.empty_like(s)) if save_u else (s, v)
-    if t == 0:
-        v.copy_(v0)
-        return outs
-    if v.numel() == 0:
+    if save_u:
+        outs = (s, v, torch.empty_like(s))
+        extra = (outs[2].data_ptr(),)
+    elif count:
+        outs = (s, v, _count_buffers(t, n, e_h, cout, plan.cout_tile, dev))
+        extra = (outs[2].t.data_ptr(), outs[2].rows.data_ptr())
+    else:
+        outs, extra = (s, v), (None, None)
+    if t == 0 or v.numel() == 0:
+        if t == 0:
+            v.copy_(v0)
+        if count:
+            outs[2].rows.zero_()
         return outs
     _build.launch(dev, fn, _build.entry(
         "spiking_conv_lif", "spiking_conv_lif_fwd_launch" if save_u
         else "spiking_conv_lif_launch"),
         spikes.data_ptr(), v0.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        *(o.data_ptr() for o in outs), t, n, h, wd, cin, cout, r, pad_lo,
-        e_h, e_w, plan.block_rows, plan.cout_tile, float(v_th))
+        s.data_ptr(), v.data_ptr(), *extra, t, n, h, wd, cin, cout, r,
+        pad_lo, e_h, e_w, plan.block_rows, plan.cout_tile, float(v_th))
     if save_u:
         spiking_conv_lif_fwd.launches += 1
     else:
         spiking_conv_lif.launches += 1
+        if count:
+            spiking_conv_lif.launches_counted += 1
     return outs
 
 
@@ -221,21 +238,34 @@ class HoistedConvLIFFn(torch.autograd.Function):
 def spiking_conv_lif(spikes: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
                      bias: torch.Tensor, *, v_th: float = 1.0,
                      aprc: bool = True, surrogate_alpha: float = 10.0,
-                     surrogate_kind: str = "fast_sigmoid"
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     surrogate_kind: str = "fast_sigmoid",
+                     count: bool = False) -> Tuple:
     """spikes: (T, B, H, W, Cin);  v0: (B, E_h, E_w, Cout).  Returns the
-    output spike train (T, B, E_h, E_w, Cout) and the final membrane.
+    output spike train (T, B, E_h, E_w, Cout) and the final membrane, and
+    with ``count`` the train's ``TrainCounts`` (on the CPU
+    ``train_counts_plain``).
 
-    With no gradient to build it runs kernel B (the reference's primal);
-    otherwise it goes through ``SpikingConvLIFFn``, whose backward applies
-    the ``surrogate_kind`` surrogate scaled by ``surrogate_alpha``."""
+    With no gradient to build it runs kernel B (the reference's primal;
+    with ``count`` its counting instance, counted in ``.launches_counted``
+    besides ``.launches``); otherwise it goes through ``SpikingConvLIFFn``,
+    whose backward applies the ``surrogate_kind`` surrogate scaled by
+    ``surrogate_alpha``, and which counts nothing: ``count`` with a
+    gradient raises, as ``save_u`` with ``count`` does in the hoisted
+    mode."""
     if needs_grad(spikes, v0, w, bias):
+        if count:
+            raise ValueError("spiking_conv_lif: count is kernel B's; a "
+                             "forward that builds a gradient runs C, which "
+                             "does not count")
         return SpikingConvLIFFn.apply(spikes, v0, w, bias, float(v_th), aprc,
                                       float(surrogate_alpha), surrogate_kind)
     if spikes.device.type == "cpu":
-        return spiking_conv_lif_plain(spikes, v0, w, bias, v_th=v_th,
+        outs = spiking_conv_lif_plain(spikes, v0, w, bias, v_th=v_th,
                                       aprc=aprc)
-    return _launch_fused(spikes, v0, w, bias, v_th, aprc, save_u=False)
+        return outs + (train_counts_plain(outs[0]),) if count else outs
+    return _launch_fused(spikes, v0, w, bias, v_th, aprc, save_u=False,
+                         count=count)
 
 
 spiking_conv_lif.launches = 0
+spiking_conv_lif.launches_counted = 0

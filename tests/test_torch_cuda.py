@@ -1316,3 +1316,233 @@ def test_lm_on_a_mesh_of_one_card_equals_one_device(card):
     got = spmd.run(group_of_one, 1, "qwen2.5-3b", "cuda", device="cuda",
                    timeout=300)
     assert got and all(got.values()), got
+
+
+# -- the counting launches: counts written where the spikes are fired --------
+
+# (name, T, B, H, W, Cin, Cout, hoisted): snn-mnist's layers (kernel A's
+# hoisted mode at 4 rows a block, B at 8), snn-seg's (1-row plans), and a
+# hoisted and a fused layer of two channel groups, whose row counts go by
+# atomics
+COUNT_CASES = [
+    ("mnist-layer0", 8, 3, 28, 28, 1, 16, True),
+    ("mnist-layer1", 8, 3, 30, 30, 16, 32, False),
+    ("mnist-layer2", 8, 3, 32, 32, 32, 8, False),
+    ("seg-layer0", 8, 2, 80, 160, 3, 8, True),
+    ("seg-layer1", 8, 2, 82, 162, 8, 16, False),
+    ("seg-layer3", 8, 1, 86, 166, 32, 32, False),
+    ("hoisted-two-groups", 8, 2, 8, 170, 1, 16, True),
+    ("fused-two-groups", 8, 2, 8, 8, 3, 40, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COUNT_CASES, ids=[c[0] for c in COUNT_CASES])
+def test_counting_launches_count_the_trains_they_fire(card, case):
+    """A counting launch of the hoisted mode or of B: the train and final
+    membrane of the launch without counts (and of the training instance)
+    bit for bit; counts by step and channel and by output row equal to
+    torch's reductions of the train, on output channels permuted as a CBWS
+    schedule permutes them; T whole and as 4 + 4 chunks, whose counts
+    concatenate to the whole's; the finisher's skip fraction equal to
+    ``skip_table_fraction``'s bits."""
+    from repro_torch.kernels.spiking_conv import (skip_fraction_from_rows,
+                                                  skip_table_fraction)
+    name, t, b, h, w_, cin, cout, hoisted = case
+    rng = np.random.default_rng(len(name) + h)
+    perm = rng.permutation(cout)
+    w = np.ascontiguousarray((rng.standard_normal((3, 3, cin, cout))
+                              * (1.0 if hoisted else 0.5)
+                              ).astype(np.float32)[..., perm])
+    bias = np.full(cout, 0.1, np.float32)
+    v0 = np.zeros((b, h + 2, w_ + 2, cout), np.float32)
+    if hoisted:
+        x = rng.random((b, h, w_, cin)).astype(np.float32)
+    else:
+        rows = rng.random((t, b, h, 1, 1)) < 0.7
+        x = ((rng.random((t, b, h, w_, cin)) < 0.15) & rows
+             ).astype(np.float32)
+    x, w, bias, v0 = _on(card, x, w, bias, v0)
+
+    def run(steps, v, count=False, xs=x):
+        if hoisted:
+            return spiking_conv_lif_hoisted(xs, v, w, bias, t=steps,
+                                            count=count)
+        return spiking_conv_lif(xs, v, w, bias, count=count)
+
+    fn = spiking_conv_lif_hoisted if hoisted else spiking_conv_lif
+    before = (fn.launches, fn.launches_counted)
+    s, v, c = run(t, v0, count=True)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_counted) == (before[0] + 1,
+                                                  before[1] + 1)
+    plain = run(t, v0)
+    assert torch.equal(s, plain[0]) and torch.equal(v, plain[1])
+    if hoisted:
+        fwd = spiking_conv_lif_hoisted(x, v0, w, bias, t=t, save_u=True)
+    else:
+        fwd = spiking_conv_lif_fwd(x, v0, w, bias)
+    assert torch.equal(s, fwd[0]) and torch.equal(v, fwd[1])
+    assert torch.equal(c.t, s.sum(dim=(1, 2, 3)).int())
+    assert torch.equal(c.rows, s.sum(dim=(3, 4)).int())
+    assert 0 < int(c.t.sum()) < s.numel()
+
+    half = t // 2
+    if hoisted:
+        s1, v1, c1 = run(half, v0, count=True)
+        s2, v2, c2 = run(t - half, v1, count=True)
+    else:
+        s1, v1, c1 = run(half, v0, count=True, xs=x[:half].contiguous())
+        s2, v2, c2 = run(t - half, v1, count=True, xs=x[half:].contiguous())
+    assert torch.equal(torch.cat([s1, s2]), s) and torch.equal(v2, v)
+    assert torch.equal(torch.cat([c1.t, c2.t]), c.t)
+    assert torch.equal(torch.cat([c1.rows, c2.rows]), c.rows)
+
+    calls = skip_table_fraction.calls
+    for counts, train in ((c, s), (c1, s1), (c2, s2)):
+        want = skip_table_fraction(train, 3)
+        for _ in range(2):      # the finisher zeroes its scratch again
+            assert torch.equal(skip_fraction_from_rows(counts, 3), want)
+    assert skip_table_fraction.calls == calls + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["snn-mnist", "snn-seg"])
+def test_hopper_forward_counts_through_the_kernels(card, net):
+    """One hopper forward with a CBWS schedule: every spiking layer's
+    counts are the counting launches', equal to torch's reductions of its
+    train (made here by the kernels without counts, in canonical channel
+    order), the skip fractions ``skip_table_fraction``'s bits of those
+    trains, and ``skip_table_fraction`` is never called; run as two
+    chunks, the counts and logits bit for bit; logits-only, the logits'
+    bits with no counting launch."""
+    from repro_torch.config import get_snn
+    from repro_torch.core import (build_schedule, init_snn, layer_shapes,
+                                  snn_apply, snn_apply_chunked)
+    from repro_torch.core.scheduler import permute_conv_params
+    from repro_torch.data.synthetic import mnist_like, road_like
+    from repro_torch.kernels.spiking_conv import skip_table_fraction
+    cfg = get_snn(net)
+    params = init_snn(torch.Generator().manual_seed(0), cfg, device=card)
+    frames = (mnist_like(32, seed=0) if net == "snn-mnist"
+              else road_like(2, seed=0))[0]
+    x = torch.from_numpy(frames).to(card)
+    sched = build_schedule(params, cfg, "aprc+cbws")
+
+    conv = permute_conv_params(params, list(sched))["conv"]
+    shapes = layer_shapes(cfg)
+    n_spiking = len(conv) - (0 if cfg.dense_units else 1)
+    trains, s = [], x
+    with torch.inference_mode():
+        for i in range(n_spiking):
+            w, b = conv[i]["w"].contiguous(), conv[i]["b"].contiguous()
+            v0 = torch.zeros((x.shape[0],) + shapes[i], device=card)
+            if i == 0:
+                s, _ = spiking_conv_lif_hoisted(s, v0, w, b, t=cfg.timesteps,
+                                                v_th=cfg.v_threshold,
+                                                aprc=cfg.aprc)
+            else:
+                s, _ = spiking_conv_lif(s, v0, w, b, v_th=cfg.v_threshold,
+                                        aprc=cfg.aprc)
+            trains.append(s)
+        counted = (spiking_conv_lif_hoisted.launches_counted,
+                   spiking_conv_lif.launches_counted)
+        calls = skip_table_fraction.calls
+        got = snn_apply(params, x, cfg, backend="hopper", schedule=sched)
+        assert skip_table_fraction.calls == calls
+        assert (spiking_conv_lif_hoisted.launches_counted,
+                spiking_conv_lif.launches_counted) == (
+                    counted[0] + 1, counted[1] + n_spiking - 1)
+        for i, s in enumerate(trains):
+            inv = torch.as_tensor(sched[i].out_perm, device=card).argsort()
+            assert torch.equal(got.timestep_counts[i],
+                               s.sum(dim=(1, 2, 3))[:, inv].float())
+        assert len(got.skip_fractions) == len(cfg.conv_channels) - 1
+        for frac, s in zip(got.skip_fractions, trains):
+            assert torch.equal(frac, skip_table_fraction(
+                s, cfg.kernel_size, aprc=cfg.aprc))
+
+        chunked = snn_apply_chunked(params, x, cfg,
+                                    chunk_timesteps=cfg.timesteps // 2,
+                                    backend="hopper", schedule=sched)
+        counted = spiking_conv_lif.launches_counted
+        only = snn_apply(params, x, cfg, backend="hopper", schedule=sched,
+                         logits_only=True)
+    assert torch.equal(chunked.logits, got.logits)
+    for a, b in zip(chunked.timestep_counts, got.timestep_counts):
+        assert torch.equal(a, b)
+    for a, b in zip(chunked.skip_fractions, got.skip_fractions):
+        assert abs(float(a) - float(b)) < 1e-6
+    assert spiking_conv_lif.launches_counted == counted
+    assert torch.equal(only.logits, got.logits) and not only.spike_counts
+
+
+@pytest.mark.cuda
+def test_counting_forward_replays_from_a_cuda_graph(card):
+    """A mesh worker's CUDA graph of a full-output hopper forward
+    (``dist.runner._infer_shard``): its replays, on new frames and on the
+    first frames again, give the eager forward's logits, counts and skip
+    fractions bit for bit, so the count buffers and the finisher's scratch
+    are zeroed inside the captured region."""
+    from repro_torch.config import get_snn
+    from repro_torch.core import init_snn, snn_apply
+    from repro_torch.dist.runner import _infer_shard
+    cfg = get_snn("snn-mnist")
+    params = init_snn(torch.Generator().manual_seed(0), cfg, device=card)
+    rng = np.random.default_rng(3)
+    first = rng.random((4, 28, 28, 1)).astype(np.float32)
+    second = (rng.random((4, 28, 28, 1)) < 0.2).astype(np.float32)
+    graphs = {}
+    for frames in (first, second, first):
+        got = _infer_shard(card, params, graphs, cfg, {"backend": "hopper"},
+                           False, frames)
+        with torch.inference_mode():
+            want = snn_apply(params, torch.from_numpy(frames).to(card), cfg,
+                             backend="hopper")
+        assert np.array_equal(got.logits, want.logits.cpu().numpy())
+        for a, b in zip(got.timestep_counts + got.skip_fractions,
+                        want.timestep_counts + want.skip_fractions):
+            assert np.array_equal(a, b.cpu().numpy())
+    assert len(graphs) == 1
+
+
+@pytest.mark.cuda
+def test_forward_under_grad_counts_with_torch(card):
+    """A full-output hopper forward that builds a gradient runs C, which
+    counts nothing: its counts are the reductions of its trains and its
+    skip fractions ``skip_table_fraction``'s, the bits of the counting
+    forward without a gradient; no launch counts, and the empty table's
+    finisher gives NaN without a launch."""
+    from repro_torch.config import get_snn
+    from repro_torch.core import init_snn, snn_apply
+    from torch.utils._pytree import tree_map
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.kernels.spiking_conv import (TrainCounts,
+                                                  skip_fraction_from_rows,
+                                                  skip_table_fraction)
+    cfg = get_snn("snn-mnist")
+    params = init_snn(torch.Generator().manual_seed(0), cfg, device=card)
+    x = torch.from_numpy(mnist_like(8, seed=1)[0]).to(card)
+    with torch.no_grad():
+        want = snn_apply(params, x, cfg, backend="hopper")
+    grad = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+    counted = (spiking_conv_lif_hoisted.launches_counted,
+               spiking_conv_lif.launches_counted)
+    calls = skip_table_fraction.calls
+    got = snn_apply(grad, x, cfg, backend="hopper")
+    assert got.logits.requires_grad
+    assert (spiking_conv_lif_hoisted.launches_counted,
+            spiking_conv_lif.launches_counted) == counted
+    assert skip_table_fraction.calls == calls + len(cfg.conv_channels) - 1
+    assert torch.equal(got.logits.detach(), want.logits)
+    for a, b in zip(got.timestep_counts + got.skip_fractions,
+                    want.timestep_counts + want.skip_fractions):
+        assert torch.equal(a.detach(), b)
+
+    rows = torch.zeros((0, 2, 30), dtype=torch.int32, device=card)
+    launches = skip_fraction_from_rows.launches
+    frac = skip_fraction_from_rows(TrainCounts(rows.new_zeros((0, 4)), rows),
+                                   3)
+    assert frac.device.type == "cuda" and bool(torch.isnan(frac))
+    assert skip_fraction_from_rows.launches == launches

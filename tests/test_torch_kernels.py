@@ -12,8 +12,11 @@ from repro.kernels import ref as jx_ref
 from repro.kernels import spiking_conv as jx_spiking_conv
 from repro_torch.kernels import ref
 from repro_torch.kernels.spiking_conv import (plan_tiles, row_block_counts,
+                                              skip_fraction_from_rows,
                                               skip_table_fraction,
-                                              spiking_conv)
+                                              spiking_conv,
+                                              spiking_conv_lif_hoisted,
+                                              train_counts_plain)
 from repro_torch.kernels.spiking_conv_lif import spiking_conv_lif
 
 # the reference's functions, jitted: one compile per shape instead of one
@@ -178,6 +181,122 @@ def test_skip_table_fraction_matches_reference(shape, r, aprc, rate):
     got = float(skip_table_fraction(torch.from_numpy(spikes), r, aprc=aprc))
     want = float(jx_skip_table_fraction(spikes, r, aprc=aprc))
     assert got == want
+
+
+def _fused_layer_inputs():
+    """(name, H, W, Cin) of the input train of every fused layer of
+    snn-mnist and snn-seg (the layers after the hoisted first, snn-seg's
+    readout included), with APRC on and off."""
+    import dataclasses
+
+    from repro_torch.config import get_snn
+    from repro_torch.core.snn_model import layer_shapes
+    out = []
+    for name in ("snn-mnist", "snn-seg"):
+        for aprc in (True, False):
+            shapes = layer_shapes(dataclasses.replace(get_snn(name),
+                                                      aprc=aprc))
+            pad = "aprc" if aprc else "same"
+            out += [(f"{name}-layer{i}-{pad}", aprc) + shapes[i - 1]
+                    for i in range(1, len(shapes))]
+    return out
+
+
+FUSED_LAYER_INPUTS = _fused_layer_inputs()
+
+
+@pytest.mark.parametrize("train", ["silent", "firing", "random"])
+@pytest.mark.parametrize("layer", FUSED_LAYER_INPUTS,
+                         ids=[c[0] for c in FUSED_LAYER_INPUTS])
+def test_skip_fraction_from_rows_equals_skip_table_fraction(layer, train):
+    """The finisher's plain version, fed the row counts of a train, gives
+    ``skip_table_fraction``'s bits for that train, at every fused layer's
+    input shape of both nets (T=2, batch 2): silent, every site firing,
+    and rows that are empty or sparse at random."""
+    _, aprc, h, w_, cin = layer
+    rng = np.random.default_rng(h * w_ + cin + len(train))
+    shape = (2, 2, h, w_, cin)
+    if train == "silent":
+        x = np.zeros(shape, np.float32)
+    elif train == "firing":
+        x = np.ones(shape, np.float32)
+    else:
+        rows = rng.random((2, 2, h, 1, 1)) < 0.3
+        x = ((rng.random(shape) < 0.02) & rows).astype(np.float32)
+    x = torch.from_numpy(x)
+    counts = train_counts_plain(x)
+    calls = skip_table_fraction.calls
+    want = skip_table_fraction(x, 3, aprc=aprc)
+    assert skip_table_fraction.calls == calls + 1
+    got = skip_fraction_from_rows(counts, 3, aprc=aprc)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+    if train != "random":
+        assert float(got) == (1.0 if train == "silent" else 0.0)
+
+
+@pytest.mark.parametrize("hoisted", [True, False])
+def test_count_outputs_on_the_cpu_are_the_trains_reductions(hoisted):
+    """``count=True`` on CPU tensors: the plain version's outputs, then the
+    train's counts by step and channel and by output row, as int32; no
+    launch is counted."""
+    rng = np.random.default_rng(11)
+    w = (rng.standard_normal((3, 3, 2, 6)) * 0.6).astype(np.float32)
+    bias = np.full(6, 0.3, np.float32)
+    v0 = np.zeros((2, 9, 11, 6), np.float32)
+    if hoisted:
+        x = rng.random((2, 7, 9, 2)).astype(np.float32)
+        before = spiking_conv_lif_hoisted.launches_counted
+        s, v, c = spiking_conv_lif_hoisted(*_t(x, v0, w, bias), t=3,
+                                           count=True)
+        plain = spiking_conv_lif_hoisted(*_t(x, v0, w, bias), t=3)
+        assert spiking_conv_lif_hoisted.launches_counted == before
+    else:
+        x = (rng.random((3, 2, 7, 9, 2)) < 0.4).astype(np.float32)
+        xt, v0t, wt, bt = _t(x, v0, w, bias)
+        before = spiking_conv_lif.launches_counted
+        s, v, c = spiking_conv_lif(xt, v0t, wt, bt, count=True)
+        plain = spiking_conv_lif(xt, v0t, wt, bt)
+        assert spiking_conv_lif.launches_counted == before
+    assert torch.equal(s, plain[0]) and torch.equal(v, plain[1])
+    assert c.t.dtype == c.rows.dtype == torch.int32
+    assert torch.equal(c.t, s.sum(dim=(1, 2, 3)).int())
+    assert torch.equal(c.rows, s.sum(dim=(3, 4)).int())
+    assert 0 < int(c.t.sum()) < s.numel()
+
+
+@pytest.mark.parametrize("case", ["grad", "save_u"])
+def test_count_is_refused_where_no_launch_counts(case):
+    """``count`` asks for kernel B's or the hoisted mode's counting
+    instance: a forward that builds a gradient (kernel C) or keeps the
+    membrane (``save_u``) counts nothing, and asking it to raises."""
+    rng = np.random.default_rng(12)
+    w = (rng.standard_normal((3, 3, 2, 4)) * 0.6).astype(np.float32)
+    bias = np.full(4, 0.3, np.float32)
+    v0 = np.zeros((2, 9, 11, 4), np.float32)
+    if case == "grad":
+        x = (rng.random((3, 2, 7, 9, 2)) < 0.4).astype(np.float32)
+        xt, v0t, wt, bt = _t(x, v0, w, bias)
+        with pytest.raises(ValueError, match="count"):
+            spiking_conv_lif(xt, v0t, wt.requires_grad_(True), bt,
+                             count=True)
+    else:
+        x = rng.random((2, 7, 9, 2)).astype(np.float32)
+        with pytest.raises(ValueError, match="count"):
+            spiking_conv_lif_hoisted(*_t(x, v0, w, bias), t=3, save_u=True,
+                                     count=True)
+
+
+@pytest.mark.parametrize("planes", [(0, 2), (2, 0)],
+                         ids=["no-steps", "no-images"])
+def test_empty_skip_table_is_nan(planes):
+    """A table of no cells (no steps or no images) has the reference's mean
+    of nothing, NaN, from the train and from its row counts alike."""
+    x = torch.zeros(planes + (5, 4, 3))
+    want = skip_table_fraction(x, 3)
+    got = skip_fraction_from_rows(train_counts_plain(x), 3)
+    assert want.dtype == got.dtype == torch.float32
+    assert bool(torch.isnan(want)) and bool(torch.isnan(got))
 
 
 def test_tile_plan_at_the_main_path_shapes():

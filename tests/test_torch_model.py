@@ -158,6 +158,38 @@ def test_hopper_skip_fractions_match_reference(reference, case):
         assert want[0] > 0      # the sparse train really skips cells
 
 
+@pytest.mark.parametrize("chunk", [None, 2])
+@pytest.mark.parametrize("case", ["mnist-direct", "mnist-sparse-train",
+                                  "seg-direct", "seg-train"])
+def test_hopper_counts_on_the_cpu_take_the_fallback(reference, case, chunk):
+    """On the CPU no launch counts its train: the hopper backend reduces
+    each train with torch ops and calls ``skip_table_fraction`` once a
+    fused layer (chunked: once a layer and chunk), with the reference's
+    timestep counts and skip fractions, bit for bit."""
+    from repro_torch.core import snn_apply_chunked
+    from repro_torch.kernels.spiking_conv import skip_table_fraction
+    cfg, np_params, x, want = reference[case]
+    params = from_jax_params(np_params, device="cpu")
+    sched = build_schedule(params, cfg)
+    calls = skip_table_fraction.calls
+    if chunk is None:
+        got = snn_apply(params, torch.from_numpy(x), cfg, backend="hopper",
+                        schedule=sched)
+    else:
+        got = snn_apply_chunked(params, torch.from_numpy(x), cfg,
+                                chunk_timesteps=chunk, backend="hopper",
+                                schedule=sched)
+    n_chunks = 1 if chunk is None else -(-cfg.timesteps // chunk)
+    assert skip_table_fraction.calls == \
+        calls + n_chunks * len(got.skip_fractions)
+    for a, b in zip(got.timestep_counts, want["batched"].timestep_counts):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    trains = _reference_fused_trains(cfg, np_params, jnp.asarray(x))
+    assert [float(f) for f in got.skip_fractions] == [
+        float(jx_skip_table_fraction(t, cfg.kernel_size, aprc=cfg.aprc))
+        for t in trains]
+
+
 def test_snn_module_forward_is_snn_apply(reference):
     cfg, np_params, x, want = reference["mnist-direct"]
     params = from_jax_params(np_params, device="cpu")
