@@ -8,9 +8,11 @@ For each seed it runs the cell's set-up, a short window at the cell's own
 load and the check, and prints one JSON line with the compared numbers of
 the program (``sound``, or with ``--fault`` the planted fault's).  For the
 first ``--control`` seeds it also prints the numbers of the control: the
-reference computed in TF32 in the program's place, against the float32
-reference.  A limit lies above every sound reading and below the control's
-(and a training cell's faults') smallest: ``PERF.md`` gives them.
+reference computed in the precision below the configuration's (TF32 for
+the float32 networks, float8 products for the bfloat16 language models)
+in the program's place, against the float32 reference.  A limit lies
+above every sound reading and below the control's (and a training cell's
+faults') smallest: ``PERF.md`` gives them.
 """
 import time
 
@@ -40,7 +42,6 @@ def read_seed(bench, workload: str, seed: int, seconds: float, *,
     ``faulty`` under ``fault``) and, with ``control``, the control's."""
     import torch
     from skybench import harness
-    from skybench.drivers import DRIVERS
     from skybench.faults import planted
     from skybench.trace import Trace
 
@@ -54,18 +55,22 @@ def read_seed(bench, workload: str, seed: int, seconds: float, *,
         model={**config["model"], **(model_override or {})},
         cfg=cfg if cfg is not None else harness.port_config(config),
         seed=seed, device=dev, trace=Trace(False, dev))
-    drv = DRIVERS[traffic["mode"]](ctx)
+    drv = harness.driver_class(config, traffic)(ctx)
     t = time.perf_counter()
     with planted(fault) if fault else contextlib.nullcontext():
         drv.setup()
         setup_s = time.perf_counter() - t
         e2e = drv.window(seconds)
     drv.release()
+    t_check = time.perf_counter()
+    numbers = drv.check()
     rec = {"workload": workload, "seed": seed, "fault": fault,
            "setup_s": setup_s, "e2e": e2e,
-           "sound" if fault is None else "faulty": drv.check(),
-           "firing": drv.readings.get("firing"),
-           "taps_per_frame": drv.readings.get("taps_per_frame")}
+           "check_s": time.perf_counter() - t_check,
+           "sound" if fault is None else "faulty": numbers,
+           **{k: drv.readings[k] for k in ("firing", "taps_per_frame",
+                                           "occupied_experts")
+              if k in drv.readings}}
     if hasattr(drv, "leaf_gaps"):
         rec["leaf_gaps"] = drv.leaf_gaps
     if control:
@@ -73,6 +78,9 @@ def read_seed(bench, workload: str, seed: int, seconds: float, *,
         if hasattr(drv, "leaf_gaps"):
             rec["control_leaf_gaps"] = drv.leaf_gaps
     rec["seconds"] = time.perf_counter() - t
+    if dev.type == "cuda":
+        rec["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     return rec
 
 

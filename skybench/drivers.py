@@ -1,6 +1,6 @@
-"""The general traffic generator: how a window drives the program, by the
-``mode`` that a traffic file names, with the mix's parameters from that
-file.
+"""The traffic generator of the spiking networks: how a window drives the
+program, by the ``mode`` that a traffic file names, with the mix's
+parameters from that file (``families/snn.py`` lists the modes).
 
 - ``closed_infer``: one caller of ``Session.infer`` in a closed loop over a
   pool of batches drawn from the seed; outputs on the host every call.
@@ -14,10 +14,12 @@ file.
   labelled batches, the loss read every step.
 
 A driver makes the weights and inputs (``setup``), runs the window
-(``window``), frees the program (``release``), and then compares what the
-timed path produced with the plain reference (``check``).  ``controlled``
-gives the same comparison with the reference, computed in TF32, in the
-program's place: the control that the limits are set against.
+(``window``, which sets ``readings["attempted"]``), frees the program
+(``release``), and then compares what the timed path produced with the
+plain reference (``check``).  ``controlled`` gives the same comparison
+with the reference, computed in TF32, in the program's place: the control
+that the limits are set against.  ``Driver`` holds what every family's
+drivers share; ``SNNDriver`` adds the networks' weights and specs.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from skybench.inputs import draw_frames, sub_seed
 from skybench.reference import snn as ref
 from skybench.trace import span
 
-__all__ = ["DRIVERS", "Driver"]
+__all__ = ["Driver", "SNNDriver", "ClosedInfer", "OpenLoop", "ClosedTrain"]
 
 TRACE_AFTER_S = 1.0      # the profiler starts this far into the window
 TRACE_FOR_S = 3.0        # and traces this long (less in a shorter window)
@@ -60,7 +62,8 @@ def _rms(x: np.ndarray) -> float:
 
 
 class Driver:
-    """What the three modes share: the run's context, weights, spans."""
+    """What every mode shares: the run's context, spans, the profiler's
+    part of the window."""
 
     def __init__(self, ctx):
         self.ctx = ctx
@@ -69,17 +72,6 @@ class Driver:
         self.device = ctx.device
         self.trace = ctx.trace
         self.readings: Dict = {}
-
-    def weights(self) -> Dict:
-        w = self.ctx.config["weights"]
-        return make_weights(self.model, float(w["sigma"]), self.ctx.seed,
-                            self.device)
-
-    def serve_spec(self, **kw):
-        from repro_torch.api import ServeSpec
-        ex = self.ctx.config["execution"]
-        return ServeSpec(backend=ex["backend"],
-                         schedule_mode=ex["schedule_mode"], **kw)
 
     def span(self, name: str):
         return span(name, self.trace.active)
@@ -108,7 +100,22 @@ class Driver:
             torch.cuda.empty_cache()
 
 
-class ClosedInfer(Driver):
+class SNNDriver(Driver):
+    """The spiking networks' weights and serving spec."""
+
+    def weights(self) -> Dict:
+        w = self.ctx.config["weights"]
+        return make_weights(self.model, float(w["sigma"]), self.ctx.seed,
+                            self.device)
+
+    def serve_spec(self, **kw):
+        from repro_torch.api import ServeSpec
+        ex = self.ctx.config["execution"]
+        return ServeSpec(backend=ex["backend"],
+                         schedule_mode=ex["schedule_mode"], **kw)
+
+
+class ClosedInfer(SNNDriver):
     """Bulk scoring: one closed-loop caller of ``Session.infer``."""
 
     def setup(self) -> None:
@@ -144,7 +151,7 @@ class ClosedInfer(Driver):
         self.trace.stop()
         frames = len(self.calls) * batch
         self.readings.update(window_s=t1 - t0, frames_window=frames,
-                             calls_window=len(self.calls),
+                             attempted=frames, calls_window=len(self.calls),
                              calls_traced=traced, frames_traced=traced * batch)
         return {"infer_fps": frames / (t1 - t0)}
 
@@ -214,7 +221,7 @@ class ClosedInfer(Driver):
                                            r["frames_traced"] / batch)
 
 
-class OpenLoop(Driver):
+class OpenLoop(SNNDriver):
     """Single-frame requests at Poisson arrivals into the live engine."""
 
     def setup(self) -> None:
@@ -338,7 +345,7 @@ class OpenLoop(Driver):
         self.failed = failed
         self.latency_ms = lat
         self.readings.update(
-            window_s=seconds, frames_window=n, requests=n,
+            window_s=seconds, frames_window=n, attempted=n, requests=n,
             frames_traced=traced, rids=[h.rid for h in self.handles],
             late_p95_ms=float(np.percentile(late, 95) * 1e3),
             late_max_ms=float(late.max() * 1e3))
@@ -402,7 +409,7 @@ class OpenLoop(Driver):
                                            r["frames_traced"] / per_batch)
 
 
-class ClosedTrain(Driver):
+class ClosedTrain(SNNDriver):
     """``Session.train_step`` in a closed loop, the loss read every step.
 
     Set-up builds the session and drives it through its first steps, on
@@ -450,8 +457,8 @@ class ClosedTrain(Driver):
         self.trace.stop()
         steps = len(self.losses)
         self.readings.update(window_s=t1 - t0, frames_window=steps * batch,
-                             steps_window=steps, steps_traced=traced,
-                             frames_traced=traced * batch)
+                             attempted=steps * batch, steps_window=steps,
+                             steps_traced=traced, frames_traced=traced * batch)
         return {"train_fps": steps * batch / (t1 - t0)}
 
     def _reference(self, control: bool):
@@ -537,7 +544,3 @@ def _sleep_until(t: float) -> None:
     d = t - time.perf_counter()
     if d > 0:
         time.sleep(d)
-
-
-DRIVERS = {"closed_infer": ClosedInfer, "open_loop": OpenLoop,
-           "closed_train": ClosedTrain}

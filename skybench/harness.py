@@ -4,10 +4,14 @@
 finds everything else by those names, so a later cell is new files and new
 entries, never an edit:
 
-- ``skybench/configs/<config>.json``: the network (the port's ``SNNConfig``
-  name and every width, which must match it), its weight law, how it runs;
+- ``skybench/configs/<config>.json``: the network (the port's config name
+  and every width, which must match it), its weight law, how it runs, and
+  its ``family`` (``snn`` where it names none);
+- ``skybench/families/<family>.py``: the family's ``port_config(config)``,
+  which builds the port's config and checks every width of the file
+  against it, and ``MODES``, its drivers by mode name;
 - ``skybench/traffic/<traffic>.json``: a traffic mix, the parameters of one
-  of ``drivers.DRIVERS``' modes;
+  of its family's modes;
 - ``skybench/layer_metrics/<metric>.py``: one reader per per-layer metric,
   ``read(run) -> float | None`` (None: nothing to read in this cell);
 - ``skybench/limits/<cell>.json``: each number the cell's output check
@@ -31,18 +35,17 @@ from typing import Dict, Optional
 import torch
 
 from skybench import work
-from skybench.drivers import DRIVERS
 from skybench.trace import Trace
 
 __all__ = ["ROOT", "BENCH", "load_bench", "cell_entry", "load_config",
-           "load_traffic", "load_limits", "load_reader", "Context",
-           "run_cell", "forbidden_modules", "port_config"]
+           "load_traffic", "load_limits", "load_reader", "load_family",
+           "load_kind", "driver_class", "Context", "run_cell",
+           "forbidden_modules", "port_config"]
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-MODEL_KEYS = ("input_hw", "input_channels", "conv_channels", "kernel_size",
-              "dense_units", "timesteps", "v_threshold", "aprc")
+_LOADED: Dict[str, object] = {}
 
 
 def load_bench(root: Path = ROOT) -> Dict:
@@ -76,30 +79,54 @@ def load_limits(cell: str, base: Path = BENCH) -> Dict[str, float]:
     return _json("limits", cell, base)["limits"]
 
 
-def load_reader(metric: str, base: Path = BENCH):
-    """The ``read`` function of ``layer_metrics/<metric>.py``."""
-    path = base / "layer_metrics" / f"{metric}.py"
+def _module(kind: str, name: str, base: Path):
+    path = base / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
-        f"skybench_metric_{metric.replace('.', '_')}", path)
+        f"skybench_{kind}_{name}".replace(".", "_").replace("/", "_"), path)
     if spec is None or not path.is_file():
-        raise FileNotFoundError(f"per-layer metric {metric!r}: no {path}")
+        raise FileNotFoundError(f"{kind} {name!r}: no {path}")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
 
 
-def port_config(config: Dict):
-    """The port's ``SNNConfig`` of ``config``, checked width by width
-    against the file's ``model`` block."""
-    from repro_torch.config import get_snn
-    cfg = get_snn(config["snn_config"])
-    for key in MODEL_KEYS:
-        have = getattr(cfg, key)
-        have = list(have) if isinstance(have, tuple) else have
-        if have != config["model"][key]:
-            raise ValueError(f"{config['snn_config']}: {key} is {have} in "
-                             f"the port, {config['model'][key]} in the file")
-    return cfg
+def load_reader(metric: str, base: Path = BENCH):
+    """The ``read`` function of ``layer_metrics/<metric>.py``."""
+    return _module("layer_metrics", metric, base).read
+
+
+def _module_once(kind: str, name: str, base: Path):
+    key = str(base / kind / f"{name}.py")
+    if key not in _LOADED:
+        _LOADED[key] = _module(kind, name, base)
+    return _LOADED[key]
+
+
+def load_family(config: Dict, base: Path = BENCH):
+    """The module ``families/<family>.py`` of ``config`` (``snn`` where
+    the file names no ``family``), loaded once a path."""
+    return _module_once("families", config.get("family", "snn"), base)
+
+
+def load_kind(name: str, base: Path = BENCH):
+    """The module ``reference/kinds/<name>.py`` of a language model's
+    mixer or FFN kind, loaded once a path."""
+    return _module_once("reference/kinds", name, base)
+
+
+def port_config(config: Dict, base: Path = BENCH):
+    """The port's config of ``config``, checked by its family against
+    every width of the file."""
+    return load_family(config, base).port_config(config)
+
+
+def driver_class(config: Dict, traffic: Dict, base: Path = BENCH):
+    """The driver of ``traffic``'s mode in ``config``'s family."""
+    modes = load_family(config, base).MODES
+    if traffic["mode"] not in modes:
+        raise KeyError(f"mode {traffic['mode']!r} is not one of family "
+                       f"{config.get('family', 'snn')!r}'s: {sorted(modes)}")
+    return modes[traffic["mode"]]
 
 
 def forbidden_modules(names=None) -> list:
@@ -118,7 +145,7 @@ class Context:
     config: Dict
     traffic: Dict
     model: Dict
-    cfg: object                        # the port's SNNConfig
+    cfg: object                        # the port's config
     seed: int
     device: torch.device
     trace: Trace
@@ -158,10 +185,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     model = {**config["model"], **(model_override or {})}
     dev = torch.device(device)
     ctx = Context(cell=cell, config=config, traffic=traffic, model=model,
-                  cfg=cfg if cfg is not None else port_config(config),
+                  cfg=cfg if cfg is not None else port_config(config, base),
                   seed=int(seed), device=dev, trace=Trace(trace, dev))
     limits = limits if limits is not None else load_limits(workload, base)
-    drv = DRIVERS[traffic["mode"]](ctx)
+    drv = driver_class(config, traffic, base)(ctx)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -177,7 +204,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     checks = {k: {"value": float(numbers[k]), "limit": float(v)}
               for k, v in limits.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
-    attempted = int(drv.readings["frames_window"])
+    attempted = int(drv.readings["attempted"])
     failed = int(getattr(drv, "failed", 0))
 
     e2e["setup_s"] = setup_s
@@ -204,9 +231,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             "idle_gaps": [[k, v] for k, v in reading.idle_gaps]}
     result["checks"] = checks
     r = drv.readings
-    log(f"firing per conv layer (spikes per neuron and step): "
-        f"{[round(f, 6) for f in r.get('firing', [])]}")
-    for key in ("late_p95_ms", "late_max_ms"):
+    if "firing" in r:
+        log(f"firing per conv layer (spikes per neuron and step): "
+            f"{[round(f, 6) for f in r['firing']]}")
+    for key in ("late_p95_ms", "late_max_ms", "occupied_experts"):
         if key in r:
             log(f"{key}: {r[key]}")
     for k, c in checks.items():

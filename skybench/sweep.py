@@ -32,7 +32,6 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
     from skybench import harness
-    from skybench.drivers import DRIVERS
     from skybench.trace import Trace
 
     if not torch.cuda.is_available():
@@ -50,7 +49,7 @@ def main(argv=None) -> int:
                               model=config["model"], cfg=cfg,
                               seed=args.seed, device=dev,
                               trace=Trace(False, dev))
-        drv = DRIVERS[traffic["mode"]](ctx)
+        drv = harness.driver_class(config, traffic)(ctx)
         drv.setup()
         t = time.perf_counter()
         e2e = drv.window(args.seconds)

@@ -9,6 +9,11 @@ from skybench import harness
 
 BENCH = harness.load_bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+# what ``reduced`` may name: the depth, and the chip's share of a layer
+# (its heads, experts or vocabulary rows); never a width, and nothing of
+# the mathematics
+CUTS = {"num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+        "n_routed_experts", "num_experts", "num_local_experts", "vocab_size"}
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 KEYS = {
     "top": {"command", "paths", "run_seconds", "configs", "workloads",
@@ -102,8 +107,9 @@ def test_cells_configs_and_files_resolve():
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
         traffic = harness.load_traffic(w["traffic"])
-        assert traffic["mode"] in ("closed_infer", "open_loop",
-                                   "closed_train")
+        conf = json.loads((harness.ROOT / configs[w["config"]]["file"])
+                          .read_text())
+        assert traffic["mode"] in harness.load_family(conf).MODES
         limits = harness.load_limits(w["name"])
         assert limits and all(v >= 0 for v in limits.values())
     assert used == set(configs)
@@ -112,7 +118,16 @@ def test_cells_configs_and_files_resolve():
     for c in configs.values():
         assert c["file"].startswith("skybench/configs/")
         conf = json.loads((harness.ROOT / c["file"]).read_text())
-        assert conf["reduced"] == c["reduced"] == []
+        assert conf["reduced"] == c["reduced"]
+        assert len(c["reduced"]) <= 16
+        for key in c["reduced"]:
+            # a cut key gives its published value, and the file says
+            # where the rest of the deployment would live
+            assert key in CUTS, key
+            assert key in conf["published"], key
+            assert conf["model"][key] != conf["published"][key], key
+        if c["reduced"]:
+            assert _line(conf["deployment"])
         harness.port_config(conf)       # every width is the port's
 
 

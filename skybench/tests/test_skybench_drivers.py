@@ -1,9 +1,11 @@
 """Every cell run end to end on the CPU at a narrowed size through the
 port's plain paths (a rehearsal of the card's run), the output check
 failing on a broken program and on the control, and a cell, a traffic mix
-and a per-layer metric added as files alone."""
+and a per-layer metric, and a whole family of configurations, added as
+files alone."""
 import json
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -11,15 +13,15 @@ import torch
 
 from skybench import harness
 from skybench.data.weights import make_weights
-from skybench.drivers import DRIVERS
 from skybench.faults import planted
 from skybench.inputs import draw_frames
-from skybench.tests._tiny import run_tiny
+from skybench.tests._tiny import run_tiny, tiny, with_kept
 from skybench.trace import Trace
 
-# the open-loop engine cell is kept as files (its traffic mix, limits and
-# readers) for a later benchmark change to declare: the tests run it too
-BENCH = harness.load_bench()
+# the open-loop engine cell and the decode cell are kept as files (their
+# traffic mixes, limits and readers) for a later benchmark change to
+# declare: the tests run them too
+BENCH = with_kept(harness.load_bench())
 BENCH["workloads"].append({"name": "seg-engine-poisson", "config": "snn-seg",
                            "traffic": "poisson_road", "chips": 1,
                            "why": "road cameras into the live engine"})
@@ -78,7 +80,10 @@ def test_traced_run_reports_per_layer_metrics_and_a_breakdown():
 FAULTS = [(c, "altered_answer") for c in CELLS
           if _mode(c) in ("closed_infer", "open_loop")] + \
          [(c, f) for c in CELLS if _mode(c) == "closed_train"
-          for f in ("unchanged_state", "half_batch")]
+          for f in ("unchanged_state", "half_batch")] + \
+         [(c, f) for c in CELLS if _mode(c) == "closed_decode"
+          for f in ("altered_answer", "unwritten_cache", "dropped_choice",
+                    "no_shared")]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
@@ -98,7 +103,7 @@ def _driver(cell, seed=3, **mix):
     ctx = harness.Context(cell=w, config=config, traffic=traffic,
                           model=config["model"], cfg=None, seed=seed,
                           device=dev, trace=Trace(False, dev))
-    drv = DRIVERS[traffic["mode"]](ctx)
+    drv = harness.driver_class(config, traffic)(ctx)
     params = drv.weights()
     drv.ref_params = params
     model = config["model"]
@@ -124,7 +129,7 @@ CONTROL = {"mnist-infer-digits": dict(batch=64, ref_block=64),
            "mnist-train-digits": dict(batch=32)}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [c for c in CELLS if c in CONTROL])
 def test_the_control_is_not_correct(cell):
     """The reference in TF32 in the program's place fails one of the
     cell's limits (at the published widths, a smaller batch)."""
@@ -133,11 +138,45 @@ def test_the_control_is_not_correct(cell):
     assert any(nums[k] > v for k, v in limits.items() if k in nums), nums
 
 
+def _tiny_decoder(cell, seed):
+    """A narrowed decode cell's driver after its set-up, window and
+    release on the CPU."""
+    w = harness.cell_entry(BENCH, cell)
+    config = harness.load_config(w["config"])
+    cfg, over, mix = tiny(w["config"], "closed_decode")
+    traffic = {**harness.load_traffic(w["traffic"]), **mix}
+    dev = torch.device("cpu")
+    ctx = harness.Context(cell=w, config=config, traffic=traffic,
+                          model={**config["model"], **over}, cfg=cfg,
+                          seed=seed, device=dev, trace=Trace(False, dev))
+    drv = harness.driver_class(config, traffic)(ctx)
+    drv.setup()
+    drv.window(0.2)
+    drv.release()
+    return drv
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS
+                                  if _mode(c) == "closed_decode"])
+@pytest.mark.parametrize("seed", [3, 2**31 + 11])
+def test_the_decode_control_is_not_correct(cell, seed):
+    """The reference in float8 products in the program's place fails one
+    of the cell's limits (at the narrowed size: the published one needs
+    the card)."""
+    limits = harness.load_limits(cell)
+    drv = _tiny_decoder(cell, seed)
+    sound = drv.check()
+    assert all(sound[k] <= v for k, v in limits.items()), sound
+    nums = drv.controlled()
+    assert any(nums[k] > v for k, v in limits.items()), nums
+
+
 def test_a_cell_added_as_files_alone(tmp_path):
     """A new traffic mix, cell, limits file and per-layer metric: files
     and entries, no edit to the harness."""
     base = tmp_path / "skybench"
-    for part in ("configs", "traffic", "limits", "layer_metrics"):
+    for part in ("configs", "traffic", "limits", "layer_metrics",
+                 "families"):
         shutil.copytree(harness.BENCH / part, base / part)
     (base / "traffic" / "bulk_small.json").write_text(json.dumps(
         {"mode": "closed_infer", "frames": "digits", "batch": 2,
@@ -162,6 +201,101 @@ def test_a_cell_added_as_files_alone(tmp_path):
     traced = run_tiny("mnist-infer-small", bench=bench, base=base,
                       trace=True, seconds=0.3)
     assert traced["metrics"]["calls.small"]["value"] > 0
+
+
+TOY_FAMILY = '''"""A toy family: one closed-loop caller of a matrix product,
+checked against numpy."""
+import time
+
+import numpy as np
+import torch
+
+from skybench.drivers import Driver
+from skybench.work import LayerWork
+
+
+def port_config(config):
+    return dict(config["model"])
+
+
+class ClosedProduct(Driver):
+    def setup(self):
+        n = int(self.model["n"])
+        gen = torch.Generator(device=self.device).manual_seed(self.ctx.seed)
+        self.a = torch.randn(n, n, generator=gen, device=self.device,
+                             dtype=torch.float64)
+
+    def window(self, seconds):
+        self.outs, t0 = [], time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            self.trace_due(t0, seconds)
+            with self.span("product"):
+                self.outs.append(float(torch.trace(self.a @ self.a)))
+        t1 = time.perf_counter()
+        self.trace.stop()
+        k = len(self.outs)
+        self.readings.update(window_s=t1 - t0, attempted=k, products=k)
+        return {"products_per_s": k / (t1 - t0)}
+
+    def check(self):
+        a = self.a.cpu().numpy()
+        want = float(np.trace(a @ a))
+        n, k = a.shape[0], self.readings["products"]
+        self.readings["work_window"] = [
+            LayerWork("product", 2.0 * n ** 3 * k, 8.0 * n * n * k)]
+        return {"trace_gap": max(abs(v - want) for v in self.outs)
+                / abs(want)}
+
+
+MODES = {"closed_product": ClosedProduct}
+'''
+
+
+def test_a_family_added_as_files_alone(tmp_path):
+    """A configuration of a new family, with its family module, traffic
+    mix, cell, limits and per-layer metric: files and entries, no edit to
+    the harness."""
+    base = tmp_path / "skybench"
+    for part in ("configs", "traffic", "limits", "layer_metrics",
+                 "families"):
+        shutil.copytree(harness.BENCH / part, base / part)
+    (base / "families" / "toy.py").write_text(TOY_FAMILY)
+    (base / "configs" / "toy-square.json").write_text(json.dumps(
+        {"family": "toy", "model": {"n": 192}, "reduced": []}))
+    (base / "traffic" / "products.json").write_text(json.dumps(
+        {"mode": "closed_product"}))
+    (base / "limits" / "toy-products.json").write_text(json.dumps(
+        {"limits": {"trace_gap": 1e-12}}))
+    (base / "layer_metrics" / "products.toy.py").write_text(
+        "def read(run):\n"
+        "    if run.mode != 'closed_product':\n"
+        "        return None\n"
+        "    return float(run.readings['products'])\n")
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "toy-square", "source": "a test",
+                             "file": "skybench/configs/toy-square.json",
+                             "reduced": [], "why": "a family made of data"})
+    bench["workloads"].append({"name": "toy-products",
+                               "config": "toy-square", "traffic": "products",
+                               "chips": 1, "why": "a cell of a new family"})
+    bench["end_to_end"].append({"name": "products_per_s", "unit": "1/s",
+                                "better": "higher", "bound": 0.1,
+                                "source": "host_clock",
+                                "workloads": ["toy-products"]})
+    bench["per_layer"].append({"name": "products.toy", "unit": "calls",
+                               "better": "higher", "source": "host_clock",
+                               "layer": "model", "moves": "products_per_s",
+                               "workloads": ["toy-products"]})
+    runs = [harness.run_cell("toy-products", 2**31 + 5, seconds, trace,
+                             t_start=time.perf_counter(), device="cpu",
+                             bench=bench, base=base, log=lambda s: None)
+            for seconds, trace in ((0.3, False), (0.5, True))]
+    plain, traced = runs
+    assert plain["correct"] and plain["attempted"] > 0, plain
+    assert set(plain["metrics"]) == {"products_per_s", "setup_s"}
+    assert traced["correct"]
+    assert set(traced["metrics"]) == {"products.toy"}
+    assert traced["metrics"]["products.toy"]["value"] > 0
 
 
 def test_open_loop_arrivals_are_the_same_set_for_every_seed():
