@@ -20,6 +20,14 @@ plain reference (``check``).  ``controlled`` gives the same comparison
 with the reference, computed in TF32, in the program's place: the control
 that the limits are set against.  ``Driver`` holds what every family's
 drivers share; ``SNNDriver`` adds the networks' weights and specs.
+
+Each mode's ``SMALL_MIX`` is the mix that the CPU rehearsal
+(``skybench/tests``) lays over a traffic file, with the family's
+``narrow`` cut of the network.  ``ClosedInfer`` takes what belongs to the
+network from methods that another family's subclass overrides: the inputs
+(``draw_inputs``), the weights (``weights``), the program (``program``),
+the reference (``reference_blocks``) and the work (``layer_work``,
+``firing``).
 """
 from __future__ import annotations
 
@@ -46,10 +54,14 @@ LOOK = 64                # the open loop's collector looks this far ahead
 
 
 def _clone(tree, zero: bool = False):
-    def copy(t):
-        return torch.zeros_like(t) if zero else t.detach().clone()
-    return {g: [{k: copy(t) for k, t in p.items()} for p in tree[g]]
-            for g in ("conv", "dense")}
+    """A copy of a tree of dicts, lists and tensors (zeros with ``zero``)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v, zero) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v, zero) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree) if zero else tree.detach().clone()
+    return tree
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -116,18 +128,53 @@ class SNNDriver(Driver):
 
 
 class ClosedInfer(SNNDriver):
-    """Bulk scoring: one closed-loop caller of ``Session.infer``."""
+    """Bulk scoring: one closed-loop caller of the program's ``infer``
+    (``Session.infer``).
+
+    Nothing here looks at an input past its first (batch) axis, so a
+    family whose inputs are clips (B, T, H, W, C) overrides the methods
+    from ``draw_inputs`` on and keeps the window, the check and the
+    readings that the ``*.infer`` readers read."""
+
+    SMALL_MIX = dict(batch=4, pool_batches=2, ref_block=4)
+
+    def draw_inputs(self, n: int) -> np.ndarray:
+        """``n`` inputs from the seed, stacked on the first axis."""
+        return draw_frames(self.mix["frames"], n, self.model,
+                           sub_seed(self.ctx.seed, 1))[0]
+
+    def program(self, params):
+        """The system under test on ``params``: its ``infer(batch)`` gives
+        ``logits`` and ``timestep_counts`` (per layer, (T, C)) on the
+        host."""
+        from repro_torch.api import Session
+        return Session(self.ctx.cfg, self.serve_spec(), params=params,
+                       device=self.device)
+
+    def reference_blocks(self, x: torch.Tensor, control: bool):
+        """The plain reference over one batch ``x``, ``ref_block`` inputs
+        at a time: ``logits``, ``counts`` (per layer, (T, C)) and ``taps``
+        (per layer)."""
+        return ref.forward_blocks(self.model, self.ref_params, x,
+                                  int(self.mix["ref_block"]),
+                                  control=control)
+
+    def layer_work(self, taps, frames: float, calls: float):
+        """The layers' work of ``frames`` inputs in ``calls`` calls, from
+        the reference's ``taps`` per input."""
+        return work.infer_work(self.model, taps, frames, calls)
+
+    def firing(self, refs, n_frames: int) -> List[float]:
+        """Each layer's spikes per neuron and step in the reference."""
+        return _firing(self.model, refs, n_frames)
 
     def setup(self) -> None:
-        from repro_torch.api import Session
         batch, n_pool = int(self.mix["batch"]), int(self.mix["pool_batches"])
-        x, _ = draw_frames(self.mix["frames"], batch * n_pool, self.model,
-                           sub_seed(self.ctx.seed, 1))
+        x = self.draw_inputs(batch * n_pool)
         self.pool = [x[i * batch:(i + 1) * batch] for i in range(n_pool)]
         params = self.weights()
         self.ref_params = _clone(params)
-        self.sess = Session(self.ctx.cfg, self.serve_spec(), params=params,
-                            device=self.device)
+        self.sess = self.program(params)
         for xb in self.pool:                 # builds and warms every shape
             self.sess.infer(xb)
         self.sync()
@@ -157,13 +204,8 @@ class ClosedInfer(SNNDriver):
 
     def _reference(self, control: bool):
         ref.exact_float32()
-        outs = []
-        for xb in self.pool:
-            x = torch.as_tensor(xb, device=self.device)
-            outs.append(ref.forward_blocks(self.model, self.ref_params, x,
-                                           int(self.mix["ref_block"]),
-                                           control=control))
-        return outs
+        return [self.reference_blocks(torch.as_tensor(xb, device=self.device),
+                                      control) for xb in self.pool]
 
     def _numbers(self, answers, refs) -> Dict[str, float]:
         """``answers``: (pool index, logits, counts) of each call.
@@ -210,19 +252,20 @@ class ClosedInfer(SNNDriver):
         taps = [sum(r.taps[i] for r in refs) / n
                 for i in range(len(refs[0].taps))]
         self.readings["taps_per_frame"] = taps
-        self.readings["firing"] = _firing(self.model, refs, n)
+        self.readings["firing"] = self.firing(refs, n)
         batch = self.pool[0].shape[0]
         r = self.readings
-        r["work_window"] = work.infer_work(self.model, taps,
-                                           r["frames_window"],
+        r["work_window"] = self.layer_work(taps, r["frames_window"],
                                            r["calls_window"])
-        r["work_traced"] = work.infer_work(self.model, taps,
-                                           r["frames_traced"],
+        r["work_traced"] = self.layer_work(taps, r["frames_traced"],
                                            r["frames_traced"] / batch)
 
 
 class OpenLoop(SNNDriver):
     """Single-frame requests at Poisson arrivals into the live engine."""
+
+    SMALL_MIX = dict(pool_frames=6, rate_per_s=40, warm_requests=4,
+                     check_requests=20, max_batch=4)
 
     def setup(self) -> None:
         from repro_torch.api import Session
@@ -414,6 +457,8 @@ class ClosedTrain(SNNDriver):
 
     Set-up builds the session and drives it through its first steps, on
     the pool's first batches: the reference follows those steps."""
+
+    SMALL_MIX = dict(batch=4, pool_batches=4)
 
     def setup(self) -> None:
         from repro_torch.api import Session, TrainSpec

@@ -42,7 +42,7 @@ from skybench.reference import lm as ref
 from skybench.work_lm import decode_work, occupied_experts
 
 __all__ = ["MODES", "ClosedDecode", "model_of", "arch_config",
-           "port_config", "fill"]
+           "port_config", "fill", "tiny_lm", "narrow"]
 
 # the ``model`` block's keys that every LM has: (the port's config
 # section, its field); each layer kind adds its own
@@ -152,6 +152,9 @@ def fill(params: torch.nn.Module, model: Dict, seed: int,
 
 class ClosedDecode(Driver):
     """Greedy decode of ``batch`` sequences in a closed loop."""
+
+    SMALL_MIX = dict(batch=2, prompt_len=8, cache_len=16, warm_steps=1,
+                     check_steps=3)
 
     def setup(self) -> None:
         from repro_torch.models import transformer
@@ -288,3 +291,30 @@ class ClosedDecode(Driver):
 
 
 MODES = {"closed_decode": ClosedDecode}
+
+
+TINY_LAYERS = 8     # deep enough that bfloat16 and float8 part as at depth
+
+
+def tiny_lm(conf):
+    """The port's ``reduced`` config of an LM file's ``arch`` with its last
+    stage repeated to ``TINY_LAYERS`` layers, its MoE still at capacity
+    factor E / k (no choice drops), and the ``model`` block of what the
+    port computes (``model_of``: its own gates among them)."""
+    from repro_torch.config import get_arch, reduced
+    cfg = reduced(get_arch(conf["arch"]))
+    *lead, (repeats, sub) = cfg.stage_list()
+    first = sum(r * len(s) for r, s in lead)
+    repeats = max(repeats, (TINY_LAYERS - first) // len(sub))
+    cfg = dataclasses.replace(cfg, stages=(*lead, (repeats, sub)),
+                              num_layers=first + repeats * len(sub))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    return cfg, model_of(cfg)
+
+
+def narrow(name: str, config: Dict):
+    """(the port's config, the ``model`` override) of the file ``name``
+    cut for a run on the CPU: ``tiny_lm``."""
+    return tiny_lm(config)

@@ -9,7 +9,9 @@ entries, never an edit:
   its ``family`` (``snn`` where it names none);
 - ``skybench/families/<family>.py``: the family's ``port_config(config)``,
   which builds the port's config and checks every width of the file
-  against it, and ``MODES``, its drivers by mode name;
+  against it, ``MODES``, its drivers by mode name (each with the
+  ``SMALL_MIX`` of the CPU rehearsal), and ``narrow(name, config)``, the
+  file cut for that rehearsal;
 - ``skybench/traffic/<traffic>.json``: a traffic mix, the parameters of one
   of its family's modes;
 - ``skybench/layer_metrics/<metric>.py``: one reader per per-layer metric,

@@ -1,26 +1,8 @@
 """Narrowed networks and small mixes that let a whole run of every cell go
 through on the CPU in a second or two (the port's plain paths)."""
-import dataclasses
 import json
 
-from repro_torch.config import get_arch, get_snn, reduced
-
 from skybench import harness
-
-NARROW = {
-    "snn-mnist": dict(input_hw=[12, 12], conv_channels=[4, 8, 4],
-                      timesteps=3),
-    "snn-seg": dict(input_hw=[12, 20], conv_channels=[4, 8, 8, 8, 4, 1],
-                    timesteps=3),
-}
-MIX = {
-    "closed_infer": dict(batch=4, pool_batches=2, ref_block=4),
-    "open_loop": dict(pool_frames=6, rate_per_s=40, warm_requests=4,
-                      check_requests=20, max_batch=4),
-    "closed_train": dict(batch=4, pool_batches=4),
-    "closed_decode": dict(batch=2, prompt_len=8, cache_len=16,
-                          warm_steps=1, check_steps=3),
-}
 
 
 # ``moe16b-decode`` is kept as files (its configuration, traffic mix,
@@ -28,7 +10,7 @@ MIX = {
 # renormalises its top-k gates and DeepSeekMoE 16B does not, so the port's
 # check refuses the file (``port_config``: ``norm_topk_prob``).  These are
 # the entries that would declare it; the tests run it narrowed, on the
-# port's own gates (``tiny_lm``).
+# port's own gates (``families/lm.py:tiny_lm``).
 _DECODE = ["moe16b-decode"]
 KEPT_DECODE = {
     "configs": [{"name": "deepseek-moe-16b",
@@ -66,37 +48,13 @@ def with_kept(bench):
     return out
 
 
-TINY_LAYERS = 8     # deep enough that bfloat16 and float8 part as at depth
-
-
-def tiny_lm(conf):
-    """The port's ``reduced`` config of an LM file's ``arch`` with its last
-    stage repeated to ``TINY_LAYERS`` layers, its MoE still at capacity
-    factor E / k (no choice drops), and the ``model`` block of what the
-    port computes (``model_of``: its own gates among them)."""
-    cfg = reduced(get_arch(conf["arch"]))
-    *lead, (repeats, sub) = cfg.stage_list()
-    first = sum(r * len(s) for r, s in lead)
-    repeats = max(repeats, (TINY_LAYERS - first) // len(sub))
-    cfg = dataclasses.replace(cfg, stages=(*lead, (repeats, sub)),
-                              num_layers=first + repeats * len(sub))
-    if cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
-    return cfg, harness.load_family(conf).model_of(cfg)
-
-
 def tiny(config_name: str, mode: str, base=harness.BENCH):
-    """(cfg, model override, traffic override) of a narrowed cell."""
+    """(cfg, model override, traffic override) of a narrowed cell: the
+    family's cut of the configuration (``narrow``) and the mode's small
+    mix (``SMALL_MIX``)."""
     conf = harness.load_config(config_name, base)
-    if conf.get("family", "snn") == "lm":
-        return (*tiny_lm(conf), MIX[mode])
-    over = NARROW[config_name]
-    cfg = dataclasses.replace(
-        get_snn(conf["snn_config"]), input_hw=tuple(over["input_hw"]),
-        conv_channels=tuple(over["conv_channels"]),
-        timesteps=over["timesteps"])
-    return cfg, over, MIX[mode]
+    family = harness.load_family(conf, base)
+    return (*family.narrow(config_name, conf), family.MODES[mode].SMALL_MIX)
 
 
 def run_tiny(workload: str, *, seconds: float = 0.6, trace: bool = False,

@@ -6,6 +6,7 @@ import re
 import pytest
 
 from skybench import harness
+from skybench.tests._tiny import with_kept
 
 BENCH = harness.load_bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -129,6 +130,22 @@ def test_cells_configs_and_files_resolve():
         if c["reduced"]:
             assert _line(conf["deployment"])
         harness.port_config(conf)       # every width is the port's
+
+
+FAMILIES = sorted({harness.load_config(c["name"]).get("family", "snn")
+                   for c in with_kept(BENCH)["configs"]})
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_a_family_offers_its_hooks(family):
+    """What the harness and the CPU rehearsal take from a family module:
+    ``port_config``, ``MODES``, ``narrow``, and each mode's
+    ``SMALL_MIX``."""
+    mod = harness.load_family({"family": family})
+    assert callable(mod.port_config) and callable(mod.narrow)
+    assert mod.MODES
+    for mode, cls in mod.MODES.items():
+        assert isinstance(cls.SMALL_MIX, dict) and cls.SMALL_MIX, mode
 
 
 def test_every_per_layer_metric_has_a_reader():

@@ -15,7 +15,7 @@ from repro_torch.models.layers import moe
 from skybench import harness, work
 from skybench.data.lm_weights import block_weights, blocks, layer_kinds
 from skybench.reference import lm as ref
-from skybench.tests._tiny import tiny_lm, with_kept
+from skybench.tests._tiny import with_kept
 from skybench.work_lm import decode_work, occupied_experts
 
 CPU = torch.device("cpu")
@@ -23,6 +23,7 @@ LM_CELLS = [w for w in with_kept(harness.load_bench())["workloads"]
             if harness.load_config(w["config"]).get("family") == "lm"]
 CONF = harness.load_config(LM_CELLS[0]["config"])
 FAMILY = harness.load_family(CONF)
+tiny_lm = FAMILY.tiny_lm
 
 
 def _weights(model, seed, dtype=torch.bfloat16):
