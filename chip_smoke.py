@@ -27,7 +27,11 @@ neither JAX nor the JAX package.  Phases, each printing one JSON line:
           backward (D) on C's u (and on the hoisted mode's u at layer 0)
           with random cotangents, for every surrogate, and the input
           gradient (E) on D's lam folded to (T*B, ...), plus SAME-pad,
-          5x5, ragged and mostly-zero cases
+          5x5, ragged and mostly-zero cases; the weight gradient
+          (``conv_grad_weights``, its spike instance on layers 1-2's
+          trains and D's lam, its analog instance on layer 0's frames and
+          the sum of its lam over T) against the plain torch-op GEMMs,
+          with ``torch.nn.grad.conv2d_weight`` as its library time
   model   full-width snn-mnist, batch 256: backend="hopper" with an
           aprc+cbws schedule against backend="batched" (plain ops), both
           on the card; each layer's threshold flips (none in layer 0,
@@ -352,6 +356,7 @@ DV_TOL = 1e-5              # kernel A's dV on a spike input, abs and rel
 U_ATOL = 1e-5              # saved pre-reset membrane, where trains agree
 BWD_TOL = 1e-6             # LIF backward lam and dv0, rel and abs
 DX_TOL = 1e-5              # input gradient, relative to its largest value
+DW_TOL = 1e-5              # weight gradient, relative to its largest value
 LOGITS_ATOL = 1e-3         # model logits, beyond their threshold-flip bound
 LOSS_ATOL = 1e-5           # train-step loss, beyond its threshold-flip bound
 GRAD_REL = 1e-4            # ||g_hopper - g_batched|| / ||g_batched||
@@ -489,6 +494,15 @@ def grad_input_work(dz, w, aprc: bool):
     return 4 * (dz.numel() + w.numel() + n * h * wd * cin), flops
 
 
+def wgrad_work(x, dz, r: int):
+    """(bytes, FLOPs) of the weight gradient: x and dz read once, dw and
+    db written once; the forward conv's products over every position, 2 *
+    M * R * R * Cin * Cout (skybench/work.py's count)."""
+    cin, (n, e_h, e_w, cout) = x.shape[-1], dz.shape
+    return (4 * (x.numel() + dz.numel() + r * r * cin * cout + cout),
+            2.0 * n * e_h * e_w * r * r * cin * cout)
+
+
 # per element and step of the LIF backward: u - v_th, the surrogate (at
 # most 6 operations), then c + (g_s - v_th * c) * sg (4)
 LIF_BWD_FLOPS = 10
@@ -565,6 +579,60 @@ def check_dx(name, got, want):
     return err
 
 
+def check_dw(name, got, want):
+    """The weight gradient (dw, db) agrees to DW_TOL of its largest
+    value."""
+    err = 0.0
+    for a, b in zip(got, want):
+        e = float((a - b).abs().max())
+        if a.shape != b.shape or e > DW_TOL * float(b.abs().max()):
+            fail(f"{name}: {tuple(a.shape)} differs from the plain "
+                 f"{tuple(b.shape)} by up to {e}")
+        err = max(err, e)
+    return err
+
+
+def wgrad_row(case, x, dz, binary: bool):
+    """The weight-gradient kernel (the spike instance, or the analog one)
+    on (x, dz) against the plain torch-op GEMMs: its record, emitted, with
+    its times, the plain version's and the library's
+    (``torch.nn.grad.conv2d_weight``, float32) and its bounds (the spike
+    instance's three bf16 products of every tap at the tensor cores'
+    peak; the analog instance's float32 FMAs)."""
+    import torch
+    from repro_torch.device import full_fp32
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spiking_conv import conv_grad_weights
+    r = 3
+    name = "conv_grad_weights" + ("" if binary else "_analog")
+
+    def call():
+        return conv_grad_weights(x, dz, aprc=True, r=r, binary=binary)
+
+    err = check_dw(f"{name} {case}", call(),
+                   ref.conv_grad_weights_ref(x, dz, aprc=True, r=r))
+    cin, cout = x.shape[-1], dz.shape[-1]
+    x_nchw, g_nchw = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+
+    def library():
+        with full_fp32():
+            return torch.nn.grad.conv2d_weight(x_nchw, (cout, cin, r, r),
+                                               g_nchw, padding=r - 1)
+
+    nbytes, flops = wgrad_work(x, dz, r)
+    rec = {"shape": [list(x.shape), list(dz.shape)], "max_abs_err": err,
+           "ms": cuda_ms(call), "device_ms": device_ms(call),
+           "plain_ms": cuda_ms(lambda: ref.conv_grad_weights_ref(
+               x, dz, aprc=True, r=r), reps=5),
+           "library_ms": cuda_ms(library, reps=5)}
+    if binary:
+        set_bounds(rec, nbytes, flops, flops, PEAK_BF16)
+    else:
+        set_bounds(rec, nbytes, flops)
+    emit("kernel", name=name, case=case, **rec)
+    return name, rec
+
+
 def check_dv(name, got, want):
     import torch
     err = float((got - want).abs().max())
@@ -611,15 +679,25 @@ def phase_env():
 
 def ptxas_entries(log: str):
     """Registers and spills of each tensor-core kernel instance in a ptxas
-    report: [kernel, NT, SAVE_U, registers, spill stores, spill loads]."""
+    report: [kernel, NT, SAVE_U, registers, spill stores, spill loads]; of
+    the weight gradient's, [kernel, MT, NT, ANALOG, ...]."""
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?"
                       r"(spiking_conv_lif_kernel|conv_grad_input_kernel)"
                       r"ILi(\d)E(?:Lb([01])E)?", ln)
+        w = re.search(r"Compiling entry function '\S*?"
+                      r"conv_grad_weights_kernelILi(\d)ELi(\d)ELb([01])E",
+                      ln)
         if m:
             cur = {"kernel": m.group(1), "n_tiles": int(m.group(2)),
                    "save_u": m.group(3) == "1"}
+            out.append(cur)
+            continue
+        if w:
+            cur = {"kernel": "conv_grad_weights_kernel",
+                   "m_tiles": int(w.group(1)), "n_tiles": int(w.group(2)),
+                   "analog": w.group(3) == "1"}
             out.append(cur)
             continue
         if "Compiling entry function" in ln:
@@ -637,7 +715,7 @@ def ptxas_entries(log: str):
 def phase_build():
     from repro_torch.analysis import check_cuda_abi
     from repro_torch.kernels import _build
-    from repro_torch.kernels.spiking_conv import plan_mma_tiles
+    from repro_torch.kernels.spiking_conv import plan_mma_tiles, plan_wgrad
     # the ctypes declarations against the sources' C entry points
     checked = []
     findings = check_cuda_abi(checked=checked)
@@ -674,6 +752,15 @@ def phase_build():
                  main_path_plans={k: p._asdict() for k, p in plans.items()
                                   if k.startswith("E") ==
                                   (name == "conv_grad_input")})
+    if "conv_grad_weights" in reports:
+        n = BATCH * 8
+        emit("build", source="csrc/conv_grad_weights.cu",
+             instances=ptxas_entries(reports["conv_grad_weights"]),
+             main_path_plans={
+                 "layer 1": plan_wgrad(n, 32, 32, 3, 16, 32)._asdict(),
+                 "layer 2": plan_wgrad(n, 34, 34, 3, 32, 8)._asdict(),
+                 "layer 0": plan_wgrad(BATCH, 30, 30, 3, 1, 16,
+                                       analog=True)._asdict()})
 
 
 def _model_trains(cfg, params, frames):
@@ -950,7 +1037,8 @@ def phase_train_kernels(cfg, params, frames, trains):
         return torch.randn(shape, generator=gen).to(dev)
 
     summary = {"spiking_conv_lif_fwd": [], "lif_bwd": [],
-               "conv_grad_input": []}
+               "conv_grad_input": [], "conv_grad_weights": [],
+               "conv_grad_weights_analog": []}
     lams = {}
 
     def check_lif_bwd(layer, u):
@@ -994,7 +1082,7 @@ def phase_train_kernels(cfg, params, frames, trains):
                                        conv[0]["b"], t=cfg.timesteps,
                                        v_th=v_th, save_u=True)
     del v0
-    check_lif_bwd(0, u)
+    lams[0] = check_lif_bwd(0, u).sum(dim=0)
     del u
     for layer, x in ((1, trains[0]), (2, trains[1])):
         w, b = conv[layer]["w"], conv[layer]["b"]
@@ -1030,6 +1118,16 @@ def phase_train_kernels(cfg, params, frames, trains):
         lam = check_lif_bwd(layer, u)
         lams[layer] = lam.reshape((-1,) + lam.shape[2:])
         del u, lam
+
+    # the weight gradient on what the train step gives it: layers 1 and 2's
+    # trains and lam folded to (T*B, ...), layer 0's frames and its lam
+    # summed over T
+    for layer, x in ((1, trains[0]), (2, trains[1]), (0, frames)):
+        name, rec = wgrad_row(f"snn-mnist layer {layer}",
+                              x.reshape((-1,) + x.shape[-3:]), lams[layer],
+                              binary=layer > 0)
+        summary[name].append(rec)
+    del lams[0]
 
     # kernel E on lam folded to (T*B, ...): layer 2's backward, then 1's
     for layer in (2, 1):
@@ -1442,7 +1540,8 @@ def _counters():
     """Each kernel's launch counter: (wrapper, attribute).  The hoisted
     mode's wrapper counts its kernel instances apart; the counting
     instances of the hoisted mode and of B are counted in ``*_counted``
-    besides their plain ``launches``."""
+    besides their plain ``launches``, and the weight gradient's analog
+    instance in ``launches_analog`` besides its ``launches``."""
     from repro_torch.kernels import lif as f
     from repro_torch.kernels import spiking_conv as a
     from repro_torch.kernels import spiking_conv_lif as b
@@ -1461,6 +1560,9 @@ def _counters():
             "spiking_conv_lif_fwd": (b.spiking_conv_lif_fwd, "launches"),
             "lif_bwd": (b.lif_bwd, "launches"),
             "conv_grad_input": (a.conv_grad_input, "launches"),
+            "conv_grad_weights": (a.conv_grad_weights, "launches"),
+            "conv_grad_weights_analog": (a.conv_grad_weights,
+                                         "launches_analog"),
             "lif_fused": (f.lif_fused, "launches")}
 
 
@@ -1648,8 +1750,9 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
     if not h[0] - h[-1] >= MIN_LOSS_DROP:
         fail(f"the hopper loss fell by {h[0] - h[-1]} (< {MIN_LOSS_DROP})")
     # per step the hoisted mode's SAVE_U 1, C 2, D 3 (layer 0 too), E 2
-    # (never for the frames), and the held-out evaluation's forward: the
-    # hoisted mode 1, B 2, none counting (it reads only the logits)
+    # (never for the frames), the weight gradient 3 (layer 0's the analog
+    # instance), and the held-out evaluation's forward: the hoisted mode 1,
+    # B 2, none counting (it reads only the logits)
     want = {"spiking_conv": 0, "spiking_conv_lif_hoisted": 1,
             "spiking_conv_lif_hoisted_counted": 0,
             "spiking_conv_lif_hoisted_save_u": steps,
@@ -1657,7 +1760,8 @@ def phase_train(cfg, steps: int = 10, lr: float = 1e-2):
             "skip_fraction_from_rows": 0,
             "spiking_conv_lif_fwd": 2 * steps,
             "lif_bwd": 3 * steps, "conv_grad_input": 2 * steps,
-            "lif_fused": 0}
+            "conv_grad_weights": 3 * steps,
+            "conv_grad_weights_analog": steps, "lif_fused": 0}
     if counts["hopper"] != want:
         fail(f"the hopper train run launched {counts['hopper']}, expected "
              f"{want}")
@@ -2075,7 +2179,8 @@ def phase_seg(cfg, batch: int = SEG_BATCH):
     grad_launches = {k: v for k, v in read_counts().items() if v}
     want_grad = {"spiking_conv_lif_hoisted_save_u": 1,
                  "spiking_conv_lif_fwd": 4, "lif_bwd": 5,
-                 "conv_grad_input": 5, "spiking_conv": 1}
+                 "conv_grad_input": 5, "spiking_conv": 1,
+                 "conv_grad_weights": 6, "conv_grad_weights_analog": 1}
     (loss_b, g_b), peak_b = peak_gb(
         lambda: _value_and_grads(params, seg_loss("batched")))
     rel = {k: float((g_h[k] - g_b[k]).norm() / g_b[k].norm()) for k in g_b}
@@ -2144,7 +2249,9 @@ def phase_seg_kernels(cfg, params, frames):
     main-path shapes: the hoisted mode (Cin=3, T=16) with and without
     SAVE_U bit for bit, B and C at layers 1-4 (layer 3: the 208 KB plan),
     D at all five layers, E at the readout (one input channel) and layers
-    4-1, A's dV mode at the readout (Cout=1); returns the summary entries."""
+    4-1, A's dV mode at the readout (Cout=1), the weight gradient at every
+    layer (its analog instance at layer 0); returns the summary
+    entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.snn_model import layer_shapes
@@ -2166,7 +2273,9 @@ def phase_seg_kernels(cfg, params, frames):
     summary = {k: [] for k in ("spiking_conv_lif_hoisted",
                                "spiking_conv_lif_hoisted_save_u",
                                "spiking_conv_lif", "spiking_conv_lif_fwd",
-                               "lif_bwd", "conv_grad_input", "spiking_conv")}
+                               "lif_bwd", "conv_grad_input", "spiking_conv",
+                               "conv_grad_weights",
+                               "conv_grad_weights_analog")}
     case = "snn-seg layer {}"
 
     # layer 0: the hoisted mode; its u feeds D
@@ -2198,8 +2307,11 @@ def phase_seg_kernels(cfg, params, frames):
             us.append(got[2])
         del got
 
-    # layers 1-4: B, then C (its u feeds D), on the plain trains
+    # layers 1-4: B, then C (its u feeds D), on the plain trains, each kept
+    # for the weight gradient
+    trains_in = []
     for layer in range(1, len(conv) - 1):
+        trains_in.append(s_in.reshape((-1,) + s_in.shape[2:]))
         w, b = conv[layer]["w"], conv[layer]["b"]
         v0 = torch.zeros((n,) + layer_shapes(cfg)[layer], device=dev)
         s_p, v_p, u_p = spiking_conv_lif_plain(s_in, v0, w, b, v_th=v_th,
@@ -2258,7 +2370,6 @@ def phase_seg_kernels(cfg, params, frames):
     emit("kernel", name="spiking_conv", case="snn-seg readout (Cout=1)",
          **rec)
     summary["spiking_conv"].append(rec)
-    del x5
 
     # D on every layer's u (the default surrogate), its lam feeding E
     lams = []
@@ -2283,9 +2394,23 @@ def phase_seg_kernels(cfg, params, frames):
         set_bounds(rec, nbytes, flops)
         emit("kernel", name="lif_bwd", case=case.format(layer), **rec)
         summary["lif_bwd"].append(rec)
-        lams.append(lam.reshape((-1,) + lam.shape[2:]) if layer else None)
+        lams.append(lam.reshape((-1,) + lam.shape[2:]) if layer
+                    else lam.sum(dim=0))
         del g_s, g_v, lam, dv0
     del us
+
+    # the weight gradient: layers 1-4 on their trains and lam, the readout
+    # (Cout = 1) on layer 4's train and a cotangent, layer 0 (the analog
+    # instance) on the frames and its lam summed over T
+    dz5 = randn(T * n, *layer_shapes(cfg)[-1])
+    w_cases = [(f"snn-seg layer {layer}", trains_in[layer - 1], lams[layer],
+                True) for layer in range(1, len(lams))]
+    w_cases += [("snn-seg readout (Cout=1)", x5, dz5, True),
+                ("snn-seg layer 0", frames, lams[0], False)]
+    for label, x, dz, binary in w_cases:
+        name, rec = wgrad_row(label, x, dz, binary)
+        summary[name].append(rec)
+    del trains_in, w_cases, x5, dz5
 
     # E: the readout's (its cotangent has one channel), then layers 4-1
     e_cases = [("snn-seg readout backward (Cout=1)",
@@ -2527,7 +2652,9 @@ def phase_mesh(cfg, frames):
     want_d = {"spiking_conv_lif_hoisted_save_u": MESH_TRAIN_BATCH,
               "spiking_conv_lif_fwd": 2 * MESH_TRAIN_BATCH,
               "lif_bwd": 3 * MESH_TRAIN_BATCH,
-              "conv_grad_input": 2 * MESH_TRAIN_BATCH}
+              "conv_grad_input": 2 * MESH_TRAIN_BATCH,
+              "conv_grad_weights": 3 * MESH_TRAIN_BATCH,
+              "conv_grad_weights_analog": MESH_TRAIN_BATCH}
     if steps["mesh"][3] != want_d:
         fail(f"mesh train_step launched {steps['mesh'][3]}, expected "
              f"{want_d}")
@@ -4155,6 +4282,9 @@ def main() -> int:
         "lif_bwd": (csrc + "lif_bwd.cu", tpu + "spiking_conv_lif.py:329"),
         "conv_grad_input": (csrc + "conv_grad_input.cu",
                             tpu + "spiking_conv.py:294"),
+        # no TPU kernel: the reference's conv_grad_weights_xla, XLA ops
+        "conv_grad_weights": (csrc + "conv_grad_weights.cu", None),
+        "conv_grad_weights_analog": (csrc + "conv_grad_weights.cu", None),
         "lif_fused": (csrc + "lif_fused.cu", tpu + "lif.py:49")}
     for name, recs in summary.items():
         # the sum over the kernel's main-path shapes: per snn-mnist forward

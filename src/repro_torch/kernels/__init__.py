@@ -3,7 +3,8 @@
   spiking_conv      spike-driven conv (csrc/spiking_conv.cu) in its dV
                     mode and its hoisted mode (the first layer's conv and
                     T LIF steps), its input gradient
-                    (csrc/conv_grad_input.cu) and SpikingConvFn
+                    (csrc/conv_grad_input.cu), its weight gradient
+                    (csrc/conv_grad_weights.cu) and SpikingConvFn
   spiking_conv_lif  fused conv + LIF over all T, with and without the saved
                     pre-reset membrane (csrc/spiking_conv_lif.cu), the
                     surrogate backward (csrc/lif_bwd.cu), SpikingConvLIFFn

@@ -6,8 +6,10 @@ PyTorch headers, so a build takes seconds.  Libraries land in
 ``build/repro_torch/`` at the repository root, named by a hash of their
 sources and flags, so a changed source is rebuilt and an unchanged one is
 reused.  Nothing is compiled when this module is imported: the first
-wrapper call builds what it needs, and ``build`` builds several kernels at
-once, one ``nvcc`` process each, all started together.  A wrapper binds its
+wrapper call that finds its library missing builds every missing one of
+``KERNELS``, one ``nvcc`` process each, all started together (a process
+that launches one kernel launches most of them, so its set-up waits for
+the slowest build rather than their sum).  A wrapper binds its
 entry point once (``entry``) and launches it on the current stream
 (``launch``), so a call costs the checks, a dictionary lookup and the
 ctypes call.  The ctypes argument types of a launch function are read from
@@ -37,7 +39,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "entry", "launch",
 
 # one library per source; spiking_conv_lif.cu holds kernels B and C
 KERNELS = ("spiking_conv", "spiking_conv_lif", "lif_bwd", "conv_grad_input",
-           "lif_fused", "skip_table")
+           "conv_grad_weights", "lif_fused", "skip_table")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -154,16 +156,16 @@ def argtypes(name: str, entry: str = "") -> List:
 
 
 def load(name: str, entry: str = "") -> ctypes.CDLL:
-    """The loaded library of source ``name``, built first if need be, with
-    its launch function ``entry`` (default ``<name>_launch``) declared to
-    take the ``argtypes`` of its C signature and return a CUDA error
-    code."""
+    """The loaded library of source ``name``, built first if need be (with
+    every other missing library of ``KERNELS``, in parallel), with its
+    launch function ``entry`` (default ``<name>_launch``) declared to take
+    the ``argtypes`` of its C signature and return a CUDA error code."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             path = _library_path(name)
             if not path.exists():
-                build([name])
+                build(tuple(dict.fromkeys((name,) + KERNELS)))
             lib = ctypes.CDLL(str(path))
             lib.snn_error_string.argtypes = [ctypes.c_int]
             lib.snn_error_string.restype = ctypes.c_char_p
@@ -213,14 +215,10 @@ def launch(dev: torch.device, fn: str,
 def check_cuda_args(fn: str, dtypes: Sequence[torch.dtype] = (torch.float32,),
                     **tensors: torch.Tensor) -> torch.device:
     """The checks every wrapper makes before it hands pointers to a kernel:
-    one CUDA device, one of ``dtypes`` (float32 unless the kernel takes
-    more), contiguous, and no autograd graph to feed (a launch builds none:
-    the autograd Functions of ``spiking_conv``, ``spiking_conv_lif`` and
-    the hoisted first layer call the launchers on detached tensors)."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{fn}: all tensors must lie on one CUDA device, "
-                         f"got {sorted(str(d) for d in devices)}")
+    one of ``dtypes`` (float32 unless the kernel takes more), contiguous,
+    no autograd graph to feed (a launch builds none: the autograd Functions
+    of ``spiking_conv``, ``spiking_conv_lif`` and the hoisted first layer
+    call the launchers on detached tensors), and one CUDA device."""
     for k, t in tensors.items():
         if t.dtype not in dtypes:
             raise TypeError(f"{fn}: {k} must be one of "
@@ -233,6 +231,10 @@ def check_cuda_args(fn: str, dtypes: Sequence[torch.dtype] = (torch.float32,),
                 f"backward; differentiate through spiking_conv, "
                 f"spiking_conv_lif or HoistedConvLIFFn, whose autograd "
                 f"Functions run the backward kernels")
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{fn}: all tensors must lie on one CUDA device, "
+                         f"got {sorted(str(d) for d in devices)}")
     return devices.pop()
 
 

@@ -1,8 +1,9 @@
-// Device code shared by the two tensor-core conv kernels (spiking_conv_lif.cu,
-// kernels B and C, and conv_grad_input.cu, kernel E): the implicit-GEMM
-// decomposition, the shared-memory plan, and thin wrappers of the PTX they
-// issue (ldmatrix, mma.sync; cp.async is in conv_tile.cuh) and the TF32
-// rounding.
+// Device code shared by the tensor-core conv kernels (spiking_conv_lif.cu,
+// kernels B and C, conv_grad_input.cu, kernel E, and conv_grad_weights.cu,
+// the weight gradient): the implicit-GEMM decomposition of B, C and E, the
+// shared-memory plan, and thin wrappers of the PTX they issue (ldmatrix,
+// mma.sync; cp.async is in conv_tile.cuh) and the TF32 rounding.  The
+// weight gradient has a GEMM view of its own (its source note).
 //
 // The GEMM view.  One thread block per (image n, output row-block i,
 // channel group g): M = the row-block's BR * E_w output pixels, in m16
@@ -96,6 +97,41 @@ __device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t (&r)[2]) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(addr)
                : "memory");
+}
+
+// ldmatrix with .trans: each 8x8 matrix arrives transposed, so rows that
+// hold the K axis contiguous in shared memory give the A and B fragments
+// of a GEMM whose K runs down the rows (the weight gradient's positions)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr,
+                                              uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// d = a (16x16, row) * b (16x8, col); bf16 inputs, float32 results (the
+// accumulators start from zero)
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
 }
 
 // d += a (16x16, row) * b (16x8, col); bf16 inputs, float32 accumulators

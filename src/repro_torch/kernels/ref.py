@@ -11,15 +11,14 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import obs
 from repro_torch.core.snn_layers import conv2d
 from repro_torch.core.surrogate import surrogate_grad
 from repro_torch.device import full_fp32
 
 __all__ = ["conv_pads", "spiking_conv_ref", "lif_fused_ref",
            "spiking_conv_lif_ref", "lif_bwd_ref", "conv_grad_input_ref",
-           "conv_grad_weights", "split_bf16x3", "tf32_round", "split_tf32x2",
-           "tf32x3_product"]
+           "conv_grad_weights_ref", "split_bf16x3", "tf32_round",
+           "split_tf32x2", "tf32x3_product"]
 
 
 def conv_pads(r: int, aprc: bool) -> Tuple[int, int]:
@@ -111,40 +110,42 @@ def conv_grad_input_ref(dz: torch.Tensor, w: torch.Tensor, *,
     return out.permute(0, 2, 3, 1)
 
 
-def conv_grad_weights(x: torch.Tensor, dz: torch.Tensor, *, aprc: bool,
-                      r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def conv_grad_weights_ref(x: torch.Tensor, dz: torch.Tensor, *, aprc: bool,
+                          r: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dL/dw, dL/db) of the forward conv from its output cotangent: the
-    reference's ``conv_grad_weights_xla``, one (Cin, N*E_h*E_w) @
-    (N*E_h*E_w, Cout) product per tap.  It stays torch ops on both devices
-    (the reference computes it outside any Pallas kernel too).
+    reference's ``conv_grad_weights_xla`` (XLA ops, no Pallas kernel), one
+    (Cin, N*E_h*E_w) @ (N*E_h*E_w, Cout) product per tap, in torch ops.
+    The plain version of the weight-gradient kernel
+    (``csrc/conv_grad_weights.cu``): ``spiking_conv.conv_grad_weights``
+    computes through it on CPU tensors, and launches the kernel on CUDA
+    tensors.
 
     x: (N, H, W, Cin) forward input;  dz: (N, E_h, E_w, Cout).
-    The call is the span ``train.wgrad``, timed on the device
-    (``obs.spans``).
     """
     lo, hi = conv_pads(r, aprc)
     n, e_h, e_w, cout = dz.shape
     cin = x.shape[-1]
-    with obs.span("train.wgrad", device=dz):
-        xp = F.pad(x.float(), (0, 0, lo, hi, lo, hi))
-        gz = dz.float().reshape(n * e_h * e_w, cout)
-        with full_fp32():
-            dw = torch.stack([
-                torch.stack([xp[:, dy:dy + e_h, dx:dx + e_w]
-                             .reshape(-1, cin).T @ gz for dx in range(r)])
-                for dy in range(r)])
-        return dw, dz.float().sum(dim=(0, 1, 2))
+    xp = F.pad(x.float(), (0, 0, lo, hi, lo, hi))
+    gz = dz.float().reshape(n * e_h * e_w, cout)
+    with full_fp32():
+        dw = torch.stack([
+            torch.stack([xp[:, dy:dy + e_h, dx:dx + e_w]
+                         .reshape(-1, cin).T @ gz for dx in range(r)])
+            for dy in range(r)])
+    return dw, dz.float().sum(dim=(0, 1, 2))
 
 
 # -- the tensor-core kernels' operand splits ----------------------------------
 
 def split_bf16x3(w: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The weight split of kernels B and C (``csrc/spiking_conv_lif.cu``):
-    ``hi = bf16(w)``, ``mid = bf16(w - hi)``, ``lo = bf16(w - hi - mid)``,
-    each rounded to nearest even.  Three parts of 8 significant bits hold
-    float32's 24, so ``hi + mid + lo == w`` exactly, and a spike (0 or 1)
-    times any part is exact in the tensor core."""
+    """The weight split of kernels B and C (``csrc/spiking_conv_lif.cu``),
+    and the cotangent's of the weight gradient
+    (``csrc/conv_grad_weights.cu``): ``hi = bf16(w)``, ``mid = bf16(w -
+    hi)``, ``lo = bf16(w - hi - mid)``, each rounded to nearest even.  Three
+    parts of 8 significant bits hold float32's 24, so ``hi + mid + lo == w``
+    exactly, and a spike (0 or 1) times any part is exact in the tensor
+    core."""
     w = w.float()
     hi = w.to(torch.bfloat16)
     r1 = w - hi.float()

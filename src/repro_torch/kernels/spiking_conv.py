@@ -1,7 +1,8 @@
 """Spike-driven convolution: the wrappers of kernels ``csrc/spiking_conv.cu``
-(the forward, kernel A, in its two modes) and ``csrc/conv_grad_input.cu``
-(its input gradient), their plain versions, the autograd Function that
-joins them, and the padding and skip-table helpers.
+(the forward, kernel A, in its two modes), ``csrc/conv_grad_input.cu``
+(its input gradient) and ``csrc/conv_grad_weights.cu`` (its weight
+gradient), their plain versions, the autograd Function that joins them,
+and the padding and skip-table helpers.
 
 ``spiking_conv`` (A's dV mode) computes dV = conv(spikes, w) + bias in
 NHWC x RRIO with APRC full padding or SAME padding (the reference's
@@ -17,9 +18,10 @@ they give the plain version's bits.  When a gradient is
 needed it goes through ``SpikingConvFn`` (the reference's
 ``kernels/ops.py:_spiking_conv_vjp``): dx by ``conv_grad_input`` (the
 reference's ``conv_grad_input_pallas``) when the input needs one, and
-(dw, db) by ``conv_grad_weights``, torch ops.  Given CPU tensors every
-wrapper computes through its plain version; given CUDA tensors it launches
-its kernel or raises.
+(dw, db) by ``conv_grad_weights`` (the reference's XLA
+``conv_grad_weights_xla``; on the card a kernel of its own, on the CPU a
+torch-op GEMM per tap).  Given CPU tensors every wrapper computes through
+its plain version; given CUDA tensors it launches its kernel or raises.
 
 The skip table counts *nonzero* inputs, not a value sum: the first layer
 feeds the analog direct-coded frame through the same conv, and a faint
@@ -46,17 +48,19 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch import obs
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (conv_grad_input_ref, conv_grad_weights,
-                                     conv_pads, spiking_conv_ref)
+from repro_torch.kernels.ref import (conv_grad_input_ref,
+                                     conv_grad_weights_ref, conv_pads,
+                                     spiking_conv_ref)
 
 __all__ = ["spiking_conv", "spiking_conv_plain", "SpikingConvFn",
            "spiking_conv_lif_hoisted", "spiking_conv_lif_hoisted_plain",
            "conv_grad_input", "conv_grad_input_plain", "conv_grad_weights",
-           "conv_pads", "row_block_counts", "skip_table_blocks",
-           "skip_table_fraction", "TrainCounts", "train_counts_plain",
-           "skip_fraction_from_rows", "plan_tiles", "MmaPlan",
-           "plan_mma_tiles"]
+           "conv_grad_weights_plain", "conv_pads", "row_block_counts",
+           "skip_table_blocks", "skip_table_fraction", "TrainCounts",
+           "train_counts_plain", "skip_fraction_from_rows", "plan_tiles",
+           "MmaPlan", "plan_mma_tiles", "WgradPlan", "plan_wgrad"]
 
 _MAX_THREADS = 512        # the kernels' __launch_bounds__
 _MAX_SMEM = 227 * 1024    # bytes a block may use on sm_90
@@ -64,10 +68,18 @@ BLOCK_ROWS = 8            # output rows per thread block (and per skip cell)
 COUNT_STEPS = 8           # steps of kernel A's count slots (kCountSteps)
 MMA_WARPS = 8             # warps of a tensor-core kernel block (mma_tile.cuh)
 MMA_TILES = 2             # m16 tiles one warp holds
+# the weight gradient (csrc/conv_grad_weights.cu): 16x8 accumulator tiles a
+# warp holds (kAccTiles), its accumulation chains at most (two on each of
+# an H100's 132 SMs), and a tile's positions and columns at most
+WGRAD_ACC_TILES = 20
+WGRAD_CHAINS = 264
+WGRAD_MAX_POS = 256
+WGRAD_MAX_COLS = 64
 
 # The plain versions are the oracles themselves.
 spiking_conv_plain = spiking_conv_ref
 conv_grad_input_plain = conv_grad_input_ref
+conv_grad_weights_plain = conv_grad_weights_ref
 
 
 def needs_grad(*tensors: torch.Tensor) -> bool:
@@ -483,10 +495,147 @@ def conv_grad_input(dz: torch.Tensor, w: torch.Tensor, *,
 conv_grad_input.launches = 0
 
 
+class WgradPlan(NamedTuple):
+    """The plan of one call of the weight-gradient kernel
+    (``csrc/conv_grad_weights.cu``): what fixes its bits, and its shared
+    memory."""
+    block_rows: int     # a tile: block_rows x block_cols output positions
+    block_cols: int
+    tap_groups: int     # groups of warps the R*R taps and the bias go to
+    chains: int         # accumulation chains, summed in order at the end
+    tiles: int
+    m_tiles: int        # m16 tiles of a block's input channels: 1 or 2
+    n_tiles: int        # n8 tiles of its output channels: 1, 2 or 4
+    smem_bytes: int
+
+
+def _wgrad_smem(br: int, bc: int, r: int, cin: int, cout: int,
+                tap_groups: int, mt: int, nt: int, analog: bool) -> int:
+    """The kernel's ``Layout``: the tap tables, then two raw float32
+    stagings of a tile (the halo and the dz rows), then one region for
+    (spike instance) the bf16 halo and dz planes or, at a chain's end, the
+    warps' sums."""
+    halo = (br + r - 1) * (bc + r - 1)
+    tables = _round_up(8 * r * r, 16)
+    red = (min(tap_groups, MMA_WARPS) * (WGRAD_ACC_TILES // (mt * nt))
+           * mt * nt * 128 * 4)
+    raw = 4 * (halo * _round_up(cin, 4) + _round_up(br * bc * cout, 4))
+    xcs = _round_up(cin, 16) + 8
+    zcs = 8 * ((3 * _round_up(cout, 8) // 8) | 1)
+    staged = 0 if analog else 2 * (halo * xcs + _round_up(br * bc, 16) * zcs)
+    return tables + 2 * raw + max(staged, red)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_wgrad(n: int, e_h: int, e_w: int, r: int, cin: int, cout: int, *,
+               analog: bool = False) -> WgradPlan:
+    """The plan of the weight gradient of a conv with ``n`` images of
+    ``e_h x e_w`` output positions, R x R taps, ``cin`` and ``cout``
+    channels: the host's mirror of ``csrc/conv_grad_weights.cu``'s
+    ``Plan``.
+
+    A warp holds ``WGRAD_ACC_TILES`` 16x8 accumulator tiles: the m16 tiles
+    of up to 32 input channels times the n8 tiles of up to 32 output
+    channels times its tap slots.  The R*R taps and the bias go to the
+    fewest tap groups (1, 2, 4 or 8 groups of the 8 warps, or more across
+    the grid) whose slots fit; the warps of a group share a tile's k16
+    steps.  A tile is whole rows up to ``WGRAD_MAX_COLS`` wide (a wider
+    row splits evenly), as many rows as keep it to ``WGRAD_MAX_POS``
+    positions and its shared memory to one block's (the accumulators take
+    the registers of an SM, so one block runs on each).  The tiles go to
+    up to ``WGRAD_CHAINS`` chains.  Cached per shape."""
+    if min(cin, cout, r, e_h, e_w) < 1:
+        raise ValueError(f"no weight-gradient plan for E={e_h}x{e_w}, "
+                         f"R={r}, Cin={cin}, Cout={cout}")
+    mt = 1 if cin <= 16 else 2
+    nt = 1 if cout <= 8 else (2 if cout <= 16 else 4)
+    need = -(-(r * r + 1) // (WGRAD_ACC_TILES // (mt * nt)))
+    tap_groups = next((g for g in (1, 2, 4) if g >= need),
+                      MMA_WARPS * -(-need // MMA_WARPS))
+    bc = -(-e_w // -(-e_w // WGRAD_MAX_COLS))
+    rows = range(min(e_h, max(1, WGRAD_MAX_POS // bc)), 0, -1)
+
+    def smem(br):
+        return _wgrad_smem(br, bc, r, cin, cout, tap_groups, mt, nt, analog)
+
+    br = next((b for b in rows if smem(b) <= _MAX_SMEM), None)
+    if br is None:
+        raise ValueError(f"no weight-gradient tile fits one thread block: "
+                         f"E_w={e_w}, R={r}, Cin={cin}, Cout={cout}")
+    tiles = n * -(-e_h // br) * -(-e_w // bc)
+    return WgradPlan(br, bc, tap_groups, min(tiles, WGRAD_CHAINS), tiles,
+                     mt, nt, smem(br))
+
+
+def _launch_wgrad(x: torch.Tensor, dz: torch.Tensor, aprc: bool, r: int,
+                  binary: bool, max_blocks: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight-gradient kernel on CUDA tensors: two launches (the tiles,
+    then the chains' sum in order).  ``max_blocks`` caps the persistent
+    blocks (0: as many as fit the card); the bits do not depend on it."""
+    fn = "conv_grad_weights"
+    if x.dim() != 4 or dz.dim() != 4:
+        raise ValueError(f"{fn}: x must be (N, H, W, Cin) and dz (N, E_h, "
+                         f"E_w, Cout), got {tuple(x.shape)} and "
+                         f"{tuple(dz.shape)}")
+    n, h, wd, cin = x.shape
+    cout = dz.shape[3]
+    lo, hi = conv_pads(r, aprc)
+    e_h, e_w = h + lo + hi - r + 1, wd + lo + hi - r + 1
+    if r < 1 or tuple(dz.shape[:3]) != (n, e_h, e_w) or min(cin, cout) < 1:
+        raise ValueError(f"{fn}: input {tuple(x.shape)} and cotangent "
+                         f"{tuple(dz.shape)} do not fit an R={r} conv "
+                         f"(aprc={aprc}) with Cin, Cout >= 1")
+    dev = _build.check_cuda_args(fn, x=x, dz=dz)
+    dw = torch.empty((r, r, cin, cout), dtype=torch.float32, device=dev)
+    db = torch.empty((cout,), dtype=torch.float32, device=dev)
+    if n * e_h * e_w == 0:
+        return dw.zero_(), db.zero_()
+    plan = plan_wgrad(n, e_h, e_w, r, cin, cout, analog=not binary)
+    partial = torch.empty((plan.chains, dw.numel() + cout),
+                          dtype=torch.float32, device=dev)
+    _build.launch(dev, fn, _build.entry("conv_grad_weights"),
+                  x.data_ptr(), dz.data_ptr(), partial.data_ptr(),
+                  dw.data_ptr(), db.data_ptr(), n, h, wd, cin, cout, r, lo,
+                  e_h, e_w, plan.block_rows, plan.block_cols,
+                  plan.tap_groups, plan.chains, max_blocks, int(not binary))
+    conv_grad_weights.launches += 1
+    if not binary:
+        conv_grad_weights.launches_analog += 1
+    return dw, db
+
+
+def conv_grad_weights(x: torch.Tensor, dz: torch.Tensor, *, aprc: bool,
+                      r: int, binary: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dL/dw, dL/db) of the forward conv (``spiking_conv``, the fused
+    layers, the hoisted first layer) from its input ``x`` (N, H, W, Cin)
+    and its output cotangent ``dz`` (N, E_h, E_w, Cout).  Returns dw (R, R,
+    Cin, Cout) and db (Cout,).
+
+    On CPU tensors the plain version (``conv_grad_weights_plain``: a
+    torch-op GEMM per tap, the reference's ``conv_grad_weights_xla``); on
+    CUDA tensors kernel ``csrc/conv_grad_weights.cu`` or it raises.
+    ``binary`` is the caller's word, by its layer type, that ``x`` is a
+    spike train: it takes the tensor-core instance, which still takes the
+    analog route for a tile that is not all 0 and 1; otherwise the analog
+    instance, right for any input.  Launches are counted in ``.launches``,
+    those of the analog instance in ``.launches_analog`` besides.  The call
+    is the span ``train.wgrad``, timed on the device (``obs.spans``)."""
+    with obs.span("train.wgrad", device=dz):
+        if dz.device.type == "cpu":
+            return conv_grad_weights_plain(x, dz, aprc=aprc, r=r)
+        return _launch_wgrad(x, dz, aprc, r, binary)
+
+
+conv_grad_weights.launches = 0
+conv_grad_weights.launches_analog = 0
+
+
 class SpikingConvFn(torch.autograd.Function):
     """``spiking_conv`` under autograd: the forward kernel (A), then in the
     backward dx by ``conv_grad_input`` (E) when the input needs it and
-    (dw, db) by ``conv_grad_weights``."""
+    (dw, db) by ``conv_grad_weights`` on the spike train's instance."""
 
     @staticmethod
     def forward(ctx, spikes, w, bias, aprc):
@@ -505,5 +654,5 @@ class SpikingConvFn(torch.autograd.Function):
             dx = conv_grad_input(g, w, aprc=ctx.aprc)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = conv_grad_weights(spikes, g, aprc=ctx.aprc,
-                                       r=w.shape[0])
+                                       r=w.shape[0], binary=True)
         return dx, dw, db, None

@@ -17,11 +17,14 @@ custom_vjp): the forward also saves ``u`` (``spiking_conv_lif_fwd``, the
 reference's ``spiking_conv_lif_fwd_pallas``); the backward runs
 ``lif_bwd`` (``lif_bwd_pallas``), then the conv backward over the folded
 (T*B) batch: ``conv_grad_input`` (``conv_grad_input_pallas``) when the
-input train needs a gradient, and ``conv_grad_weights``.
+input train needs a gradient, and ``conv_grad_weights`` (the reference's
+XLA ``conv_grad_weights_xla``; on the card its tensor-core kernel's spike
+instance, on the CPU a torch-op GEMM per tap).
 
 ``HoistedConvLIFFn`` is the same scheme for the hoisted first layer, whose
 forward is kernel A's hoisted mode (``spiking_conv.spiking_conv_lif_hoisted``)
-and whose input current is constant over T.
+and whose input current is constant over T; its weight gradient takes the
+kernel's analog instance, since its input is frames.
 
 With ``count=True`` kernel B also writes the train's ``TrainCounts``
 (``kernels.spiking_conv``), as the hoisted first layer does.
@@ -162,7 +165,8 @@ class SpikingConvLIFFn(torch.autograd.Function):
     forward: kernel C, saving (spikes, w, u).  backward: kernel D from the
     cotangents of (s, v_final), then, on ``lam`` folded to (T*B, ...),
     kernel E for the input train when it needs a gradient and
-    ``conv_grad_weights`` for (dw, db).  Returns (dx, dv0, dw, db)."""
+    ``conv_grad_weights`` (its spike instance) for (dw, db).  Returns (dx,
+    dv0, dw, db)."""
 
     @staticmethod
     def forward(ctx, spikes, v0, w, bias, v_th, aprc, alpha, kind):
@@ -189,7 +193,7 @@ class SpikingConvLIFFn(torch.autograd.Function):
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
             dw, db = conv_grad_weights(
                 spikes.reshape((t * b,) + spikes.shape[2:]), lam2, aprc=aprc,
-                r=w.shape[0])
+                r=w.shape[0], binary=True)
         dv0 = dv0 if ctx.needs_input_grad[1] else None
         return dx, dv0, dw, db, None, None, None, None
 
@@ -202,8 +206,9 @@ class HoistedConvLIFFn(torch.autograd.Function):
     forward: kernel A's hoisted mode with ``save_u``, saving (frames, w,
     u).  backward: kernel D on u with the cotangents of (s, v_final) gives
     lam (t, ...) and dv0; the constant current's cotangent is dz = the sum
-    of lam over t, added in ascending t; then ``conv_grad_weights`` for
-    (dw, db), and kernel E for the frames when they need a gradient.
+    of lam over t, added in ascending t; then ``conv_grad_weights`` (its
+    analog instance: the frames are not spikes) for (dw, db), and kernel E
+    for the frames when they need a gradient.
     Returns (dframes, dv0, dw, db).  Surrogates: kernel D's three."""
 
     @staticmethod

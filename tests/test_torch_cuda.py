@@ -26,7 +26,8 @@ from repro_torch.core.surrogate import SURROGATE_KINDS
 from repro_torch.kernels import ref
 from repro_torch.kernels.spiking_conv import (conv_grad_input, spiking_conv,
                                               spiking_conv_lif_hoisted)
-from repro_torch.kernels.spiking_conv_lif import (HoistedConvLIFFn, lif_bwd,
+from repro_torch.kernels.spiking_conv_lif import (HoistedConvLIFFn,
+                                                  SpikingConvLIFFn, lif_bwd,
                                                   spiking_conv_lif,
                                                   spiking_conv_lif_fwd)
 
@@ -1546,3 +1547,216 @@ def test_forward_under_grad_counts_with_torch(card):
                                    3)
     assert frac.device.type == "cuda" and bool(torch.isnan(frac))
     assert skip_fraction_from_rows.launches == launches
+
+
+# -- the weight gradient ------------------------------------------------------
+
+# N (T x batch folded), H, W, Cin, Cout, R, aprc of the forward conv, and
+# whether its input is a spike train (else analog frames)
+WGRAD_CASES = [
+    (2048, 30, 30, 16, 32, 3, True, True),    # snn-mnist layer 1
+    (2048, 32, 32, 32, 8, 3, True, True),     # layer 2
+    (256, 28, 28, 1, 16, 3, True, False),     # layer 0: the frames
+    (256, 82, 162, 8, 16, 3, True, True),     # snn-seg layers 1 to 5
+    (256, 84, 164, 16, 32, 3, True, True),
+    (256, 86, 166, 32, 32, 3, True, True),
+    (256, 88, 168, 32, 16, 3, True, True),
+    (256, 90, 170, 16, 1, 3, True, True),     # the Cout = 1 readout
+    (16, 80, 160, 3, 8, 3, True, False),      # seg layer 0: the frames
+    (7, 9, 11, 5, 12, 3, False, True),        # SAME, ragged M
+    (6, 12, 13, 16, 32, 5, True, True),       # 5x5 taps
+    (5, 10, 10, 6, 9, 5, False, True),        # 5x5 taps, SAME
+    (3, 7, 9, 40, 36, 3, True, True),         # two channel groups each way
+    (2, 6, 8, 32, 32, 5, True, True),         # taps split over the grid
+    (3, 2, 60, 3, 2, 4, False, False),        # even R: SAME pads (1, 2)
+]
+
+
+def _wgrad_inputs(case, density=0.2, seed=0):
+    """A spike train (or frames) and a cotangent scaled as a batch-mean
+    loss's: dz ~ N(0, 1) / sqrt(M), so that dw is about unit size."""
+    n, h, w_, cin, cout, r, aprc, spikes = case
+    rng = np.random.default_rng(seed + sum(case))
+    e_h, e_w = (h + r - 1, w_ + r - 1) if aprc else (h, w_)
+    x = (rng.random((n, h, w_, cin), dtype=np.float32) < density
+         ).astype(np.float32) if spikes else \
+        rng.random((n, h, w_, cin), dtype=np.float32)
+    dz = (rng.standard_normal((n, e_h, e_w, cout), dtype=np.float32)
+          / np.float32(np.sqrt(n * e_h * e_w)))
+    return x, dz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGRAD_CASES)
+def test_conv_grad_weights_kernel_matches_plain(card, case):
+    """The kernel (the spike instance on spike trains, the analog instance
+    on frames) against the plain torch-op GEMMs, at every main-path shape
+    of snn-mnist and snn-seg and the odd ones, one launch a call."""
+    from repro_torch.kernels.spiking_conv import conv_grad_weights
+    *_, r, aprc, spikes = case
+    x, dz = _on(card, *_wgrad_inputs(case))
+    launches = (conv_grad_weights.launches, conv_grad_weights.launches_analog)
+    dw, db = conv_grad_weights(x, dz, aprc=aprc, r=r, binary=spikes)
+    dw_p, db_p = ref.conv_grad_weights_ref(x, dz, aprc=aprc, r=r)
+    torch.cuda.synchronize()
+    assert (conv_grad_weights.launches, conv_grad_weights.launches_analog) \
+        == (launches[0] + 1, launches[1] + (not spikes))
+    torch.testing.assert_close(dw, dw_p, atol=5e-5, rtol=5e-4)
+    torch.testing.assert_close(db, db_p, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zero train", "frames as spikes",
+                                  "faint frames", "spikes as frames"])
+def test_conv_grad_weights_on_what_the_caller_did_not_say(card, kind):
+    """An all-zero train gives dw zero and db dz's sums; the spike instance
+    takes the analog route for tiles that are not 0 and 1 (frames, faint
+    frames) and stays right; the analog instance is right on spikes."""
+    from repro_torch.kernels.spiking_conv import conv_grad_weights
+    case = (64, 30, 30, 16, 32, 3, True, kind != "frames as spikes"
+            and kind != "faint frames")
+    x, dz = _on(card, *_wgrad_inputs(case, seed=5))
+    if kind == "zero train":
+        x.zero_()
+    if kind == "faint frames":
+        x.mul_(1e-3)
+    binary = kind != "spikes as frames"
+    dw, db = conv_grad_weights(x, dz, aprc=True, r=3, binary=binary)
+    dw_p, db_p = ref.conv_grad_weights_ref(x, dz, aprc=True, r=3)
+    if kind == "zero train":
+        assert not bool(dw.any())
+    torch.testing.assert_close(dw, dw_p, atol=5e-5, rtol=5e-4)
+    torch.testing.assert_close(db, db_p, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spikes", [True, False])
+def test_conv_grad_weights_bits_do_not_depend_on_the_blocks(card, spikes):
+    """The chains fix the bits: as many persistent blocks as fit, 7, or
+    one, give the same dw and db bit for bit, and so does a second call."""
+    from repro_torch.kernels.spiking_conv import _launch_wgrad
+    case = (512, 30, 30, 16, 32, 3, True, spikes)
+    x, dz = _on(card, *_wgrad_inputs(case, seed=2))
+    runs = [_launch_wgrad(x, dz, True, 3, spikes, max_blocks=m)
+            for m in (0, 7, 1, 0)]
+    for dw, db in runs[1:]:
+        assert torch.equal(dw, runs[0][0]) and torch.equal(db, runs[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4])
+def test_autograd_weight_gradients_take_the_kernel(card, t):
+    """Through SpikingConvLIFFn (spike instance; T = 1 and 4) and
+    HoistedConvLIFFn (analog instance), autograd's dw and db are the plain
+    version's on the same lam, and each backward launches the kernel
+    once."""
+    from repro_torch.kernels.spiking_conv import conv_grad_weights
+    rng = np.random.default_rng(t)
+    b, h, w_, cin, cout = 3, 10, 12, 8, 16
+    x = (rng.random((t, b, h, w_, cin)) < 0.3).astype(np.float32)
+    w = (rng.standard_normal((3, 3, cin, cout)) * 0.3).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.05 + 0.1).astype(np.float32)
+    v0 = (rng.standard_normal((b, h + 2, w_ + 2, cout)) * 0.3
+          ).astype(np.float32)
+    g_s = rng.standard_normal((t, b, h + 2, w_ + 2, cout)).astype(np.float32)
+    x, w, bias, v0, g_s = _on(card, x, w, bias, v0, g_s)
+    frames = x[0]
+    for layer in ("fused", "hoisted"):
+        wg, bg = (a.clone().requires_grad_(True) for a in (w, bias))
+        launches = (conv_grad_weights.launches,
+                    conv_grad_weights.launches_analog)
+        if layer == "fused":
+            s, v = SpikingConvLIFFn.apply(x, v0, wg, bg, 1.0, True, 4.0,
+                                          "fast_sigmoid")
+            _, _, u = spiking_conv_lif_fwd(x, v0, w, bias)
+            inp = x.reshape((t * b,) + x.shape[2:])
+        else:
+            s, v = HoistedConvLIFFn.apply(frames, v0, wg, bg, t, 1.0, True,
+                                          4.0, "fast_sigmoid")
+            _, _, u = spiking_conv_lif_hoisted(frames, v0, w, bias, t=t,
+                                               save_u=True)
+            inp = frames
+        torch.autograd.backward((s, v), (g_s, torch.zeros_like(v)))
+        torch.cuda.synchronize()
+        assert (conv_grad_weights.launches,
+                conv_grad_weights.launches_analog) == \
+            (launches[0] + 1, launches[1] + (layer == "hoisted"))
+        lam, _ = lif_bwd(u, g_s, torch.zeros_like(v0), v_th=1.0, alpha=4.0,
+                         kind="fast_sigmoid")
+        dz = (lam.reshape((t * b,) + lam.shape[2:]) if layer == "fused"
+              else sum(lam[1:], lam[0]))
+        dw_p, db_p = ref.conv_grad_weights_ref(inp, dz.contiguous(),
+                                               aprc=True, r=3)
+        torch.testing.assert_close(wg.grad, dw_p, atol=5e-5, rtol=5e-4)
+        torch.testing.assert_close(bg.grad, db_p, atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_the_weight_gradient_once_a_layer(card,
+                                                              monkeypatch):
+    """One snn-mnist train step on the hopper backend: the kernel once a
+    conv layer (three), the analog instance once (the hoisted first
+    layer), and never the plain torch-op GEMMs."""
+    from repro_torch.api import TrainSpec
+    from repro_torch.config import get_snn
+    from repro_torch.core import init_snn
+    from repro_torch.core.snn_train import make_train_step
+    from repro_torch.data.synthetic import mnist_like
+    from repro_torch.kernels import spiking_conv as a
+    from torch.utils._pytree import tree_map
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain weight gradient ran on the card")
+
+    monkeypatch.setattr(a, "conv_grad_weights_plain", refuse)
+    cfg = get_snn("snn-mnist")
+    params = init_snn(torch.Generator().manual_seed(0), cfg, device=card)
+    mom = tree_map(torch.zeros_like, params)
+    x, y = (torch.from_numpy(v).to(card) for v in mnist_like(16, seed=4))
+    step = make_train_step(cfg, spec=TrainSpec(backend="hopper", lr=1e-2))
+    launches = (a.conv_grad_weights.launches,
+                a.conv_grad_weights.launches_analog)
+    step(params, mom, x, y)
+    torch.cuda.synchronize()
+    assert (a.conv_grad_weights.launches,
+            a.conv_grad_weights.launches_analog) == \
+        (launches[0] + 3, launches[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spikes", [True, False])
+def test_conv_grad_weights_replays_from_a_cuda_graph(card, spikes):
+    """The call captures in a CUDA graph (it allocates nothing inside its
+    launches and never synchronizes): replays on new inputs copied into
+    the captured ones give the eager call's bits."""
+    from repro_torch.kernels.spiking_conv import conv_grad_weights
+    case = (64, 30, 30, 16, 32, 3, True, spikes)
+    inputs = [_on(card, *_wgrad_inputs(case, seed=s)) for s in (7, 8)]
+    x, dz = (a.clone() for a in inputs[0])
+    conv_grad_weights(x, dz, aprc=True, r=3, binary=spikes)   # build, load
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dw, db = conv_grad_weights(x, dz, aprc=True, r=3, binary=spikes)
+    for xi, dzi in inputs + inputs[:1]:
+        x.copy_(xi)
+        dz.copy_(dzi)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = conv_grad_weights(xi, dzi, aprc=True, r=3, binary=spikes)
+        assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+
+
+@pytest.mark.cuda
+def test_conv_grad_weights_checks_its_arguments(card):
+    from repro_torch.kernels.spiking_conv import conv_grad_weights
+    x = torch.zeros((2, 8, 8, 4), device=card)
+    dz = torch.zeros((2, 10, 10, 8), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        conv_grad_weights(x.double(), dz.double(), aprc=True, r=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_grad_weights(x.permute(0, 2, 1, 3), dz, aprc=True, r=3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        conv_grad_weights(x.cpu(), dz, aprc=True, r=3)
+    with pytest.raises(ValueError, match="do not fit"):
+        conv_grad_weights(x, dz, aprc=False, r=3)

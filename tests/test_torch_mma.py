@@ -1,9 +1,10 @@
-"""The arithmetic and the tiling of the tensor-core kernels B, C and E, on
-the CPU: the operand splits they make (their plain-torch mirrors in
-``kernels/ref.py``) and the tile plan they launch with
-(``kernels/spiking_conv.py:plan_mma_tiles``).  The kernels themselves run
-only on the card (tests/test_torch_cuda.py, ``chip_smoke.py``); nothing
-here touches CUDA."""
+"""The arithmetic and the tiling of the tensor-core kernels B, C and E and
+of the weight gradient, on the CPU: the operand splits they make (their
+plain-torch mirrors in ``kernels/ref.py``), the tile plans they launch with
+(``kernels/spiking_conv.py:plan_mma_tiles``, ``plan_wgrad``) and the
+weight gradient's wrapper.  The kernels themselves run only on the card
+(tests/test_torch_cuda.py, ``chip_smoke.py``); nothing here touches
+CUDA."""
 import numpy as np
 import pytest
 import torch
@@ -12,10 +13,15 @@ import torch.nn.functional as F
 from repro_torch.config import get_snn
 from repro_torch.core.snn_layers import conv2d, exact_grid
 from repro_torch.core.snn_model import init_snn
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import (split_bf16x3, split_tf32x2, tf32_round,
                                      tf32x3_product)
 from repro_torch.kernels.spiking_conv import (MMA_TILES, MMA_WARPS,
-                                              plan_mma_tiles)
+                                              WGRAD_ACC_TILES, WGRAD_CHAINS,
+                                              WGRAD_MAX_COLS, WGRAD_MAX_POS,
+                                              _launch_wgrad,
+                                              conv_grad_weights,
+                                              plan_mma_tiles, plan_wgrad)
 
 _MAX_SMEM = 227 * 1024
 
@@ -223,3 +229,122 @@ def test_main_path_shapes_match_the_config():
     assert (h + 2, c0, c1) == BC_SHAPES[0][0:1] + BC_SHAPES[0][2:]
     assert (h + 4, c1, c2) == BC_SHAPES[1][0:1] + BC_SHAPES[1][2:]
     assert cfg.kernel_size == 3
+
+
+# -- the weight gradient (csrc/conv_grad_weights.cu) --------------------------
+
+@pytest.mark.parametrize("exponent", list(range(-14, 3, 4)))
+def test_bf16x3_split_of_a_cotangent_is_exact_on_spikes(exponent):
+    """The weight gradient's split of dz: on a 0/1 spike, x * (hi + mid +
+    lo), summed in float32 from the parts, is x * dz bit for bit, at the
+    small magnitudes of a batch-mean loss's cotangent and up to 100."""
+    rng = np.random.default_rng(exponent + 300)
+    dz = torch.from_numpy((rng.standard_normal(8192) * 10.0 ** exponent)
+                          .astype(np.float32))
+    x = torch.from_numpy((rng.random(8192) < 0.3).astype(np.float32))
+    hi, mid, lo = split_bf16x3(dz)
+    parts = hi.float() + mid.float() + lo.float()
+    assert torch.equal(x * parts, x * dz)
+    assert torch.equal(parts, dz)
+
+
+# (N, E_h, E_w, R, Cin, Cout, analog): the weight gradient's calls
+WGRAD_SHAPES = [
+    (2048, 32, 32, 3, 16, 32, False),      # snn-mnist layers 1, 2 and 0
+    (2048, 34, 34, 3, 32, 8, False),
+    (256, 30, 30, 3, 1, 16, True),
+    (8, 32, 32, 3, 16, 32, False),         # make_grad_rows_fn's batch-1 rows
+    (256, 84, 164, 3, 8, 16, False),       # snn-seg layers 1 to 5, and 0
+    (256, 86, 166, 3, 16, 32, False),
+    (256, 88, 168, 3, 32, 32, False),
+    (256, 90, 170, 3, 32, 16, False),
+    (256, 92, 172, 3, 16, 1, False),
+    (16, 82, 162, 3, 3, 8, True),
+    (7, 9, 11, 3, 5, 12, False),           # ragged
+    (6, 16, 17, 5, 16, 32, False),         # 5x5 taps
+    (2, 10, 12, 5, 32, 32, False),         # 5x5 at 32 x 32: taps on the grid
+    (3, 9, 11, 3, 40, 36, False),          # two channel groups each way
+]
+
+
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_wgrad_plan_fits_its_kernel(shape):
+    """Each warp's tap slots fit its accumulators, a tile fits one block's
+    shared memory (the kernel's layout), whole rows up to 64 columns and
+    at most 256 positions, and the chains are the tiles up to 264."""
+    n, e_h, e_w, r, cin, cout, analog = shape
+    p = plan_wgrad(n, e_h, e_w, r, cin, cout, analog=analog)
+    assert p.m_tiles == (1 if cin <= 16 else 2)
+    assert p.n_tiles == (1 if cout <= 8 else 2 if cout <= 16 else 4)
+    slots = WGRAD_ACC_TILES // (p.m_tiles * p.n_tiles)
+    assert -(-(r * r + 1) // p.tap_groups) <= slots
+    assert p.tap_groups in (1, 2, 4) or p.tap_groups % MMA_WARPS == 0
+    # the fewest groups that fit
+    assert p.tap_groups == 1 or -(-(r * r + 1) // (p.tap_groups // 2)) > \
+        slots
+    assert p.block_cols == e_w if e_w <= WGRAD_MAX_COLS else \
+        p.block_cols <= WGRAD_MAX_COLS < e_w
+    assert p.block_rows * p.block_cols <= max(WGRAD_MAX_POS, p.block_cols)
+    assert 1 <= p.block_rows <= e_h
+    assert p.smem_bytes <= _MAX_SMEM
+    assert p.tiles == n * -(-e_h // p.block_rows) * -(-e_w // p.block_cols)
+    assert p.chains == min(p.tiles, WGRAD_CHAINS)
+
+
+def test_wgrad_plan_at_the_main_path_shapes():
+    """snn-mnist's three calls a train step: layer 1 in two tap groups of
+    four warps, 8 whole rows a tile; layer 2 in one group of eight, 7 rows;
+    layer 0's frames (the analog instance) 8 rows; 264 chains each.  The
+    batch-1 rows of ``make_grad_rows_fn`` (T = 8 images) plan 32 chains,
+    one a tile, not 264 blocks of nothing."""
+    def key(p):
+        return (p.block_rows, p.block_cols, p.tap_groups, p.chains,
+                p.smem_bytes)
+    assert key(plan_wgrad(2048, 32, 32, 3, 16, 32)) == \
+        (8, 32, 2, 264, 178704)
+    assert key(plan_wgrad(2048, 34, 34, 3, 32, 8)) == (7, 34, 1, 264, 135696)
+    assert key(plan_wgrad(256, 30, 30, 3, 1, 16, analog=True)) == \
+        (8, 30, 1, 264, 51280)
+    assert key(plan_wgrad(8, 32, 32, 3, 16, 32)) == (8, 32, 2, 32, 178704)
+
+
+def test_wgrad_plan_refuses_an_empty_layer():
+    with pytest.raises(ValueError, match="no weight-gradient plan"):
+        plan_wgrad(2, 8, 8, 3, 0, 4)
+
+
+def test_wgrad_wrapper_refuses_what_the_kernel_does_not_take():
+    """The launcher's checks, before any pointer reaches the card: the
+    shapes of a conv, float32, contiguous, one CUDA device."""
+    x = torch.zeros((2, 8, 8, 4))
+    dz = torch.zeros((2, 10, 10, 8))
+    with pytest.raises(ValueError, match="do not fit"):
+        _launch_wgrad(x, dz, False, 3, True)       # SAME: dz is 8 x 8
+    with pytest.raises(ValueError, match="do not fit"):
+        _launch_wgrad(x[..., :0], dz, True, 3, True)
+    with pytest.raises(ValueError, match=r"\(N, H, W, Cin\)"):
+        _launch_wgrad(x[0], dz, True, 3, True)
+    with pytest.raises(TypeError, match="float32"):
+        _launch_wgrad(x.double(), dz.double(), True, 3, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        _launch_wgrad(x.transpose(1, 2), dz, True, 3, True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        _launch_wgrad(x, dz, True, 3, True)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_wgrad_on_cpu_tensors_takes_the_plain_loop(binary):
+    """CPU tensors take the torch-op GEMMs, with their bits, whichever
+    instance the caller names, and launch nothing."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.random((3, 9, 11, 5)) < 0.3)
+                         .astype(np.float32))
+    dz = torch.from_numpy(rng.standard_normal((3, 11, 13, 12))
+                          .astype(np.float32))
+    launches = (conv_grad_weights.launches,
+                conv_grad_weights.launches_analog)
+    dw, db = conv_grad_weights(x, dz, aprc=True, r=3, binary=binary)
+    want = ref.conv_grad_weights_ref(x, dz, aprc=True, r=3)
+    assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+    assert (conv_grad_weights.launches,
+            conv_grad_weights.launches_analog) == launches
