@@ -8,9 +8,12 @@ partitioning.
   * channel permutations that realize each partition as a contiguous
     re-layout.
 
-On the card the lanes are only a permutation: the ``hopper`` backend runs
-on ``permute_conv_params`` weights and un-permutes its per-channel counts,
-while the kernels tile Cout as they choose.
+On the card the lanes are only a permutation of channels, which the kernels
+tile as they choose: ``lay_out`` gives the weights the ``hopper`` backend
+runs on and the order that returns its per-channel counts to canonical
+order, derived once per params version by the serving cache; the identity,
+as ``build_schedule`` gives it (its output partition is always contiguous
+striping), derives to nothing.
 
 Modes map to the paper's Fig. 7 ablation:
   'none'       naive contiguous striping                     (neither)
@@ -20,7 +23,7 @@ Modes map to the paper's Fig. 7 ablation:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +32,8 @@ from repro_torch.config import SNNConfig
 from repro_torch.core import aprc
 from repro_torch.core.cbws import Partition, cbws_partition, naive_partition
 
-__all__ = ["LayerSchedule", "build_schedule", "permute_conv_params"]
+__all__ = ["LayerSchedule", "build_schedule", "permute_conv_params",
+           "ChannelLayout", "lay_out"]
 
 
 @dataclass(frozen=True)
@@ -95,3 +99,27 @@ def permute_conv_params(params: Dict, scheds: List[LayerSchedule]) -> Dict:
                    if k != "b" else t) for k, t in d0.items()}
         new_params["dense"] = [d0p] + params["dense"][1:]
     return new_params
+
+
+@dataclass(frozen=True, eq=False)
+class ChannelLayout:
+    """What a ``hopper`` forward runs on: ``source``'s weights laid out
+    under a schedule (``params``) and, per conv layer, the device index
+    order that returns its (t, Cout) counts to canonical channel order
+    (None: ``params`` is ``source``)."""
+    source: Dict
+    params: Dict
+    count_order: Optional[Tuple[torch.Tensor, ...]] = None
+
+
+def lay_out(params: Dict, schedule: Optional[Sequence[LayerSchedule]],
+            ) -> ChannelLayout:
+    """``params`` laid out under ``schedule`` (a ``build_schedule``
+    result, or None).  Where every ``out_perm`` is the identity nothing is
+    copied and no count is gathered."""
+    perms = [s.out_perm for s in schedule or ()]
+    if all(np.array_equal(p, np.arange(len(p))) for p in perms):
+        return ChannelLayout(params, params)
+    dev = params["conv"][0]["w"].device
+    return ChannelLayout(params, permute_conv_params(params, schedule), tuple(
+        torch.as_tensor(np.argsort(p), device=dev) for p in perms))

@@ -44,7 +44,7 @@ RRIO conv weights, (din, dout) dense weights), same names, same outputs.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ from repro_torch import obs
 from repro_torch.config import SNNConfig
 from repro_torch.core import snn_layers as L
 from repro_torch.core.neuron import LIFState
+from repro_torch.core.scheduler import ChannelLayout, lay_out
 from repro_torch.core.surrogate import spike_fn
 from repro_torch.device import resolve_device
 
@@ -63,6 +64,9 @@ __all__ = ["init_snn", "snn_apply", "SNNOutputs", "layer_shapes",
            "finalize_logits", "freeze_params", "SNN"]
 
 SNN_BACKENDS = ("ref", "batched", "hopper")
+
+#: a ``core.scheduler.build_schedule`` result or the layout derived with one
+Schedule = Union[Sequence, ChannelLayout, None]
 
 
 class ChunkCarry(NamedTuple):
@@ -186,7 +190,8 @@ def freeze_params(params: Dict) -> Dict:
     """``params`` for many forwards that neither change them nor take a
     gradient (the serving cache): each dense layer also holds its
     exact-grid weights (``snn_layers.with_exact_grid``), computed here
-    once instead of in every forward."""
+    once instead of in every forward.  The channel layout of a kernel
+    schedule is derived from them apart (``core.scheduler.lay_out``)."""
     with torch.no_grad():
         return {**params, "dense": [L.with_exact_grid(dp)
                                     for dp in params["dense"]]}
@@ -195,7 +200,7 @@ def freeze_params(params: Dict) -> Dict:
 def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
               *, surrogate_alpha: float = 10.0,
               surrogate_kind: str = "fast_sigmoid", backend: str = "ref",
-              schedule: Optional[Sequence] = None,
+              schedule: Schedule = None,
               spec: Optional[object] = None,
               logits_only: bool = False) -> SNNOutputs:
     """frames: (B, H, W, Cin) analog input in [0,1] (direct coding) or a
@@ -203,10 +208,11 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
 
     backend: "ref" (timestep-outer loop), "batched" (time-batched layer
     pipeline, plain ops) or "hopper" (time-batched through the hand-written
-    kernels).  ``schedule`` (a ``core.scheduler.build_schedule`` result)
-    routes the hopper backend through CBWS-permuted weights; outputs are
-    reported in canonical channel order regardless.  ``logits_only``
-    computes the logits alone (module doc).
+    kernels).  ``schedule`` (a ``core.scheduler.build_schedule`` result,
+    or the ``lay_out`` of ``params`` under one, derived once for many
+    calls) routes the hopper backend through CBWS-permuted weights;
+    outputs are reported in canonical channel order regardless.
+    ``logits_only`` computes the logits alone (module doc).
 
     ``spec`` (a ``repro_torch.api.ExecutionSpec``, duck-typed so core never
     imports the facade) carries backend/surrogate in one validated record
@@ -251,11 +257,12 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                 surrogate_kind=surrogate_kind, backend=backend,
                 schedule=schedule, logits_only=logits_only)
     if backend in ("batched", "hopper"):
+        layout = _layout(params, schedule, backend)
         return _apply_time_batched(
-            params, frames, cfg, surrogate_alpha=surrogate_alpha,
+            layout.params, frames, cfg, surrogate_alpha=surrogate_alpha,
             surrogate_kind=surrogate_kind,
-            use_kernels=(backend == "hopper"), schedule=schedule,
-            logits_only=logits_only)
+            use_kernels=(backend == "hopper"),
+            count_order=layout.count_order, logits_only=logits_only)
     if backend != "ref":
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {SNN_BACKENDS}")
@@ -274,6 +281,20 @@ def snn_apply(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
         spike_totals=tuple(c.sum() for c in counts),
         timestep_counts=tuple(t_counts),
     )
+
+
+def _layout(params: Dict, schedule: Schedule,
+            backend: str) -> ChannelLayout:
+    """The ``core.scheduler.ChannelLayout`` a forward on ``backend`` runs
+    on: ``schedule``'s (laid out here unless it is a layout already) on
+    the hopper backend, ``params`` themselves elsewhere."""
+    if not isinstance(schedule, ChannelLayout):
+        return lay_out(params, schedule if backend == "hopper" else None)
+    if schedule.source is not params:
+        raise ValueError(
+            "schedule= is the ChannelLayout of other params than these: "
+            "lay these out (core.scheduler.lay_out) or pass the schedule")
+    return schedule if backend == "hopper" else lay_out(params, None)
 
 
 def _apply_ref_chunk(params: Dict, z_chunk: torch.Tensor, cfg: SNNConfig,
@@ -393,7 +414,7 @@ def _conv_folded(x_seq: torch.Tensor, p: Dict, cfg: SNNConfig,
 
 def _apply_time_batched(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                         *, surrogate_alpha: float, surrogate_kind: str,
-                        use_kernels: bool, schedule: Optional[Sequence],
+                        use_kernels: bool, count_order: Optional[Sequence],
                         logits_only: bool = False) -> SNNOutputs:
     """Layer-outer execution: each layer consumes the whole (T, B) block.
     Whole-T is exactly one chunk of ``_time_batched_chunk`` started from the
@@ -407,7 +428,8 @@ def _apply_time_batched(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     counts_t, skips, carry = _time_batched_chunk(
         params, frames, cfg, surrogate_alpha=surrogate_alpha,
         surrogate_kind=surrogate_kind, use_kernels=use_kernels,
-        schedule=schedule, carry=carry, t_chunk=T, logits_only=logits_only)
+        count_order=count_order, carry=carry, t_chunk=T,
+        logits_only=logits_only)
     logits = finalize_logits(carry.readout_v, cfg, cfg.timesteps)
     spike_counts, spike_totals = _sum_counts(counts_t, frames)
     return SNNOutputs(
@@ -432,10 +454,13 @@ def _sum_counts(counts_t: Sequence[torch.Tensor], frames: torch.Tensor):
 
 def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                         *, surrogate_alpha: float, surrogate_kind: str,
-                        use_kernels: bool, schedule: Optional[Sequence],
+                        use_kernels: bool, count_order: Optional[Sequence],
                         carry: ChunkCarry, t_chunk: int,
                         logits_only: bool = False):
     """One timestep segment of the layer-outer pipeline.
+
+    ``count_order`` (a ``ChannelLayout``'s, or None) returns each layer's
+    counts from the order of ``params``' channels to the canonical one.
 
     ``frames`` is either the (B, H, W, Cin) direct-coded input (constant
     over T — the hoisted first-layer conv is recomputed per chunk) or a
@@ -457,16 +482,6 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     n_conv = len(cfg.conv_channels)
     head_dim = cfg.dense_units[-1] if cfg.dense_units else None
     v_th = cfg.v_threshold
-
-    inv_perms: List[Optional[torch.Tensor]] = [None] * n_conv
-    if use_kernels and schedule is not None:
-        from repro_torch.core.scheduler import permute_conv_params
-        with obs.span("model.schedule"):
-            params = permute_conv_params(params, list(schedule))
-            if not logits_only:
-                inv_perms = [torch.as_tensor(s.out_perm,
-                                             device=frames.device)
-                             .argsort() for s in schedule]
     count = not logits_only
     # the kernels count the trains they fire (on the card only: on the CPU
     # the wrappers' plain versions would count with torch ops anyway)
@@ -571,8 +586,8 @@ def _time_batched_chunk(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                 cnt = made.t
             elif cnt is None:
                 cnt = x.sum(dim=(1, 2, 3))
-            if inv_perms[i] is not None:
-                cnt = cnt[:, inv_perms[i]]
+            if count_order is not None:
+                cnt = cnt[:, count_order[i]]
             counts_t.append(cnt.float())
 
     if head_dim is not None:
@@ -609,7 +624,7 @@ def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
                     surrogate_alpha: float = 10.0,
                     surrogate_kind: str = "fast_sigmoid",
                     backend: str = "batched",
-                    schedule: Optional[Sequence] = None,
+                    schedule: Schedule = None,
                     logits_only: bool = False,
                     ) -> Tuple[ChunkOutputs, ChunkCarry]:
     """One timestep chunk of the network, any backend.
@@ -621,12 +636,14 @@ def snn_apply_chunk(params: Dict, frames: torch.Tensor, carry: ChunkCarry,
     to the whole-T run's internal state (``finalize_logits(carry.readout_v,
     cfg, T)`` reproduces its logits exactly).  This is what the serving
     engine runs per (bucket, backend, t_chunk) for chunk-boundary
-    rescheduling.  ``logits_only`` leaves the outputs empty (module doc)."""
+    rescheduling.  ``schedule`` is ``snn_apply``'s; ``logits_only`` leaves
+    the outputs empty (module doc)."""
     if backend in ("batched", "hopper"):
+        layout = _layout(params, schedule, backend)
         counts_t, skips, carry = _time_batched_chunk(
-            params, frames, cfg, surrogate_alpha=surrogate_alpha,
+            layout.params, frames, cfg, surrogate_alpha=surrogate_alpha,
             surrogate_kind=surrogate_kind, use_kernels=(backend == "hopper"),
-            schedule=schedule, carry=carry, t_chunk=t_chunk,
+            count_order=layout.count_order, carry=carry, t_chunk=t_chunk,
             logits_only=logits_only)
     elif backend == "ref":
         if frames.dim() == 4:
@@ -654,7 +671,7 @@ def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
                       surrogate_alpha: float = 10.0,
                       surrogate_kind: str = "fast_sigmoid",
                       backend: str = "batched",
-                      schedule: Optional[Sequence] = None,
+                      schedule: Schedule = None,
                       logits_only: bool = False) -> SNNOutputs:
     """Chunked run: T in segments of ``chunk_timesteps`` with the
     membrane/readout state carried between segments.
@@ -665,7 +682,9 @@ def snn_apply_chunked(params: Dict, frames: torch.Tensor, cfg: SNNConfig,
     so chunk boundaries change nothing but where the carry is held.
     ``timestep_counts`` are the chunks' counts concatenated along T; spike
     counts/totals are their (integer-exact) sums; ``skip_fractions`` is the
-    chunk-length-weighted mean; all empty under ``logits_only``."""
+    chunk-length-weighted mean; all empty under ``logits_only``.  A
+    ``schedule`` is laid out once for all chunks."""
+    schedule = _layout(params, schedule, backend)
     hoist = frames.dim() == 4
     t_total = cfg.timesteps if hoist else frames.shape[0]
     B = frames.shape[0] if hoist else frames.shape[1]
@@ -751,7 +770,7 @@ class SNN(nn.Module):
                           for w, b in zip(self.dense_w, self.dense_b)]}
 
     def forward(self, frames: torch.Tensor, *, backend: str = "hopper",
-                schedule: Optional[Sequence] = None,
+                schedule: Schedule = None,
                 surrogate_alpha: float = 10.0,
                 surrogate_kind: str = "fast_sigmoid") -> SNNOutputs:
         return snn_apply(self.param_dict(), frames, self.cfg,

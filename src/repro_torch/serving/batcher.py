@@ -23,6 +23,7 @@ is uncontended on the single-threaded virtual-clock path.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import threading
 from collections import deque
@@ -124,15 +125,21 @@ class ExecCache:
     of the threaded engine owns a ``fork``.
 
     ``device`` is where the cache runs: its parameters are moved there
-    with ``.to(device)`` (default: where they already are).  They are
-    held frozen (``snn_model.freeze_params``): what every forward would
-    derive from them alone is derived once, when they are set.
+    with ``.to(device)`` (default: where they already are).  ``params``
+    are held frozen (``snn_model.freeze_params``) and canonical.
+
+    ``schedule_mode`` (a ``core.scheduler.build_schedule`` mode, or None)
+    is the hopper backend's CBWS kernel schedule.  The cache owns it:
+    setting params builds it and lays them out under it
+    (``core.scheduler.lay_out``, span ``model.schedule``), once a params
+    version.  Entries close over nothing derived from params, so new
+    params rebuild no entry and a ``fork`` shares them.
     """
 
-    def __init__(self, params, cfg, schedule=None, chunk_timesteps=None,
+    def __init__(self, params, cfg, schedule_mode=None, chunk_timesteps=None,
                  device=None):
         self.cfg = cfg
-        self.schedule = schedule
+        self.schedule_mode = schedule_mode
         self.chunk_timesteps = chunk_timesteps
         self.device = None if device is None else torch.device(device)
         self.params = params        # setter moves them to the device
@@ -145,11 +152,28 @@ class ExecCache:
 
     @params.setter
     def params(self, params) -> None:
+        from repro_torch.core import scheduler
         from repro_torch.core.snn_model import freeze_params
         # keep the device pin across engine.update_params swaps
         if self.device is not None:
             params = tree_map(lambda t: t.to(self.device), params)
-        self._params = freeze_params(params)
+        self._params = p = freeze_params(params)
+        self._schedule, self._layout = None, scheduler.ChannelLayout(p, p)
+        if self.schedule_mode is not None:
+            with obs.span("model.schedule"):
+                self._schedule = scheduler.build_schedule(
+                    p, self.cfg, self.schedule_mode)
+                self._layout = scheduler.lay_out(p, self._schedule)
+
+    def _layout_of(self, params):
+        """The layout an entry runs ``params`` on: the cache's own, or
+        others laid out with its schedule."""
+        if params is self._params:
+            return self._layout
+        from repro_torch.core.scheduler import lay_out
+        with torch.no_grad():
+            return lay_out(to_device(params, self.param_device),
+                           self._schedule)
 
     @property
     def param_device(self) -> torch.device:
@@ -168,6 +192,9 @@ class ExecCache:
 
     def get(self, bucket: int, backend: str, outputs: str = "full",
             timesteps: Optional[int] = None):
+        """The entry for the key, built on first use: ``entry(params, x)``,
+        and the carry for ``"chunk"``; ``entry(readout_v)`` for
+        ``"finalize"``."""
         key = self._key(bucket, backend, outputs, timesteps)
         fn = self._fns.get(key)
         if fn is None:
@@ -175,16 +202,17 @@ class ExecCache:
                                                     snn_apply,
                                                     snn_apply_chunk,
                                                     snn_apply_chunked)
-            cfg, sched = self.cfg, self.schedule
+            cfg = self.cfg
             if key[3] != cfg.timesteps and outputs not in ("chunk",
                                                            "finalize"):
                 cfg = dataclasses.replace(cfg, timesteps=key[3])
             if outputs == "chunk":
                 t_chunk = key[3]
 
-                def run(p, x, c):
-                    return snn_apply_chunk(p, x, c, cfg, t_chunk=t_chunk,
-                                           backend=backend, schedule=sched)
+                def run(lay, x, c):
+                    return snn_apply_chunk(lay.source, x, c, cfg,
+                                           t_chunk=t_chunk, backend=backend,
+                                           schedule=lay)
             elif outputs == "finalize":
                 # readout carry -> logits for a t_total-timestep request,
                 # by the same device op the whole-T forward ends with (a
@@ -198,21 +226,25 @@ class ExecCache:
                 ct = self.chunk_timesteps
                 logits_only = outputs == "logits"
 
-                def run(p, x):
+                def run(lay, x):
                     if ct is not None:
-                        out = snn_apply_chunked(p, x, cfg, chunk_timesteps=ct,
+                        out = snn_apply_chunked(lay.source, x, cfg,
+                                                chunk_timesteps=ct,
                                                 backend=backend,
-                                                schedule=sched,
+                                                schedule=lay,
                                                 logits_only=logits_only)
                     else:
-                        out = snn_apply(p, x, cfg, backend=backend,
-                                        schedule=sched,
+                        out = snn_apply(lay.source, x, cfg, backend=backend,
+                                        schedule=lay,
                                         logits_only=logits_only)
                     return out.logits if logits_only else out
             fn = self._entry(run, self.param_device)
             self._fns[key] = fn
             self.compiles += 1
-        return fn
+        if outputs == "finalize":
+            return fn
+        # forks share the entry: the layout is the calling cache's
+        return lambda params, *args: fn(self._layout_of(params), *args)
 
     @staticmethod
     def _entry(run, device: torch.device):
@@ -246,16 +278,18 @@ class ExecCache:
                                 timesteps=t_total)(readout_v))
 
     def fork(self, device=None) -> "ExecCache":
-        """A lane-private cache sharing every entry built so far; an entry
-        built after the fork stays private to the copy.  ``device`` pins
-        the fork elsewhere (default: the parent's device); a fork on
-        another device starts with no entries, since an entry moves its
-        inputs to the device it was built for."""
+        """A lane-private cache sharing every entry built so far and the
+        layout; an entry built after the fork stays private to the copy.
+        ``device`` pins the fork elsewhere (default: the parent's device),
+        where it lays the params out once and starts with no entries, since
+        an entry moves its inputs to the device it was built for."""
         device = self.device if device is None else torch.device(device)
-        c = ExecCache(self.params, self.cfg, schedule=self.schedule,
-                      chunk_timesteps=self.chunk_timesteps, device=device)
-        if c.param_device == self.param_device:
-            c._fns = dict(self._fns)
+        c = copy.copy(self)
+        c.device, c._fns, c.compiles = device, dict(self._fns), 0
+        # a host entry ``cpu:i`` holds its tensors on ``cpu``
+        if device is not None and self._params["conv"][0]["w"].to(
+                device).device != self.param_device:
+            c._fns, c.params = {}, self._params
         return c
 
 

@@ -266,11 +266,7 @@ class ServingEngine:
                                   p.POSITIONAL_OR_KEYWORD)]) >= 3
             except (TypeError, ValueError):
                 pass
-        self._schedule = None
-        if ecfg.schedule_mode is not None:
-            from repro_torch.core import build_schedule
-            self._schedule = build_schedule(params, cfg, ecfg.schedule_mode)
-        self.cache = ExecCache(params, cfg, schedule=self._schedule,
+        self.cache = ExecCache(params, cfg, schedule_mode=ecfg.schedule_mode,
                                chunk_timesteps=ecfg.chunk_timesteps,
                                device=self.device)
         self.params = self.cache.params     # on the engine's device
@@ -467,28 +463,18 @@ class ServingEngine:
     def update_params(self, params: Dict) -> None:
         """Swap the served params in place (same pytree structure).
 
-        Cache entries are params-*independent* — every cache passes params
-        as an argument — so no entry is rebuilt; only the params-derived
-        caches (zero-frame pad profiles, channel weights for APRC
-        admission) must refresh.  The one exception is a CBWS kernel
-        schedule (``schedule_mode``): the permutation is closed over by the
-        entries and is itself derived from the params, so scheduled engines
-        rebuild it AND drop their entries (rebuilt on next use with the
-        fresh schedule).  Not allowed on a live engine: in-flight
-        micro-batches would mix parameter versions.
+        Cache entries are params-independent — every cache passes params
+        as an argument, and derives what it needs from them (a kernel
+        schedule's layout included) when they are set — so no entry is
+        rebuilt; only the engine's params-derived caches (zero-frame pad
+        profiles, channel weights for APRC admission) must refresh.  Not
+        allowed on a live engine: in-flight micro-batches would mix
+        parameter versions.
         """
         if self._live_thread is not None:
             raise RuntimeError(
                 "cannot update params while serve_forever is running")
-        caches = [self.cache] + (self._lane_caches or [])
-        if self.ecfg.schedule_mode is not None:
-            from repro_torch.core import build_schedule
-            self._schedule = build_schedule(params, self.cfg,
-                                            self.ecfg.schedule_mode)
-            for c in caches:
-                c.schedule = self._schedule
-                c._fns.clear()            # old schedule is closed over
-        for c in caches:
+        for c in [self.cache] + (self._lane_caches or []):
             c.params = params
         self.params = self.cache.params
         self._pad_profiles.clear()

@@ -1479,6 +1479,43 @@ def test_hopper_forward_counts_through_the_kernels(card, net):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("net", ["snn-mnist", "snn-seg"])
+def test_scheduled_call_issues_the_unscheduled_device_ops(card, net):
+    """A scheduled hopper session's full call runs on the layout its cache
+    derived when the params were set: under the profiler it issues the
+    device ops of an unscheduled session's call, as many and of the same
+    names, and gives its bits."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import ServeSpec, Session
+    from repro_torch.config import get_snn
+    from repro_torch.data.synthetic import mnist_like, road_like
+    cfg = get_snn(net)
+    frames = (mnist_like(32, seed=0) if net == "snn-mnist"
+              else road_like(2, seed=0))[0]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):      # CUPTI's start-up, untimed
+        torch.ones(1, device=card).add_(1)
+        torch.cuda.synchronize()
+    outs, ops = [], []
+    for mode in ("aprc+cbws", None):
+        sess = Session(cfg, ServeSpec(backend="hopper", schedule_mode=mode),
+                       seed=0, device=card)
+        sess.infer(frames)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            outs.append(sess.infer(frames))
+            torch.cuda.synchronize()
+        ops.append(sorted(e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    assert ops[0], "the profiler saw no device op"
+    assert len(ops[0]) == len(ops[1]) and ops[0] == ops[1]
+    for a, b in zip(outs[0], outs[1]):
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert np.array_equal(u, v)
+
+
+@pytest.mark.cuda
 def test_counting_forward_replays_from_a_cuda_graph(card):
     """A mesh worker's CUDA graph of a full-output hopper forward
     (``dist.runner._infer_shard``): its replays, on new frames and on the

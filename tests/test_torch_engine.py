@@ -21,10 +21,13 @@ import pytest
 import torch
 
 from repro_torch.config import get_snn
-from repro_torch.core import init_snn, snn_apply
+from repro_torch.core import (build_schedule, init_chunk_carry, init_snn,
+                              scheduler, snn_apply, snn_apply_chunked,
+                              snn_model)
 from repro_torch.runtime.fault_tolerance import RetryPolicy
 from repro_torch.runtime.faults import FaultPlan
-from repro_torch.serving import EngineConfig, LaneSupervisor, ServingEngine
+from repro_torch.serving import (EngineConfig, ExecCache, LaneSupervisor,
+                                 ServingEngine)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -416,6 +419,179 @@ def test_exec_cache_holds_frozen_params(tiny):
         want = _whole(p, cfg, frames)
         for i, rid in enumerate(rids):
             np.testing.assert_array_equal(got[rid], want[i])
+
+
+# -- the channel layout ------------------------------------------------------
+
+LAYOUT_CFGS = {
+    "snn-mnist": lambda: get_snn("snn-mnist"),
+    "snn-seg": lambda: get_snn("snn-seg"),
+    "tiny": _tiny_cfg,
+    "tiny-seg": lambda: dataclasses.replace(
+        get_snn("snn-seg"), input_hw=(6, 8), conv_channels=(4, 8, 1),
+        timesteps=4, num_spe_clusters=2),
+}
+
+
+@pytest.mark.parametrize("mode", ["none", "cbws", "aprc+cbws"])
+@pytest.mark.parametrize("name", sorted(LAYOUT_CFGS))
+def test_built_schedules_lay_out_to_nothing(name, mode):
+    """``build_schedule`` stripes output channels contiguously, so every
+    ``out_perm`` is the identity and the layout is the params themselves,
+    with no count order."""
+    cfg = LAYOUT_CFGS[name]()
+    params = init_snn(torch.Generator().manual_seed(0), cfg, device="cpu")
+    sched = build_schedule(params, cfg, mode)
+    assert len(sched) == len(cfg.conv_channels)
+    for s, cout in zip(sched, cfg.conv_channels):
+        np.testing.assert_array_equal(s.out_perm, np.arange(cout))
+    layout = scheduler.lay_out(params, sched)
+    assert layout.params is params and layout.count_order is None
+
+
+def _reversed(sched):
+    """``sched`` with every layer's output channels in reverse order."""
+    return [dataclasses.replace(s, out_perm=s.out_perm[::-1].copy())
+            for s in sched]
+
+
+def _scaled(params, f):
+    return {k: [{n: t * f for n, t in layer.items()} for layer in v]
+            for k, v in params.items()}
+
+
+@pytest.fixture
+def layout_calls(monkeypatch):
+    """Counts ``permute_conv_params`` and ``lay_out`` calls, wherever
+    they are called from."""
+    calls = {"permute": 0, "lay_out": 0}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr(scheduler, "permute_conv_params", counted(
+        "permute", scheduler.permute_conv_params))
+    lay = counted("lay_out", scheduler.lay_out)
+    monkeypatch.setattr(scheduler, "lay_out", lay)
+    monkeypatch.setattr(snn_model, "lay_out", lay)
+    return calls
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("ct", [None, 2])
+def test_cache_serves_a_reversed_layout_bit_for_bit(tiny, monkeypatch,
+                                                    layout_calls, ct):
+    """A schedule whose output channels are reversed, through the cache:
+    the bits of ``snn_apply(schedule=...)`` (logits, counts in canonical
+    order, timestep counts, skip fractions) from whole-T and chunk
+    entries, before and after new params and through a fork; the layout
+    is derived once a params version and in no call."""
+    cfg, params = tiny
+    real = scheduler.build_schedule
+    monkeypatch.setattr(scheduler, "build_schedule",
+                        lambda p, c, mode: _reversed(real(p, c, mode)))
+    x = torch.from_numpy(np.stack(_frames(3, cfg, seed=5)))
+
+    def want(p):
+        sched = _reversed(real(p, cfg, "aprc+cbws"))
+        with torch.no_grad():
+            if ct is None:
+                return snn_apply(p, x, cfg, backend="hopper", schedule=sched)
+            return snn_apply_chunked(p, x, cfg, chunk_timesteps=ct,
+                                     backend="hopper", schedule=sched)
+
+    def check(cache, want_out):
+        calls = dict(layout_calls)
+        for _ in range(2):
+            _same(cache.get(3, "hopper")(cache.params, x), want_out)
+        carry = init_chunk_carry(cfg, 3, device="cpu")
+        counts = []
+        for _ in range(cfg.timesteps // 2):
+            out, carry = cache.get(3, "hopper", outputs="chunk",
+                                   timesteps=2)(cache.params, x, carry)
+            counts.append(out.timestep_counts)
+        for i, tc in enumerate(want_out.timestep_counts):
+            assert torch.equal(torch.cat([c[i] for c in counts]),
+                               tc[:len(counts) * 2])
+        assert layout_calls == calls
+
+    first, second = want(params), want(_scaled(params, 0.5))
+    assert not torch.equal(first.logits, second.logits)
+    with torch.no_grad():       # the plain path's sums are exact
+        _same(first, snn_apply(params, x, cfg, backend="hopper")
+              if ct is None else snn_apply_chunked(
+                  params, x, cfg, chunk_timesteps=ct, backend="hopper"))
+    assert first.timestep_counts[0].sum() > 0
+    calls = dict(layout_calls)
+    cache = ExecCache(params, cfg, schedule_mode="aprc+cbws",
+                      chunk_timesteps=ct, device="cpu")
+    assert layout_calls == {k: v + 1 for k, v in calls.items()}
+    check(cache, first)
+    fork = cache.fork()
+    assert layout_calls == {k: v + 1 for k, v in calls.items()}
+    check(fork, first)
+    cache.params = _scaled(params, 0.5)
+    assert layout_calls == {k: v + 2 for k, v in calls.items()}
+    check(cache, second)
+    check(fork, first)
+    # params other than the cache's own are laid out a call
+    _same(cache.get(3, "hopper")(params, x), first)
+
+
+@pytest.mark.parametrize("backend", ["hopper", "batched"])
+def test_a_layout_of_other_params_is_refused(tiny, backend):
+    """``schedule=`` takes the layout of the params it is passed with, and
+    refuses one derived from others instead of running their weights."""
+    cfg, params = tiny
+    x = torch.from_numpy(np.stack(_frames(2, cfg, seed=3)))
+    sched = _reversed(build_schedule(params, cfg, "aprc+cbws"))
+    layout = scheduler.lay_out(params, sched)
+    new = _scaled(params, 0.5)
+    with torch.no_grad():
+        want = snn_apply(params, x, cfg, backend=backend, schedule=sched)
+        _same(snn_apply(params, x, cfg, backend=backend, schedule=layout),
+              want)
+        for run in (lambda: snn_apply(new, x, cfg, backend=backend,
+                                      schedule=layout),
+                    lambda: snn_apply_chunked(new, x, cfg, chunk_timesteps=2,
+                                              backend=backend,
+                                              schedule=layout)):
+            with pytest.raises(ValueError, match="other params"):
+                run()
+
+
+def test_update_params_keeps_a_scheduled_engines_entries(tiny,
+                                                         layout_calls):
+    """``update_params`` on a scheduled engine lays the new params out
+    once and rebuilds no entry; the engine serves their bits."""
+    cfg, params = tiny
+    eng = _engine(params, cfg, max_batch=4, schedule_mode="aprc+cbws")
+    frames = np.stack(_frames(3, cfg, seed=9))
+    eng.infer(frames)
+    compiles, calls = eng.cache.compiles, dict(layout_calls)
+    new = _scaled(params, 0.5)
+    eng.update_params(new)
+    assert layout_calls["lay_out"] == calls["lay_out"] + 1
+    got = eng.infer(frames)
+    eng.infer(frames)
+    assert eng.cache.compiles == compiles
+    assert layout_calls["lay_out"] == calls["lay_out"] + 1
+    with torch.no_grad():
+        want = snn_apply(new, torch.from_numpy(frames), cfg,
+                         backend="hopper",
+                         schedule=build_schedule(new, cfg, "aprc+cbws"))
+    np.testing.assert_array_equal(got.logits, want.logits.numpy())
+    for a, b in zip(got.timestep_counts, want.timestep_counts):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 def test_lane_devices_wait_for_the_mesh_runtime(tiny3):

@@ -73,8 +73,7 @@ def _expected_parents(cfg, kind):
     if kind == "infer":
         want = {s: "infer" for s in INFER_STAGES}
         want.update({f"model.conv{i}": "infer.forward" for i in range(n)})
-        want.update({"model.schedule": "infer.forward",
-                     "model.counts": "infer.forward",
+        want.update({"model.counts": "infer.forward",
                      "model.skip_table": "infer.forward"})
     else:
         want = {s: "train_step" for s in TRAIN_STAGES}
@@ -141,6 +140,25 @@ def test_traced_infer_records_every_span_with_its_parent(name):
     assert reading.per_call(P + "infer", P + "model.counts",
                             device=True) is None
     assert reading.per_call(P + "infer", P + "infer.stage") > 0
+
+
+@pytest.mark.parametrize("name", ["snn-mnist", "snn-seg"])
+def test_schedule_is_laid_out_once_a_params_version(name):
+    """A scheduled session lays its kernel schedule out
+    (``model.schedule``) once when its engine takes the params, once when
+    an engine's params are updated, and in no call."""
+    sess = _serve(name)
+    x = _frames(sess.cfg)
+    _, reading, _ = _traced(lambda: sess.infer(x))     # builds the engine
+    assert reading.totals[P + "model.schedule"].count == 1
+    _, reading, _ = _traced(lambda: sess.infer(x), calls=3)
+    assert reading.totals[P + "infer"].count == 3
+    assert P + "model.schedule" not in reading.totals
+    eng = sess.engine()
+    half = {k: [{n: t * 0.5 for n, t in layer.items()} for layer in v]
+            for k, v in sess.params.items()}
+    _, reading, _ = _traced(lambda: eng.update_params(half))
+    assert reading.totals[P + "model.schedule"].count == 1
 
 
 def test_traced_train_step_records_every_span_with_its_parent():
